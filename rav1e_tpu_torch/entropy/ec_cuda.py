@@ -20,15 +20,12 @@ computes this function.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import nvcc
 from rav1e_tpu_torch.device import resolve_device
 from rav1e_tpu_torch.entropy.ec import (
     EC_MIN_PROB,
@@ -37,10 +34,7 @@ from rav1e_tpu_torch.entropy.ec import (
     update_cdf,
 )
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "ec_pack.cu"
-_BUILD = Path(__file__).resolve().parent.parent / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SRC = nvcc.CSRC / "ec_pack.cu"
 
 
 class RecordingEncoder:
@@ -86,53 +80,17 @@ class RecordingEncoder:
         return pack_symbols(self.ir_tensor(), self.device, self.timings)
 
 
-# ---- the kernel: build, load, launch ---------------------------------------
+# ---- the kernel: load, launch -----------------------------------------------
 
-def _lib_path() -> Path:
-    tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"libec_pack_{tag}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the od_ec kernel needs the "
-                           "CUDA toolkit (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> Path:
-    """Compile csrc/ec_pack.cu for sm_90a into build/ (once per source
-    version; nvcc's report, ptxas register and shared-memory use
-    included, is kept beside the library as .log). Raises if nvcc is
-    missing or the build fails."""
-    out = _lib_path()
-    if not out.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                              str(_SRC)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n"
-                               f"{res.stdout}{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    return out
-
-
-_LIB: list = []     # the loaded library, once
+def _bind(lib):
+    lib.ec_pack_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.ec_pack_launch.restype = ctypes.c_int
 
 
 def _lib():
-    if not _LIB:
-        lib = ctypes.CDLL(str(build()))
-        lib.ec_pack_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_void_p,
-                                       ctypes.c_void_p, ctypes.c_void_p]
-        lib.ec_pack_launch.restype = ctypes.c_int
-        _LIB.append(lib)
-    return _LIB[0]
+    return nvcc.load(SRC, _bind)
 
 
 def _check_ir(ir: torch.Tensor, offsets: torch.Tensor | None):

@@ -57,6 +57,9 @@ from rav1e_tpu_torch.ops.intra import predict_modes
 from rav1e_tpu_torch.ops.ref.deblock import level_from_qindex
 from rav1e_tpu_torch.ops.ref.quant import ac_q, chroma_dq, dc_q, tx_scale
 from rav1e_tpu_torch.pipeline.tpu_inter import (
+    _not_ported,
+    _Stages,
+    gather_dense,
     nnz_stream,
     scanline,
     unpack_stream,
@@ -71,12 +74,6 @@ ANGULAR = (P.V_PRED, P.H_PRED, P.D45_PRED, P.D67_PRED, P.D113_PRED,
            P.D135_PRED, P.D157_PRED, P.D203_PRED)
 
 KF_META = 54   # per-block meta row: flags + modes + cfl + ytx + 8x8
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to rav1e_tpu_torch yet: ROADMAP.md queue 1, "
-        f"{item}")
 
 
 # ---- rate model (WriterCounter twin, batched) ------------------------------
@@ -419,9 +416,11 @@ def _mode_lut(modes):
 
 
 def _clamp_row(arr, r: int) -> int:
-    """A row start clamped into range, as jax.lax.dynamic_slice and
-    dynamic_update_slice clamp theirs."""
-    return min(max(r, 0), arr.shape[0] - 1)
+    """A one-row start as jax.lax.dynamic_slice and dynamic_update_slice
+    take theirs: a negative start counts from the end, then the start is
+    clamped into range."""
+    n = arr.shape[0]
+    return min(max(r + n if r < 0 else r, 0), n - 1)
 
 
 def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
@@ -619,31 +618,7 @@ def _finalize_kf(state, srcs, base_lf: int, use_deblock: bool):
     return meta, rec_packed, lvy, lvu, lvv
 
 
-def _gather_dense_kf(lv_y, lv_u, lv_v, idx):
-    n = idx.shape[0]
-    return torch.cat([lv_y[idx].reshape(n, -1), lv_u[idx].reshape(n, -1),
-                      lv_v[idx].reshape(n, -1)], dim=1)
-
-
 # ---- entry point ------------------------------------------------------------
-
-class _Stages:
-    """Wall time per stage into `out` (None: off), each taken after the
-    device has finished the stage's work."""
-
-    def __init__(self, dev: torch.device, out: dict | None):
-        self.dev, self.out = dev, out
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
-
 
 class KeyframeDevice(NamedTuple):
     """What the device half of a keyframe encode leaves on the device:
@@ -744,6 +719,19 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
     _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra)
     dev = resolve_device(device)
     kd = analyze_keyframe(planes, qindex, deblock, dev, timings)
+    return pack_keyframe(kd, planes, qindex, render_size, seq_extra, dev,
+                         timings)
+
+
+def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
+                  render_size: tuple | None = None,
+                  seq_extra: dict | None = None, device=None,
+                  timings: dict | None = None):
+    """The host half of a keyframe encode (the reference's deferred
+    `_finish`): one fetch of the meta buffer and the recon, unpack, the
+    overflow gather, the tile walk (its IR range-coded on `device`) and
+    the OBU packet. Returns (packet, [y, u, v] recon int32)."""
+    dev = resolve_device(device)
     stages = _Stages(dev, timings)
     h, w = np.asarray(planes[0]).shape
     bh, bw = h // LB, w // LB
@@ -773,9 +761,8 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
                                            sp.reshape(B), cap)
     didx = np.nonzero(over)[0]
     if len(didx):
-        gd = _gather_dense_kf(kd.lvy, kd.lvu, kd.lvv,
-                              torch.as_tensor(didx, device=dev)
-                              ).cpu().numpy()
+        gd = gather_dense(kd.lvy, kd.lvu, kd.lvv,
+                          torch.as_tensor(didx, device=dev)).cpu().numpy()
         lv_y[didx] = gd[:, :1024].reshape(-1, 32, 32)
         lv_u[didx] = gd[:, 1024:1280].reshape(-1, 16, 16)
         lv_v[didx] = gd[:, 1280:].reshape(-1, 16, 16)

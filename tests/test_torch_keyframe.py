@@ -5,6 +5,8 @@ decoders (libdav1d, libaom) must decode the port's packet exactly to the
 port's recon. Only two frame shapes are compared, because each costs a
 JAX compile."""
 
+import ctypes
+import gc
 from pathlib import Path
 
 import jax
@@ -17,6 +19,25 @@ from rav1e_tpu.pipeline import tpu_intra as jti
 from rav1e_tpu_torch.pipeline import tpu_intra as tti
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _light_on_a_shared_worker():
+    """The test runner's workers share the machine's memory, and each
+    keeps the heap its earlier modules freed: hand it back to the system
+    before the module (glibc's malloc_trim), and drop the worker's JAX
+    compiles after it."""
+    _trim_heap()
+    yield
+    jax.clear_caches()
+    _trim_heap()
+
+
+def _trim_heap():
+    gc.collect()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)
+    if trim is not None:
+        trim(0)
 
 
 def synth(w, h, seed=7):

@@ -20,10 +20,15 @@ import numpy as np
 import rav1e_tpu_torch
 import chip_smoke
 from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
+from rav1e_tpu_torch.pipeline.tpu_inter import encode_gop_tpu
 planes = chip_smoke.synth(64, 64)[0]
 pkt, rec = encode_keyframe_tpu(planes, 100, device="cpu")
 assert len(pkt) > 100 and [r.shape for r in rec] == [(64, 64), (32, 32),
                                                       (32, 32)]
+pkts, recs = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=10,
+                            device="cpu")
+assert pkts[0] == pkt and len(pkts) == 2
+assert [tuple(r.shape) for r in recs[1]] == [(64, 64), (32, 32), (32, 32)]
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "rav1e_tpu"))]
 assert not bad, bad
@@ -33,8 +38,8 @@ print("ok", len(pkt))
 
 def test_port_runs_with_jax_and_reference_blocked():
     """In a subprocess where importing jax or rav1e_tpu fails, the port
-    (and chip_smoke.py) imports and encodes a 64x64 keyframe on the
-    CPU."""
+    (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
+    KEY + P GOP on the CPU."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
