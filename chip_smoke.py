@@ -7,18 +7,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. the card (nvidia-smi name + power limit), torch and CUDA versions;
   2. the build of csrc/ec_pack.cu and csrc/gather_patches.cu with nvcc
      for sm_90a, one nvcc process each, started together;
-  3. the od_ec kernel against its plain version: a 4-tile batch (three
+  3. the od_ec kernels against their plain version: a 4-tile batch (three
      random adapting-CDF streams of about 20k IR rows, one empty tile) in
-     one launch; chunks and state identical, finished bytes equal to the
-     port's ECEncoder;
+     one call at chunk lengths L = 16, 100 and the default: chunk starts
+     equal to chunk_starts, finished bytes equal to pack_ir_plain +
+     finish and to the port's ECEncoder; and a stream whose carry runs
+     back through some 10,000 0xFF bytes;
   4. the patch-gather kernel against its plain version at the 1080p P
      frame's three shapes (B = 2040; P = 43, 39 from the padded luma
      plane, P = 23 from a padded chroma plane), starts out of range
      included: max |err| 0; kernel, plain and indexing-call times;
   5. the speed-10 keyframe slice at 1920x1088 on cuda, once to warm and
-     once timed: stage times, the ec kernel's time (CUDA events), the
-     launch count of the main-path run, and the tile's IR coded again by
-     pack_ir_plain with identical bytes;
+     once timed: stage times, the launch count of the main-path run, the
+     tile's IR coded again by pack_ir_plain with identical bytes, and the
+     ec kernels' device time (CUDA events) at L = 256, 512, 1024, 2048
+     with identical bytes at each, and per pass at the default L = 512;
   6. the port on cuda vs the port on cpu, keyframe at 256x192: level
      differences (|d| = 1 at < 1e-4 of the coefficients allowed, from the
      f32 forward transform) and identical recon wherever no differing
@@ -29,7 +32,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   8. encode_gop_tpu at 1920x1088, KEY + 2 P, speed 10, q 100: per-frame
      stage times and packet sizes; every P frame launched gather_patches
      and ec_pack; every tile's IR coded again by pack_ir_plain gives the
-     packet's bytes; recon within 0..255.
+     packet's bytes; recon within 0..255; each tile's ec kernel time at
+     L = 256, 512, 1024 and its per-pass times.
 
 Prints a kernels JSON line, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -103,6 +107,31 @@ def random_stream(seed: int, iters: int):
     return rec.ir_tensor(), enc.done()
 
 
+def carry_stream(steps: int):
+    """Bools steered to keep the coder's interval around 1/2, so `low`
+    runs to 0x7FFF...; then one bool lifts it above 1/2, and the carry
+    runs back through every 0xFF byte. Returns (IR, ECEncoder bytes)."""
+    from rav1e_tpu_torch.entropy.ec import PROB_TOP, ECEncoder
+    from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
+    enc, rec = ECEncoder(), RecordingEncoder()
+    low, rng, nbits = 0, PROB_TOP, 15
+
+    def bool_(val, f):
+        nonlocal low, rng, nbits
+        v = (((rng >> 8) * (f >> 6)) >> 1) + 4
+        low, rng = (low + rng - v, v) if val else (low, rng - v)
+        d = 16 - rng.bit_length()
+        low, rng, nbits = low << d, rng << d, nbits + d
+        enc.encode_bool(val, f)
+        rec.encode_bool(val, f)
+
+    for _ in range(steps):
+        v = (((rng >> 8) * (1 << 8)) >> 1) + 4
+        bool_(int(low + rng - v <= 1 << (nbits - 1)), 1 << 14)
+    bool_(1, 64)
+    return rec.ir_tensor(), enc.done()
+
+
 def kernel_vs_plain(torch, ec):
     """Phase 3."""
     streams = [random_stream(s, 9000) for s in (11, 12, 13)]
@@ -112,32 +141,52 @@ def kernel_vs_plain(torch, ec):
     if streams[-1][1] != ECEncoder().done():
         fail("empty-tile termination differs from ECEncoder")
     irs = [s[0] for s in streams]
+    plain = [ec.finish(c.tolist(), *st[:3].tolist())
+             for c, st in map(ec.pack_ir_plain, irs)]
     offs = [0]
     for ir in irs:
         offs.append(offs[-1] + ir.shape[0])
     ir_all = torch.cat(irs).cuda()
     off_t = torch.tensor(offs, dtype=torch.int64).cuda()
-    chunks, state = ec.pack_ir(ir_all, off_t)
-    torch.cuda.synchronize()
-    chunks, state = chunks.cpu(), state.cpu()
-    err = 0
-    for t, (ir, ref_bytes) in enumerate(streams):
-        c_p, st_p = ec.pack_ir_plain(ir)
-        base = 2 * offs[t] + 64 * t
-        k = int(state[t, 3])
-        if not torch.equal(state[t], st_p):
-            fail(f"tile {t}: kernel state {state[t].tolist()} != plain "
-                 f"{st_p.tolist()}")
-        c_k = chunks[base: base + k]
-        if not torch.equal(c_k, c_p):
-            fail(f"tile {t}: kernel chunks differ from the plain version")
-        err = max(err, int((c_k - c_p).abs().max()) if k else 0)
-        if ec.tile_bytes(chunks, state, t, offs) != ref_bytes:
-            fail(f"tile {t}: kernel bytes differ from ECEncoder")
-    print(f"# kernel vs plain: 4 tiles in one launch, IR rows "
-          f"{[int(ir.shape[0]) for ir in irs]}: chunks, state and bytes "
-          f"identical (max |err| {err})", flush=True)
-    return err
+    for L in (16, 100, ec.CHUNK_ROWS):
+        work: dict = {}
+        out, lens = ec.pack_ir(ir_all, off_t, chunk_rows=L, work=work)
+        torch.cuda.synchronize()
+        tiles = ec.fetch_tiles(out, lens, offs)
+        sinfo = work["sinfo"].cpu()
+        counts = []
+        for t, ir in enumerate(irs):
+            got = sinfo[sinfo[:, 0] == t, 2]
+            want = ec.chunk_starts(ir, L)
+            if not torch.equal(got[got >= 0].long(), want[want >= 0]):
+                fail(f"L = {L}, tile {t}: the kernel's chunk starts differ "
+                     "from chunk_starts")
+            counts.append(int((got >= 0).sum()))
+            err = byte_err(tiles[t], plain[t])
+            if err or tiles[t] != streams[t][1]:
+                fail(f"L = {L}, tile {t}: kernel bytes differ from "
+                     f"pack_ir_plain + finish or ECEncoder (max |err| "
+                     f"{err})")
+        print(f"# kernel vs plain at L = {L}: 4 tiles in one launch, IR "
+              f"rows {[int(ir.shape[0]) for ir in irs]}, chunks {counts}: "
+              "bytes identical to pack_ir_plain + finish and ECEncoder "
+              "(max |err| 0)", flush=True)
+    ir_c, ref_c = carry_stream(80000)
+    for L in (16, ec.CHUNK_ROWS):
+        out, lens = ec.pack_ir(ir_c.cuda(), chunk_rows=L)
+        if ec.fetch_tiles(out, lens, [0, ir_c.shape[0]])[0] != ref_c:
+            fail(f"L = {L}: the carry stream's kernel bytes differ from "
+                 "ECEncoder")
+    print(f"# carry through {len(ref_c)} bytes of 0x7FFF...F ({ir_c.shape[0]}"
+          " IR rows, two stages of the carry pass) at L = 16 and the "
+          "default: bytes identical", flush=True)
+
+
+def byte_err(a: bytes, b: bytes) -> int:
+    """Largest |a[i] - b[i]|; 256 if the lengths differ."""
+    if len(a) != len(b):
+        return 256
+    return max((abs(x - y) for x, y in zip(a, b)), default=0)
 
 
 def time_cuda(torch, fn, reps: int, hold: bool = True) -> float:
@@ -202,40 +251,61 @@ def slice_1080p(torch, ec, ti):
 
     n = int(ir.shape[0])
     ir_d = ir.cuda()
-    out = {}
-
-    def run():
-        out["r"] = ec.pack_ir(ir_d)
-
-    ms = time_cuda(torch, run, 3)
-    chunks, state = (x.cpu() for x in out["r"])
-    k = int(state[0, 3])
     t0 = time.perf_counter()
     c_p, st_p = ec.pack_ir_plain(ir)
+    plain = ec.finish(c_p.tolist(), *st_p[:3].tolist())
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if not (torch.equal(state[0], st_p) and torch.equal(chunks[:k], c_p)):
-        fail("1080p tile: kernel and plain version disagree")
-    err = int((chunks[:k] - c_p).abs().max()) if k else 0
-    tile = ec.tile_bytes(chunks, state, 0, [0, n])
-    if tile != ec.finish(c_p.tolist(), *st_p[:3].tolist()) \
-            or tile not in pkt:
-        fail("1080p tile: kernel bytes differ from the plain bytes or "
-             "the packet")
+    if plain not in pkt:
+        fail("1080p tile: the plain bytes are not the packet's tile")
+    k = int(st_p[3])
+    ms = {}
+    for L in (256, 512, ec.CHUNK_ROWS, 2048):
+        got = {}
+
+        def run():
+            got["r"] = ec.pack_ir(ir_d, chunk_rows=L)
+
+        ms[L] = time_cuda(torch, run, 3)
+        err = byte_err(ec.fetch_tiles(*got["r"], [0, n])[0], plain)
+        if err:
+            fail(f"1080p tile, L = {L}: kernel and plain bytes differ "
+                 f"(max |err| {err})")
+    passes = pass_times(torch, ec, ir_d)
     nbytes = 16 * n + 4 * k + 16 + 16     # IR, chunks, state, offsets
     ops = 24 * n + 5 * k                  # integer ops of the recurrence
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    print(f"# ec kernel, 1080p tile: {n} symbols, {ms:.3f} ms "
-          f"({n / ms * 1e3:.4g} symbols/s), plain {plain_ms:.1f} ms, "
+    kms = ms[ec.CHUNK_ROWS]
+    print(f"# ec kernel, 1080p keyframe tile: {n} symbols, {len(plain)} "
+          f"bytes, {kms:.4f} ms at L = {ec.CHUNK_ROWS} ({n / kms * 1e3:.4g} "
+          f"symbols/s); by L: {json.dumps({L: round(t, 4) for L, t in ms.items()})}"
+          f"; passes (ms): {json.dumps(passes)}; plain {plain_ms:.1f} ms, "
           f"bound {max(t_bytes, t_ops):.5f} ms, launches {launches}",
           flush=True)
     return {"name": "ec_pack", "route": "cuda",
             "source": "rav1e_tpu_torch/csrc/ec_pack.cu",
             "replaces": "rav1e_tpu/entropy/ec_pallas.py:82",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": kms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def pass_times(torch, ec, ir_d, reps: int = 3) -> dict:
+    """Device ms of each pass of the od_ec kernels on one tile (default
+    chunk length), by CUDA events around each pass, mean of reps calls
+    queued behind a spin kernel."""
+    ec.pack_ir(ir_d)
+    torch.cuda.synchronize()
+    evs = [[torch.cuda.Event(enable_timing=True)
+            for _ in range(len(ec.PASSES) + 1)] for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for ev in evs:
+        ec.pack_ir(ir_d, events=ev)
+    torch.cuda.synchronize()
+    return {name: round(sum(ev[i].elapsed_time(ev[i + 1])
+                            for ev in evs) / reps, 5)
+            for i, name in enumerate(ec.PASSES)}
 
 
 def gpu_vs_cpu(torch, ti):
@@ -454,6 +524,15 @@ def gop_1080p(torch, ec, gp, ti, tp):
     rows = [int(x.shape[0]) for x in captured]
     print(f"# 1080p GOP: {len(captured)} tiles ({rows} symbols) re-coded "
           "by pack_ir_plain: identical bytes", flush=True)
+    for i, ir in enumerate(captured):
+        ir_d = ir.cuda()
+        ms = {L: time_cuda(torch, lambda: ec.pack_ir(ir_d, chunk_rows=L), 3)
+              for L in (256, ec.CHUNK_ROWS, 1024)}
+        print(f"# frame {i} tile ({ir.shape[0]} symbols): ec kernel "
+              f"{ms[ec.CHUNK_ROWS]:.4f} ms at L = {ec.CHUNK_ROWS}; by L: "
+              f"{json.dumps({L: round(t, 4) for L, t in ms.items()})}; "
+              f"passes (ms): {json.dumps(pass_times(torch, ec, ir_d))}",
+              flush=True)
     return launches[0], sizes, n_p
 
 
