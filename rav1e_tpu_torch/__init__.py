@@ -6,9 +6,11 @@ Pallas kernel of the reference on a ported path is a hand-written CUDA
 kernel under `csrc/`. Entry points run on `cuda` unless the caller
 passes `device="cpu"` (see `device.resolve_device`).
 
-Ported so far: the speed-9/10 keyframe path,
-`pipeline.tpu_intra.encode_keyframe_tpu`, whose tile is range-coded by
-the od_ec kernel in `csrc/ec_pack.cu`.
+Ported so far: the speed-8 to 10 KEY + P paths with CDEF
+(`pipeline.tpu_inter.encode_gop_tpu`, `encode_pframe_tpu`,
+`pipeline.tpu_intra.encode_keyframe_tpu`), with the od_ec range coder
+(`csrc/ec_pack.cu`), the patch gather (`csrc/gather_patches.cu`) and
+CDEF (`csrc/cdef.cu`) as CUDA kernels.
 """
 
 import torch

@@ -10,17 +10,20 @@ frame batches:
   sums), at half resolution (ds2) once the frame has >= 510 blocks;
 - neighbour / median / zero / coarse (4x downsampled) MV candidates,
   8 passes on the search's SSD surface and one exact re-judge;
+- a fixed-trip descent from one gathered patch per block: quarter-pel
+  at speed 8 (subpel), a single full-pel step after ds2 at speeds 9-10;
 - spec 8-tap MC in int32 from patches that `ops.gather.gather_patches`
   (a CUDA kernel on the card) copies out of the padded reference;
 - DCT + quantize + bit-exact inverse over the [B, 32, 32] batch, skip
-  RD, deblock level search, and one packed int8 decision buffer;
+  RD, the deblock level search, CDEF's per-SB ladder search (ops/cdef,
+  CUDA kernels on the card), and one packed int8 decision buffer;
 - host: unpack, TileWriter walk, od_ec coding by the CUDA kernel of
   entropy/ec_cuda, OBU packet.
 
-This slice ports the speed-9/10 P toolset (api/speed.py): single
-reference, full-pel MVs (no subpel descent beyond ds2's full-pel step),
-no split RDO, no 64x64 merge, no intra-in-inter, no CDEF. Other options
-raise NotImplementedError naming the ROADMAP.md item that brings them.
+This slice ports the speed-8 to 10 P toolsets (api/speed.py): single
+reference, subpel at speed 8, CDEF when asked, no split RDO, no 64x64
+merge, no intra-in-inter, no SATD. Other options raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
@@ -357,17 +360,16 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
     patch per block. Returns (mv8 [B,2] eighth-pel, patch, pir0, pic0,
     grid_fn); grid_fn(mv [B,2]) estimates full-frame SSE of an in-window
     MV from the search's SSD surface. patch is None when there is no
-    descent (the full-resolution stage at speeds 9-10).
+    descent (the full-resolution stage without subpel).
 
     ds2=True runs the full-pel stage at HALF resolution once the frame
     has >= 510 blocks, then opens the descent with a full-pel step from
-    M=2 patches."""
+    M=2 patches. subpel (speed 8) descends on to quarter pel: steps of
+    8, 4, 2, 2 eighth-pel after ds2, 4, 2, 2 at full resolution (M=1),
+    every candidate predicted from the one patch."""
     if use_satd:
         _not_ported("SATD subpel distortion",
                     "item 8 (keyframes at speeds 8 and 6)")
-    if subpel:
-        _not_ported("the subpel descent", "item 8 (keyframes at speeds 8 "
-                    "and 6: subpel P frames at speed 8)")
     assert search <= PAD, (search, PAD)
     dev = ryp.device
     nby_l = ryp.shape[0] // 32 - 2                # h // 32
@@ -447,8 +449,8 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
                              flat % (2 * S2 + 1) - S2], 1) * 2
         grid_S, grid_step = S2, 2
         # full-pel opening step: the ds2 winner is within +-1 px of
-        # the full-res optimum
-        desc_steps = (8,)
+        # the full-res optimum; drift 8+4+2+2 = 2 px -> M = 2
+        desc_steps = (8, 4, 2, 2) if subpel else (8,)
         M = 2
     else:
         win_sz = 2 * search + 32
@@ -463,7 +465,7 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
         mv_fp = torch.stack([flat // (2 * search + 1) - search,
                              flat % (2 * search + 1) - search], 1)
         grid_S, grid_step = search, 1
-        desc_steps = ()
+        desc_steps = (4, 2, 2) if subpel else ()
         M = 1
 
     ssd_flat = ssd.reshape(B, -1)
@@ -766,12 +768,15 @@ def _finish_outputs(y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8,
                     split16=None, skip8_out=None, lv_y8=None,
                     lv_u4=None, lv_v4=None, bd: int = 8):
     """Common tail of p_frame_body: in-loop filter + scan line + output
-    tuple. The 16->8 layout (split16) and CDEF are not ported."""
+    tuple. The 16->8 layout (split16) is not ported; the P frame's CDEF
+    runs in _core's `cdef` stage, not through cdef_fn."""
     if split16 is not None:
         _not_ported("16->8 split RDO", "item 8 (keyframes at speeds 8 and "
                     "6: the speed-6 P tools)")
     if cdef_fn is not None:
-        _not_ported("CDEF", "item 7 (CDEF)")
+        raise NotImplementedError(
+            "p_frame_body's cdef_fn has no caller in rav1e_tpu_torch: the "
+            "P frame's CDEF search runs in _core (its `cdef` stage)")
     dev = y.device
     fry = from_blocks(rec_y, h, tw, 32)
     fru = from_blocks(rec_u, h // 2, tw // 2, 16)
@@ -802,8 +807,8 @@ def _finish_outputs(y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8,
 def _sub_grids(nby, nbx, split16, skip16_out, skip8_out):
     """Spatial grids from quad-ordered flags: s16g [2nby, 2nbx] — the
     per-16 sub-split map; skip8g [4nby, 4nbx] — the exact 8x8-unit skip
-    map (per-8 inside split16 quads, the 16's skip elsewhere). For the
-    16->8 deblock map and the CDEF skip gate (items 8 and 7)."""
+    map (per-8 inside split16 quads, the 16's skip elsewhere): CDEF's
+    skip gate (and the 16->8 deblock map of item 8)."""
     s16g = (split16.reshape(nby, nbx, 2, 2)
             .permute(0, 2, 1, 3).reshape(nby * 2, nbx * 2))
     sk16 = (skip16_out.reshape(nby, nbx, 2, 2)
@@ -1111,9 +1116,8 @@ def _core(h: int, w: int, use_cdef: bool = False,
     tensors. Returns (step, (nby, nbx), gather_dense) with
     step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark) ->
     (packed decisions int8, lv_y, lv_u, lv_v (int16, on the device for
-    the overflow gather), recon y, u, v uint8)."""
-    if use_cdef:
-        _not_ported("CDEF", "item 7 (CDEF)")
+    the overflow gather), recon y, u, v uint8). `mark(name)` runs after
+    each stage: search, cand, code (core), filt (deblock), cdef, pack."""
     if two_ref:
         _not_ported("the two-reference step", "item 11 (other P/B routes)")
     nby, nbx = h // 32, w // 32
@@ -1135,19 +1139,32 @@ def _core(h: int, w: int, use_cdef: bool = False,
                             use_split8=use_split8, bd=bd, mark=mark)
 
     def filt(src, fry, fru, frv, base_lf, cdef_prm, split, skip16, b64m,
-             lam, split16, skip8q):
-        """The in-loop filter search as its own stage: the deblock level
-        search on the 16-px edge grid, interior edges gated by the split
-        map. Returns (lf_lvl, cdef_idx, y, u, v uint8)."""
+             lam, split16, skip8q, mark=_nomark):
+        """The in-loop filter searches as their own stages: the deblock
+        level search on the 16-px edge grid (interior edges gated by the
+        split map), then, with use_cdef, the per-64x64-SB CDEF ladder
+        search against the source (damping cdef_prm[4], the
+        nb_strengths RD at lam) on the exact 8x8-unit skip gate.
+        Returns (lf_lvl, cdef_idx, y, u, v uint8)."""
+        from rav1e_tpu_torch.ops.cdef import cdef_search_persb
         from rav1e_tpu_torch.ops.deblock import deblock_search
         y, u, v = _unpack_src(src, h, w)
         planes = [fry.to(torch.int32), fru.to(torch.int32),
                   frv.to(torch.int32)]
-        lf_lvl, planes = deblock_search(
-            planes, [y, u, v], base_lf, block_y=16, block_c=8, bd=bd,
-            split_map=split.reshape(nby, nbx))
-        cdef_idx = torch.zeros(((nby + 1) // 2, (nbx + 1) // 2),
-                               dtype=torch.int32, device=src.device)
+        _, skip8 = _sub_grids(nby, nbx, split16, skip16, skip8q)
+        lf_lvl = torch.zeros((), dtype=torch.int32, device=src.device)
+        if use_deblock:
+            lf_lvl, planes = deblock_search(
+                planes, [y, u, v], base_lf, block_y=16, block_c=8, bd=bd,
+                split_map=split.reshape(nby, nbx))
+        mark("filt")
+        if use_cdef:
+            cdef_idx, planes = cdef_search_persb(
+                planes, [y, u, v], skip8, cdef_prm[4], lam=lam, bd=bd)
+        else:
+            cdef_idx = torch.zeros(((nby + 1) // 2, (nbx + 1) // 2),
+                                   dtype=torch.int32, device=src.device)
+        mark("cdef")
         dt = _pix_dtype(bd)
         return (lf_lvl, cdef_idx, planes[0].to(dt), planes[1].to(dt),
                 planes[2].to(dt))
@@ -1159,15 +1176,14 @@ def _core(h: int, w: int, use_cdef: bool = False,
 
     def step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=_nomark):
         o = core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark)
-        if not use_deblock:
+        if not (use_deblock or use_cdef):
             out = (pack(o, o[9], o[10]), o[3], o[4], o[5], o[6], o[7],
                    o[8])
             mark("pack")
             return out
         lf_lvl, cdef_idx, fry, fru, frv = filt(
             src, o[6], o[7], o[8], rd["base_lf"], cdef_prm, o[11], o[13],
-            o[16], rd["lam"], o[17], o[18])
-        mark("filt")
+            o[16], rd["lam"], o[17], o[18], mark)
         out = (pack(o, lf_lvl, cdef_idx), o[3], o[4], o[5], fry, fru, frv)
         mark("pack")
         return out
@@ -1213,12 +1229,18 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     split) from the batched outputs: TileWriter walks the blocks on the
     host and its RecordingEncoder has the tile range-coded on `device`
     (the od_ec kernel on cuda). `timings` receives tile_walk, ec_kernel
-    and finish. The C++ packer, CDEF, LR, tiles and the split / 64x64 /
-    intra block kinds are not ported."""
+    and finish.
+
+    cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
+    idx_map): the per-SB form signals the ladder entries the SBs chose
+    (compact_ladder) and a literal index per 64x64 SB in the tile. The
+    C++ packer, LR, tiles and the split / 64x64 / intra block kinds are
+    not ported."""
     if use_native:
         _not_ported("the C++ packer", "item 9 (the C++ packer)")
-    if cdef is not None:
-        _not_ported("CDEF", "item 7 (CDEF)")
+    cdef_map = None
+    if cdef is not None and isinstance(cdef[1], np.ndarray):
+        cdef, cdef_map = cdef
     if lr_ctx is not None:
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
@@ -1234,7 +1256,7 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
                         "speed-6 P tools)")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
-    seq = Sequence(width=w, height=h, enable_cdef=False,
+    seq = Sequence(width=w, height=h, enable_cdef=cdef is not None,
                    bit_depth=bit_depth,
                    film_grain_params_present=film_grain is not None)
     lf = int(lf_level)
@@ -1243,6 +1265,14 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
                      loop_filter_levels=(lf, lf, lf, lf))
     fp.film_grain = film_grain
     fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
+    cdef_bits = 0
+    if cdef_map is not None:
+        from rav1e_tpu_torch.ops.cdef import compact_ladder
+        fp.cdef_damping = cdef[4]
+        fp.cdef_strengths, cdef_bits, cdef_map = compact_ladder(cdef_map)
+    elif cdef is not None:
+        (fp.cdef_y_pri, fp.cdef_y_sec, fp.cdef_uv_pri, fp.cdef_uv_sec,
+         fp.cdef_damping) = cdef
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     nbx = w // 32
@@ -1250,6 +1280,9 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     tw = TileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
                     encoder=functools.partial(RecordingEncoder, dev,
                                               ec_times))
+    if cdef_bits:
+        tw.cdef_bits = cdef_bits
+        tw.cdef_idx_map = cdef_map
     partitions: dict = {}
     blocks: dict = {}
     for b in range(mv8.shape[0]):
@@ -1300,22 +1333,28 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                       ref_dev=None, return_device: bool = False,
                       cdef: tuple | None = None, film_grain=None,
                       render_size: tuple | None = None,
-                      use_split: bool = False,
+                      use_split: bool = True,
                       refresh_flags: int = 0x01, ref_slot: int = 0,
                       show_frame: bool = True, dscale=None,
                       src_dev=None, use_satd: bool = False,
-                      refine16: bool = False, intra_rdo: bool = False,
+                      refine16: bool = True, intra_rdo: bool = False,
                       b64_rdo: bool = False, lr: bool = False,
-                      search: int = 8, subpel: bool = False,
+                      search: int = SEARCH, subpel: bool = True,
                       use_split8: bool = False, bit_depth: int = 8,
                       tile_grid: tuple | None = None, device=None,
                       timings: dict | None = None):
     """Batched P frame (single reference) on the device; dims multiples
     of 32, 4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed.
 
-    The defaults are the speed-9/10 toolset (api/speed.py: no split RDO,
-    full-pel search of 8 px, no subpel); the reference's speed-6 tools
-    raise NotImplementedError naming their ROADMAP item.
+    The defaults are the reference's (split RDO, a 16-px search, subpel),
+    so a call that relies on them raises NotImplementedError naming the
+    ROADMAP item of the tool not ported yet; the speed-8 toolset is
+    use_split=False, refine16=False, search=8, subpel=True, and speeds
+    9-10 take subpel=False. use_native (the reference's C++ packer, which
+    writes the same bytes as the Python writer) is item 9.
+    cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
+    64x64 SB picks its ladder entry (damping cdef[4]) and the frame
+    signals the entries used.
     ref_dev: device-resident reference planes (y, u, v uint8) from a
     prior call with return_device=True, which skips the upload; src_dev:
     the packed source (pack_src) already on the device. `timings`
@@ -1341,7 +1380,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                         for p in ref_planes)
     if src_dev is None:
         src_dev = torch.from_numpy(pack_src(planes, bd=bit_depth)).to(dev)
-    cdef_prm = torch.tensor([0, 0, 0, 0, 3], dtype=torch.int32, device=dev)
+    cdef_prm = _cdef_prm(cdef)
     rd = build_rd_inter(qindex, bit_depth, device=dev)
     ds = _ds16_quads(dscale, nby, nbx, dev)
     stages.mark("upload")
@@ -1349,11 +1388,13 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                 ds, stages.mark)
     rec_dev = outs[4:7]
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
-     _, _, _, _, _, _) = _fetch_packed(outs, gdense, nby, nbx)
+     cdef_map, _, _, _, _, _) = _fetch_packed(outs, gdense, nby, nbx)
     rec = [r.cpu().numpy().astype(np.int32) for r in rec_dev]
     stages.mark("fetch_unpack")
     pkt = _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u,
-                       lv_v, film_grain=film_grain,
+                       lv_v, cdef=None if cdef is None else (cdef_prm,
+                                                             cdef_map),
+                       film_grain=film_grain,
                        render_size=render_size, lf_level=lf_lvl,
                        split=split, mv16=mv16, skip16=skip16,
                        refresh_flags=refresh_flags, ref_slot=ref_slot,
@@ -1364,12 +1405,23 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     return pkt, rec
 
 
+def _cdef_prm(cdef):
+    """The step's CDEF parameters: the 5-tuple of python ints, or the
+    reference's placeholder when CDEF is off."""
+    if cdef is not None and len(cdef) != 5:
+        raise ValueError("cdef is (y_pri, y_sec, uv_pri, uv_sec, damping)")
+    return tuple(int(c) for c in cdef) if cdef is not None else (0, 0, 0, 0,
+                                                                 3)
+
+
 def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                    cdef: tuple | None = None, device=None,
                    timings: list | None = None):
-    """KEY + P chain on the device, at speeds 9-10; 4:2:0 8-bit frames
+    """KEY + P chain on the device, at speeds 8-10; 4:2:0 8-bit frames
     with dims multiples of 32. Runs on `cuda` unless device="cpu" is
-    passed.
+    passed. cdef (None, or (y_pri, y_sec, uv_pri, uv_sec, damping)) runs
+    the per-SB CDEF search on every frame, with damping cdef[4]; each P
+    frame then references the CDEF-filtered recon.
 
     The frames run in order: the keyframe's device half, its host pack,
     then each P step, its fetch and its host pack. The reference planes
@@ -1396,17 +1448,18 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
 
     if len(frames) == 1:
         pkt, rec = encode_keyframe_tpu(frames[0], qindex=qindex,
-                                       speed=speed, device=dev,
+                                       speed=speed, cdef=cdef, device=dev,
                                        timings=frame_times())
         return [pkt], [rec]
     t_kf = frame_times()
-    kd = analyze_keyframe(frames[0], qindex, device=dev, timings=t_kf)
+    kd = analyze_keyframe(frames[0], qindex, speed, cdef=cdef, device=dev,
+                          timings=t_kf)
     kf_pkt, kf_rec = pack_keyframe(kd, frames[0], qindex, device=dev,
                                    timings=t_kf)
     pkts, recs = [kf_pkt], [kf_rec]
     h, w = frames[0][0].shape
     ss = SpeedSettings.from_preset(speed)
-    step, (nby, nbx), gdense = _core(h, w, False,
+    step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=ss.partition_split_rdo,
                                      use_satd=ss.satd_subpel,
                                      refine16=ss.mv_refine_16,
@@ -1417,7 +1470,7 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                                      use_split8=ss.partition_split8)
     dcq, acq = _q_scalars(qindex, dev)
     rd = build_rd_inter(qindex, device=dev)
-    cdef_prm = torch.tensor([0, 0, 0, 0, 3], dtype=torch.int32, device=dev)
+    cdef_prm = _cdef_prm(cdef)
     ones = _ds16_quads(None, nby, nbx, dev)
     rp = kd.rec_packed
     ref_dev = (rp[:h], rp[h:, :w // 2], rp[h:, w // 2:])
@@ -1429,11 +1482,12 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones, stages.mark)
         ref_dev = o[4:7]
         (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
-         _, _, _, _, _, _) = _fetch_packed(o, gdense, nby, nbx)
+         cdef_map, _, _, _, _, _) = _fetch_packed(o, gdense, nby, nbx)
         stages.mark("fetch_unpack")
-        pkts.append(_pack_pframe(h, w, qindex, i, mv8, skip, lv_y, lv_u,
-                                 lv_v, lf_level=lf_lvl, split=split,
-                                 mv16=mv16, skip16=skip16, device=dev,
-                                 timings=t_p))
+        pkts.append(_pack_pframe(
+            h, w, qindex, i, mv8, skip, lv_y, lv_u, lv_v,
+            cdef=None if cdef is None else (cdef_prm, cdef_map),
+            lf_level=lf_lvl, split=split, mv16=mv16, skip16=skip16,
+            device=dev, timings=t_p))
         recs.append([o[4], o[5], o[6]])
     return pkts, recs

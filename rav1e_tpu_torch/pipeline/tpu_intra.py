@@ -13,15 +13,18 @@ runs in two phases:
            per block on diagonal-skewed state arrays, where every read
            and write is one row of the skewed layout.
 
-Then `_finalize_kf` runs the deblock level search and packs the meta +
+Then `_finalize_kf` runs the deblock level search and CDEF (the per-SB
+ladder search of ops/cdef, or one fixed strength) and packs the meta +
 nonzero-coefficient stream; the host unpacks it, walks the blocks into
 TileWriter, whose RecordingEncoder has the tile range-coded by the CUDA
 kernel of entropy/ec_cuda, and builds the OBU packet.
 
-This slice ports the speed-9/10 toolset (api/speed.py): DC-only luma and
-chroma, no split RDO, no CfL, no TX search, no split8, no above-right
-extension, no CDEF. Other options raise NotImplementedError naming the
-ROADMAP.md item that brings them.
+This slice ports the speed-8 to 10 toolsets (api/speed.py): DC-only luma
+and chroma at speeds 9-10, the 7 non-directional luma modes and 4 chroma
+modes at speed 8 (chroma 16x16 then codes in the mode's TX type), no
+split RDO, no CfL, no TX search, no split8, no above-right extension.
+Other options raise NotImplementedError naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from rav1e_tpu_torch.core.constants import (
     TxSize,
     TxType,
 )
+from rav1e_tpu_torch.api.speed import SpeedSettings
 from rav1e_tpu_torch.device import resolve_device
 from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
 from rav1e_tpu_torch.entropy.obu import (
@@ -52,11 +56,17 @@ from rav1e_tpu_torch.entropy.obu import (
 from rav1e_tpu_torch.entropy.tile import BlockDecision, TileWriter, \
     chroma_tx_type
 from rav1e_tpu_torch.ops import transforms as T
+from rav1e_tpu_torch.ops.cdef import (
+    cdef_filter_frame,
+    cdef_search_persb,
+    compact_ladder,
+)
 from rav1e_tpu_torch.ops.deblock import deblock_search
 from rav1e_tpu_torch.ops.intra import predict_modes
 from rav1e_tpu_torch.ops.ref.deblock import level_from_qindex
 from rav1e_tpu_torch.ops.ref.quant import ac_q, chroma_dq, dc_q, tx_scale
 from rav1e_tpu_torch.pipeline.tpu_inter import (
+    _nomark,
     _not_ported,
     _Stages,
     gather_dense,
@@ -69,7 +79,19 @@ LB = 32  # luma block
 CB = 16  # chroma block
 
 P = PredictionMode
+# speed 8: the 7 non-directional luma modes and 4 chroma modes
+MODES_7 = (P.DC_PRED, P.V_PRED, P.H_PRED, P.SMOOTH_PRED,
+           P.SMOOTH_V_PRED, P.SMOOTH_H_PRED, P.PAETH_PRED)
+# speed <= 6: + 6 directional (D45/D67 read the above-right extension,
+# D203 below-left: the 2i+j schedule, ROADMAP.md item 8)
+MODES_FULL = MODES_7 + (P.D45_PRED, P.D67_PRED, P.D113_PRED,
+                        P.D135_PRED, P.D157_PRED, P.D203_PRED)
+MODES_QUAD = MODES_7 + (P.D113_PRED, P.D135_PRED, P.D157_PRED)
 MODES_FAST = (P.DC_PRED,)
+MODES_UV = (P.DC_PRED, P.V_PRED, P.H_PRED, P.SMOOTH_PRED)
+MODES_UV_FULL = (P.DC_PRED, P.V_PRED, P.H_PRED, P.SMOOTH_PRED,
+                 P.SMOOTH_V_PRED, P.SMOOTH_H_PRED, P.PAETH_PRED,
+                 P.D113_PRED, P.D135_PRED, P.D157_PRED)
 ANGULAR = (P.V_PRED, P.H_PRED, P.D45_PRED, P.D67_PRED, P.D113_PRED,
            P.D135_PRED, P.D157_PRED, P.D203_PRED)
 
@@ -267,26 +289,35 @@ def _dq_dyn(lv, tx_size, dcq, acq):
 
 def _cand_eval(preds, srcb, tx_size, dqs, tts, maxpx=255, approx=False):
     """Evaluate K prediction candidates: returns (rec, lv, sse) stacked
-    [K, N, h, w] / [K, N]; tts: per-candidate TxType list (one TxType
-    for all candidates at speeds 9-10).
+    [K, N, h, w] / [K, N]; tts: per-candidate TxType list (one batched
+    chain when all candidates share a type, else one chain each).
 
     approx=True swaps the spec-exact integer inverse for the float
     inverse — for mode RANKING only; callers reconstruct survivors
     exactly."""
-    if len(set(tts)) != 1:
-        _not_ported("per-candidate TX types",
-                    "item 8 (keyframes at speeds 8 and 6)")
     inv = T.inverse_approx if approx else T.inverse_transform
     K, n, blkh, blkw = preds.shape
     dq0, dq1 = dqs
-    resid = (srcb[None] - preds).reshape(K * n, blkh, blkw)
-    cf = T.forward_transform(resid, tx_size, tts[0])
-    lv = _q_dyn(cf, tx_size, dq0, dq1)
-    dq = _dq_dyn(lv, tx_size, dq0, dq1)
-    r2 = inv(dq, tx_size, tts[0])
-    recb = torch.clamp(preds.reshape(K * n, blkh, blkw) + r2, 0, maxpx)
-    recb = recb.to(torch.int32).reshape(K, n, blkh, blkw)
-    lvk = lv.reshape(K, n, blkh, blkw)
+    if len(set(tts)) == 1:
+        resid = (srcb[None] - preds).reshape(K * n, blkh, blkw)
+        cf = T.forward_transform(resid, tx_size, tts[0])
+        lv = _q_dyn(cf, tx_size, dq0, dq1)
+        dq = _dq_dyn(lv, tx_size, dq0, dq1)
+        r2 = inv(dq, tx_size, tts[0])
+        recb = torch.clamp(preds.reshape(K * n, blkh, blkw) + r2, 0, maxpx)
+        recb = recb.to(torch.int32).reshape(K, n, blkh, blkw)
+        lvk = lv.reshape(K, n, blkh, blkw)
+    else:
+        recs, lvs = [], []
+        for k in range(K):
+            cf = T.forward_transform(srcb - preds[k], tx_size, tts[k])
+            lv = _q_dyn(cf, tx_size, dq0, dq1)
+            r2 = inv(_dq_dyn(lv, tx_size, dq0, dq1), tx_size, tts[k])
+            recs.append(torch.clamp(preds[k] + r2, 0, maxpx)
+                        .to(torch.int32))
+            lvs.append(lv)
+        recb = torch.stack(recs, 0)
+        lvk = torch.stack(lvs, 0)
     sse = torch.sum((recb - srcb[None]).to(torch.float32) ** 2,
                     dim=(-2, -1))
     return recb, lvk, sse
@@ -415,6 +446,18 @@ def _mode_lut(modes):
     return lut
 
 
+def _tts_select(modes, tx):
+    """(distinct TxType list, per-mode tx-id LUT) for chroma chains."""
+    tts = []
+    lut = np.zeros(32, np.int32)
+    for m in list(modes) + [P.UV_CFL_PRED]:
+        tt = chroma_tx_type(m, tx, True)
+        if tt not in tts:
+            tts.append(tt)
+        lut[int(m)] = tts.index(tt)
+    return tuple(tts), lut
+
+
 def _clamp_row(arr, r: int) -> int:
     """A one-row start as jax.lax.dynamic_slice and dynamic_update_slice
     take theirs: a negative start counts from the end, then the start is
@@ -440,11 +483,8 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
     qdc_c, qac_c = rd["qdc_c"], rd["qac_c"]
     luty = torch.as_tensor(_mode_lut(modes_y), device=dev).long()
     lutuv = torch.as_tensor(_mode_lut(modes_uv), device=dev).long()
-    tts16 = {chroma_tx_type(m, TxSize.TX_16X16, True) for m in modes_uv}
-    if len(tts16) != 1:
-        _not_ported("per-mode chroma TX types",
-                    "item 8 (keyframes at speeds 8 and 6)")
-    (tt16,) = tts16
+    tts16, tid16_np = _tts_select(modes_uv, TxSize.TX_16X16)
+    tid16 = torch.as_tensor(tid16_np, device=dev).long()
     o_a, o_l, o_tl = 1, 1, 2
     slot_has_a = torch.arange(S, device=dev) > 0
 
@@ -463,6 +503,15 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
         dqv = _dq_dyn(lv, tx, dq0, dq1)
         r2 = T.inverse_transform(dqv, tx, tt)
         return torch.clamp(pred + r2, 0, 255).to(torch.int32), lv
+
+    def code_sel(pred, src, tx, dq0, dq1, tts, tid):
+        """TX chain per distinct chroma TxType, selected by tid [S]."""
+        if len(tts) == 1:
+            return code_one(pred, src, tx, dq0, dq1, tts[0])
+        outs = [code_one(pred, src, tx, dq0, dq1, tt) for tt in tts]
+        t3 = tid[None, :, None, None].expand((1,) + tuple(pred.shape))
+        return (torch.gather(torch.stack([o[0] for o in outs]), 0, t3)[0],
+                torch.gather(torch.stack([o[1] for o in outs]), 0, t3)[0])
 
     def sel_modes(preds, k):
         idx = k[None, :, None, None].expand((1,) + tuple(preds.shape[1:]))
@@ -498,13 +547,14 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
 
         # ---- chroma 16 (chosen joint uv mode) ----
         ku = lutuv[uvm_d[:, 0].long()]
+        tu = tid16[uvm_d[:, 0].long()]
         out_c = []
         for rp, src in ((ru_sk, su_sk), (rv_sk, sv_sk)):
             a, left, tl = edges(rp, CB, row)
             pc = predict_modes(modes_uv, a, left, tl, slot_has_a, has_l,
                                CB, CB)
-            out_c.append(code_one(sel_modes(pc, ku), rows(src, d),
-                                  TxSize.TX_16X16, qdc_c, qac_c, tt16))
+            out_c.append(code_sel(sel_modes(pc, ku), rows(src, d),
+                                  TxSize.TX_16X16, qdc_c, qac_c, tts16, tu))
         (rec_u_d, lv_u_d), (rec_v_d, lv_v_d) = out_c
 
         put(ry_sk, row, rec_y_d)
@@ -556,27 +606,57 @@ def _to_blocks_t(p, b: int):
             .to(torch.int32))
 
 
-def _kf_filters(state, srcs, base_lf: int, use_deblock: bool):
-    """Keyframe in-loop filter: the deblock level search (CDEF is not
-    ported yet). Returns (lf_lvl 0-d int32, rec_packed uint8 [3h/2, w]:
-    y over u|v)."""
+def _kf_skip8(state):
+    """The CDEF skip gate [2 bh * 2, 2 bw * 2] on 8x8 units: each 16x16
+    quad's skip inside split blocks, the block's skip elsewhere."""
+    skip_q, skip_b, split = _kf_skip_flags(state)
+    bh, bw = state[8].shape
+    sk = torch.where(split[:, None], skip_q,
+                     skip_b[:, None].expand(-1, 4)).reshape(bh, bw, 2, 2)
+    return (sk.permute(0, 2, 1, 3).reshape(bh * 2, bw * 2)
+            .repeat_interleave(2, 0).repeat_interleave(2, 1))
+
+
+def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
+                use_cdef: bool, use_deblock: bool, cdef_rdo: bool = False,
+                mark=_nomark):
+    """Keyframe in-loop filters: the deblock level search, then CDEF —
+    the per-64x64-SB ladder search against the source (cdef_rdo) or the
+    fixed strengths cdef_prm (y_pri, y_sec, uv_pri, uv_sec, damping).
+    `mark(name)` runs after each ("filters", "cdef"). Returns (lf_lvl
+    0-d int32, cdef_idx [ceil(bh/2), ceil(bw/2)] int32, rec_packed uint8
+    [3h/2, w]: y over u|v)."""
+    bh, bw = state[8].shape
     planes = [_from_blocks_t(state[i]) for i in range(3)]
-    lf_lvl = torch.zeros((), dtype=torch.int32, device=planes[0].device)
+    dev = planes[0].device
+    lf_lvl = torch.zeros((), dtype=torch.int32, device=dev)
     if use_deblock:
         lf_lvl, planes = deblock_search(
             planes, [_from_blocks_t(s) for s in srcs], base_lf, LB, CB, 8)
+    mark("filters")
+    cdef_idx = torch.zeros(((bh + 1) // 2, (bw + 1) // 2), dtype=torch.int32,
+                           device=dev)
+    if use_cdef:
+        skip8 = _kf_skip8(state)
+        if cdef_rdo:
+            cdef_idx, planes = cdef_search_persb(
+                planes, [_from_blocks_t(s) for s in srcs], skip8,
+                cdef_prm[4], lam=lam)
+        else:
+            planes = cdef_filter_frame(planes, skip8, *cdef_prm)
+    mark("cdef")
     u8 = [p.to(torch.uint8) for p in planes]
-    return lf_lvl, torch.cat([u8[0], torch.cat([u8[1], u8[2]], 1)], 0)
+    return (lf_lvl, cdef_idx,
+            torch.cat([u8[0], torch.cat([u8[1], u8[2]], 1)], 0))
 
 
-def _kf_meta(state, lf_lvl):
+def _kf_meta(state, lf_lvl, cdef_idx):
     """Keyframe compact meta packing so the host does ONE small fetch.
 
     Returns (meta flat int8 = [B+1 hdr rows | counts | nonzero pos/val
-    stream], lv_y/lv_u/lv_v int16 device arrays for the overflow
-    gather). Hdr row: flags (skip, split) | my[5] | mu[5] | cf[2] |
-    ytx[4] | s16[4] | ym8[16] | uvm8[16]; tail row: [lf_lvl]. (The
-    reference appends the per-SB CDEF indices; CDEF is not ported.)"""
+    stream | per-SB cdef idx], lv_y/lv_u/lv_v int16 device arrays for
+    the overflow gather). Hdr row: flags (skip, split) | my[5] | mu[5] |
+    cf[2] | ytx[4] | s16[4] | ym8[16] | uvm8[16]; tail row: [lf_lvl]."""
     (_, _, _, ly, lu, lvv, my, mu, sp, cf, ytx, s16, ym8, uvm8) = state
     bh, bw = sp.shape
     B = bh * bw
@@ -605,16 +685,19 @@ def _kf_meta(state, lf_lvl):
                            -1).reshape(-1)
 
     meta = torch.cat([hdr.reshape(-1), words1(counts), words1(pos),
-                      words1(val)])
+                      words1(val), cdef_idx.reshape(-1).to(i8)])
     return (meta, ly_f.to(torch.int16), lu_f.to(torch.int16),
             lv_f.to(torch.int16))
 
 
-def _finalize_kf(state, srcs, base_lf: int, use_deblock: bool):
-    """Device-side keyframe epilogue: in-loop filter search, then the
+def _finalize_kf(state, srcs, base_lf: int, cdef_prm, lam, use_cdef: bool,
+                 use_deblock: bool, cdef_rdo: bool = False, mark=_nomark):
+    """Device-side keyframe epilogue: in-loop filter searches, then the
     compact meta packing."""
-    lf_lvl, rec_packed = _kf_filters(state, srcs, base_lf, use_deblock)
-    meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl)
+    lf_lvl, cdef_idx, rec_packed = _kf_filters(
+        state, srcs, base_lf, cdef_prm, lam, use_cdef, use_deblock,
+        cdef_rdo, mark)
+    meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx)
     return meta, rec_packed, lvy, lvu, lvv
 
 
@@ -623,21 +706,29 @@ def _finalize_kf(state, srcs, base_lf: int, use_deblock: bool):
 class KeyframeDevice(NamedTuple):
     """What the device half of a keyframe encode leaves on the device:
     the unskewed 14-grid state (pre-deblock recon, levels, decisions),
-    the meta buffer, the filtered recon and the int16 level arrays."""
+    the meta buffer, the filtered recon and the int16 level arrays; and
+    the CDEF settings the host half signals."""
     state: tuple
     meta: torch.Tensor
     rec_packed: torch.Tensor
     lvy: torch.Tensor
     lvu: torch.Tensor
     lvv: torch.Tensor
+    cdef: tuple | None = None
+    cdef_rdo: bool = True
+
+
+def _check_speed(speed: int):
+    if speed < 8:
+        _not_ported(f"speed {speed} (< 8: split RDO, and at 6 CfL, TX "
+                    "search, split8, the directional modes)",
+                    "item 8 (keyframes at speeds 8 and 6)")
 
 
 def _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra):
-    if speed < 9:
-        _not_ported(f"speed {speed} (< 9)",
-                    "item 8 (keyframes at speeds 8 and 6)")
-    if cdef is not None:
-        _not_ported("CDEF", "item 7 (CDEF)")
+    _check_speed(speed)
+    if cdef is not None and len(cdef) != 5:
+        raise ValueError("cdef is (y_pri, y_sec, uv_pri, uv_sec, damping)")
     if aq:
         _not_ported("variance AQ", "item 14 (keyframe variance AQ)")
     if lr:
@@ -650,12 +741,28 @@ def _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra):
         _not_ported("bit depth above 8", "item 12 (bd=10)")
 
 
-def analyze_keyframe(planes, qindex: int = 100, deblock: bool = True,
-                     device=None, timings: dict | None = None
-                     ) -> KeyframeDevice:
-    """The device half of a speed-9/10 keyframe encode (steps 1-5 of
-    encode_keyframe_tpu): upload, rd, phase 1, phase 2, deblock search
-    and meta packing."""
+def _mode_sets(speed: int):
+    """(modes_y, modes_uv) of a speed preset, as the reference derives
+    them from SpeedSettings."""
+    ss = SpeedSettings.from_preset(speed)
+    modes_y = (MODES_FULL if ss.intra_modes >= 13 else
+               (MODES_7 if ss.intra_modes >= 7 else MODES_FAST))
+    modes_uv = (MODES_UV_FULL if ss.intra_modes >= 13 else
+                (MODES_UV if ss.intra_modes >= 7 else MODES_FAST))
+    return modes_y, modes_uv
+
+
+def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
+                     deblock: bool = True, cdef: tuple | None = None,
+                     cdef_rdo: bool = True, device=None,
+                     timings: dict | None = None) -> KeyframeDevice:
+    """The device half of a keyframe encode (steps 1-5 of
+    encode_keyframe_tpu): upload, rd, phase 1, phase 2, the deblock and
+    CDEF searches and meta packing, with the speed preset's mode sets.
+    cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping); with
+    cdef_rdo each 64x64 SB takes its ladder entry (damping cdef[4]),
+    else the tuple is one fixed strength."""
+    _check_speed(speed)
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     y, u, v = (np.asarray(p) for p in planes)
@@ -670,7 +777,7 @@ def analyze_keyframe(planes, qindex: int = 100, deblock: bool = True,
     sy = _to_blocks_t(src[:h], LB)
     su = _to_blocks_t(src[h:, :w // 2], CB)
     sv = _to_blocks_t(src[h:, w // 2:], CB)
-    modes_y = modes_uv = MODES_FAST
+    modes_y, modes_uv = _mode_sets(speed)
     rd = build_rd(qindex, modes_y, modes_uv, device=dev)
     ii_sk, jj_sk, has_l_sk, _, un_d, un_s = _skew_tables(bh, bw)
     isk, jsk = (torch.as_tensor(a, device=dev).long() for a in (ii_sk,
@@ -694,31 +801,43 @@ def analyze_keyframe(planes, qindex: int = 100, deblock: bool = True,
                          skew(dec[7]), has_l_t, rd, modes_y, modes_uv)
     stages.mark("recon_wavefront")
     state = tuple(unskew(x) for x in rw) + tuple(dec[6:])
-    lf_lvl, rec_packed = _kf_filters(state, (sy, su, sv),
-                                     level_from_qindex(qindex), deblock)
-    stages.mark("filters")
-    meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl)
+    cdef_prm = tuple(cdef) if cdef is not None else (0, 0, 0, 0, 3)
+    lf_lvl, cdef_idx, rec_packed = _kf_filters(
+        state, (sy, su, sv), level_from_qindex(qindex), cdef_prm, rd["lam"],
+        cdef is not None, deblock, cdef_rdo, stages.mark)
+    meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx)
     stages.mark("meta")
-    return KeyframeDevice(state, meta, rec_packed, lvy, lvu, lvv)
+    return KeyframeDevice(state, meta, rec_packed, lvy, lvu, lvv,
+                          None if cdef is None else cdef_prm, cdef_rdo)
 
 
 def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
-                        speed: int = 10, deblock: bool = True,
+                        speed: int = 6, deblock: bool = True,
                         cdef: tuple | None = None,
                         render_size: tuple | None = None,
-                        seq_extra: dict | None = None, lr: bool = False,
+                        seq_extra: dict | None = None,
+                        cdef_rdo: bool = True, lr: bool = False,
                         aq: bool = False, deferred: bool = False,
                         device=None, timings: dict | None = None):
     """KEY frame encode on the device; dims must be multiples of 32,
-    4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed.
+    4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed. The
+    defaults are the reference's; speeds below 8 raise
+    NotImplementedError (ROADMAP.md item 8).
+
+    cdef: None disables CDEF at the sequence level; a 5-tuple (y_pri,
+    y_sec, uv_pri, uv_sec, damping) enables it — with cdef_rdo each
+    64x64 SB picks its ladder entry (damping cdef[4]) and the frame
+    signals the entries used; cdef_rdo=False applies the tuple as one
+    fixed frame-wide strength.
 
     Returns (packet, [y, u, v] recon int32) — the same as the
     reference's encode_keyframe_tpu at the same speed: the recon is the
-    decoder's output (deblocking included). `timings`, when given,
-    receives the wall time of each stage."""
+    decoder's output (deblocking and CDEF included). `timings`, when
+    given, receives the wall time of each stage."""
     _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra)
     dev = resolve_device(device)
-    kd = analyze_keyframe(planes, qindex, deblock, dev, timings)
+    kd = analyze_keyframe(planes, qindex, speed, deblock, cdef, cdef_rdo,
+                          dev, timings)
     return pack_keyframe(kd, planes, qindex, render_size, seq_extra, dev,
                          timings)
 
@@ -756,7 +875,11 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     o2 = o1 + 2 * (cap + 1)
     counts = unw(meta[o0:o1])
     pos = unw(meta[o1:o2])
-    val = unw(meta[o2:o2 + 2 * (cap + 1)]).astype(np.int16)
+    o3 = o2 + 2 * (cap + 1)
+    val = unw(meta[o2:o3]).astype(np.int16)
+    nr, nc = (bh + 1) // 2, (bw + 1) // 2
+    cdef_map = (meta[o3:].astype(np.uint8).reshape(nr, nc)
+                if kd.cdef is not None and kd.cdef_rdo else None)
     lv_y, lv_u, lv_v, over = unpack_stream(counts, pos, val,
                                            sp.reshape(B), cap)
     didx = np.nonzero(over)[0]
@@ -776,19 +899,29 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
 
     # ---- tile walk (host) into the writer; the kernel codes the IR ----
     t_walk = time.perf_counter()
-    seq = Sequence(width=w, height=h, enable_cdef=False)
+    seq = Sequence(width=w, height=h, enable_cdef=kd.cdef is not None)
     for k, v_ in (seq_extra or {}).items():
         setattr(seq, k, v_)
     fp = FrameParams(frame_type=FrameType.KEY, base_q_idx=qindex,
                      loop_filter_levels=(lf, lf, lf, lf),
                      render_size=render_size)
     fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
+    cdef_bits = 0
+    if cdef_map is not None:
+        fp.cdef_damping = kd.cdef[4]
+        fp.cdef_strengths, cdef_bits, cdef_map = compact_ladder(cdef_map)
+    elif kd.cdef is not None:
+        (fp.cdef_y_pri, fp.cdef_y_sec, fp.cdef_uv_pri, fp.cdef_uv_sec,
+         fp.cdef_damping) = kd.cdef
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     ec_times: dict = {}
     tw = TileWriter(mi_rows, mi_cols, qindex,
                     encoder=functools.partial(RecordingEncoder, dev,
                                               ec_times))
+    if cdef_bits:
+        tw.cdef_bits = cdef_bits
+        tw.cdef_idx_map = cdef_map
     partitions: dict = {}
     blocks: dict = {}
     for bi in range(bh):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from scipy.ndimage import gaussian_filter
+from scipy.ndimage import shift as nd_shift
 
 from rav1e_tpu.conform import aom, dav1d
 from rav1e_tpu.ops.ref import mc as jmc
@@ -28,6 +29,9 @@ from rav1e_tpu_torch.pipeline import tpu_inter as tinter
 from rav1e_tpu_torch.pipeline import tpu_intra as tintra
 
 W, H = 192, 128
+# the P toolsets of api/speed.py as encode_pframe_tpu options
+SPEED10 = dict(use_split=False, refine16=False, search=8, subpel=False)
+SPEED8 = dict(use_split=False, refine16=False, search=8, subpel=True)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -176,19 +180,22 @@ def test_mc_patch_bit_exact():
                          0).numpy())
 
 
-def _search_inputs(w, h, seed):
-    """A textured reference and a source moved by a smooth field."""
+def _search_inputs(w, h, seed, frac=None):
+    """A textured reference and a source moved by a smooth field; frac
+    (dy, dx) adds a fractional shift, for the subpel descent."""
     rng = np.random.default_rng(seed)
     tex = gaussian_filter(rng.normal(0, 45, (h + 80, w + 80)), 2.0)
     ref = (128 + tex[40:40 + h, 40:40 + w]).clip(0, 255).astype(np.int32)
-    src = (128 + tex[43:43 + h, 38:38 + w]
+    moved = tex if frac is None else nd_shift(tex, frac, order=3)
+    src = (128 + moved[43:43 + h, 38:38 + w]
            + rng.normal(0, 3, (h, w))).clip(0, 255).astype(np.int32)
     ryp = np.pad(ref, jinter.PAD, mode="edge")
     return ryp, src
 
 
-def _search_both(w, h, seed):
-    ryp, src = _search_inputs(w, h, seed)
+def _search_both(w, h, seed, subpel=False):
+    ryp, src = _search_inputs(w, h, seed,
+                              (0.375, -0.625) if subpel else None)
     nby, nbx = h // 32, w // 32
     B = nby * nbx
     by = (np.repeat(np.arange(nby), nbx) * 32).astype(np.int32)
@@ -199,14 +206,14 @@ def _search_both(w, h, seed):
     @jax.jit
     def search_j(ryp, blks, by, bx, rd):
         mv8, _, _, _, gf = jinter._search_one_ref(
-            ryp, blks, by, bx, rd, B, False, 8, False)
+            ryp, blks, by, bx, rd, B, False, 8, subpel)
         return mv8, gf(mv8)
 
     mv_j, g_j = search_j(ryp, blks, by, bx, rd_j)
     rd_t = tinter.build_rd_inter(100, device="cpu")
     mv_t, _, _, _, gf_t = tinter._search_one_ref(
         _t(ryp), _t(np.asarray(blks)), _t(by), _t(bx), rd_t, B, False, 8,
-        False)
+        subpel)
     return (mv_t.numpy(), np.asarray(mv_j), gf_t(mv_t).numpy(),
             np.asarray(g_j))
 
@@ -228,6 +235,66 @@ def test_search_half_resolution_mv_field_identical():
     assert mv_t.shape == (510, 2)
     np.testing.assert_array_equal(mv_t, mv_j)
     assert (mv_t % 16 != 0).any()          # the descent moved some MVs
+
+
+def test_search_full_resolution_subpel_mv_field_identical():
+    """The same search with subpel (speed 8): the 4, 2, 2 eighth-pel
+    descent from M=1 patches gives identical MV fields, with quarter-pel
+    MVs among them."""
+    mv_t, mv_j, g_t, g_j = _search_both(W, H, 1, subpel=True)
+    np.testing.assert_array_equal(mv_t, mv_j)
+    assert (mv_t % 8 != 0).any()
+    np.testing.assert_array_equal(g_t, g_j)
+
+
+def test_search_half_resolution_subpel_mv_field_identical():
+    """The ds2 search with subpel: the 8, 4, 2, 2 descent from M=2
+    patches gives identical MV fields, with quarter-pel MVs among
+    them."""
+    mv_t, mv_j, _, _ = _search_both(960, 544, 2, subpel=True)
+    np.testing.assert_array_equal(mv_t, mv_j)
+    assert (mv_t % 8 != 0).any()
+
+
+def test_mc_patch_multi_every_phase():
+    """_mc_patch_multi at every 1/16-pel phase of both axes: luma
+    (ss = 0: the even phases of eighth-pel MVs) and chroma (ss = 1: all
+    16), candidates drifting up to M px from the patch centre; bit-exact
+    to the JAX function, and to _mc_batch, so the REGULAR bank's
+    intermediate rounding matches at every phase."""
+    M = 2
+    for ss in (0, 1):
+        ref, by, bx, mv, n = _mc_inputs(13 + ss, ss)
+        B = mv.shape[0]
+        step = 2 >> ss                       # 1/16 units per MV unit
+        ph = np.arange(16 // step)           # MV units within one pixel
+        # candidate c: row phase c, column phase (c * 5) mod 16, plus
+        # whole-pixel drifts in [-M, M] (in MV units of 16 / step)
+        per_px = 16 // step
+        drift = np.random.default_rng(14).integers(-M, M, (len(ph), B, 2))
+        cands = np.stack([mv + np.stack(
+            [ph[c] + drift[c, :, 0] * per_px,
+             ph[(c * 5) % len(ph)] + drift[c, :, 1] * per_px], 1)
+            for c in range(len(ph))]).astype(np.int32)
+        pj, rj, cj = jinter._gather_patch(jnp.asarray(ref), jnp.asarray(by),
+                                          jnp.asarray(bx), jnp.asarray(mv),
+                                          n, ss, M)
+        pt, rt, ct = tinter._gather_patch(_t(ref), _t(by), _t(bx), _t(mv),
+                                          n, ss, M)
+        out_j = np.asarray(jinter._mc_patch_multi(
+            pj, rj, cj, jnp.asarray(by), jnp.asarray(bx),
+            jnp.asarray(cands), n, ss, M))
+        out_t = tinter._mc_patch_multi(pt, rt, ct, _t(by), _t(bx),
+                                       _t(cands), n, ss, M).numpy()
+        np.testing.assert_array_equal(out_t, out_j)
+        p16 = (by[None, :, None] << 4) + cands * step
+        frac = p16 & 15
+        assert len(np.unique(frac[..., 0])) == 16 // step
+        assert len(np.unique(frac[..., 1])) == 16 // step
+        for c in range(len(ph)):
+            np.testing.assert_array_equal(
+                out_t[c], tinter._mc_batch(_t(ref), _t(by), _t(bx),
+                                           _t(cands[c]), n, ss).numpy())
 
 
 def test_coarse_mv_identical():
@@ -319,6 +386,33 @@ def test_gop_packets_identical_and_conformant():
     _decode_exactly(pk_t, recs)
 
 
+def test_speed8_cdef_gop_packets_identical_and_conformant():
+    """encode_gop_tpu(speed=8, cdef=(0, 0, 0, 0, 3)) on the 3-frame
+    192x128 GOP: the 7-mode keyframe and subpel P frames, each with the
+    per-SB CDEF search (each P frame referencing the CDEF-filtered
+    recon). Every packet byte-identical to rav1e_tpu's, every recon
+    identical, and the stream decodes on libdav1d and libaom to the
+    port's recon."""
+    frames = motion_frames()
+    cdef = (0, 0, 0, 0, 3)
+    pk_j, rc_j = jinter.encode_gop_tpu(frames, qindex=100, speed=8,
+                                       cdef=cdef)
+    timings: list = []
+    pk_t, rc_t = tinter.encode_gop_tpu(frames, qindex=100, speed=8,
+                                       cdef=cdef, device="cpu",
+                                       timings=timings)
+    for i, (a, b) in enumerate(zip(pk_t, pk_j)):
+        assert a == b, f"packet {i}"
+    recs = [rc_t[0]] + [[r.numpy() for r in rc] for rc in rc_t[1:]]
+    for i in range(3):
+        for j in range(3):
+            np.testing.assert_array_equal(recs[i][j], np.asarray(rc_j[i][j]),
+                                          err_msg=f"frame {i} plane {j}")
+    _decode_exactly(pk_t, recs)
+    assert "cdef" in timings[0] and "filters" in timings[0]
+    assert all("cdef" in t and "filt" in t for t in timings[1:])
+
+
 def test_noise_pframe_takes_the_overflow_gather():
     """A q-30 noise P frame against a noise keyframe's recon: blocks hold
     more nonzeros than their 64 stream slots, so the host takes the
@@ -332,7 +426,7 @@ def test_noise_pframe_takes_the_overflow_gather():
     planes = [[rng.integers(0, 256, s).astype(np.uint8)
                for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
               for _ in range(2)]
-    kf_pkt, kf_rec = tintra.encode_keyframe_tpu(planes[0], 30,
+    kf_pkt, kf_rec = tintra.encode_keyframe_tpu(planes[0], 30, speed=10,
                                                 device="cpu")
     ref = [r.astype(np.uint8) for r in kf_rec]
 
@@ -368,7 +462,7 @@ def test_noise_pframe_takes_the_overflow_gather():
     assert nd * 1e4 < sum(d.size for d in dlv)
 
     pkt_t, rec_t = tinter.encode_pframe_tpu(planes[1], ref, qindex=30,
-                                            device="cpu")
+                                            device="cpu", **SPEED10)
     if nd == 0:
         mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf = dec_j[:9]
         assert pkt_t == jinter._pack_pframe(
@@ -379,20 +473,28 @@ def test_noise_pframe_takes_the_overflow_gather():
     _decode_exactly([kf_pkt, pkt_t], [kf_rec, rec_t])
 
 
-@pytest.mark.parametrize("kw", [{"use_split": True}, {"subpel": True},
-                                {"cdef": (0, 0, 0, 0, 3)},
+@pytest.mark.parametrize("kw", [{"use_split": True}, {"use_satd": True},
+                                {"b64_rdo": True},
                                 {"intra_rdo": True}, {"use_native": True}])
 def test_pframe_options_beyond_the_slice_raise(kw):
+    """On top of the speed-8 toolset, each speed-6 tool (and the C++
+    packer) raises NotImplementedError naming its ROADMAP item; so do
+    the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_pframe_tpu(planes, planes, device="cpu", **kw)
+        tinter.encode_pframe_tpu(planes, planes, device="cpu",
+                                 **{**SPEED8, **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tinter.encode_pframe_tpu(planes, planes, device="cpu")
 
 
 def test_gop_below_speed_9_raises_and_cuda_is_the_default():
+    """Speed 7 (split RDO) raises; without a device argument the GOP
+    runs on cuda, and without CUDA that raises."""
     frames = motion_frames(64, 64, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_gop_tpu(frames, device="cpu")          # speed 8
+        tinter.encode_gop_tpu(frames, speed=7, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tinter.encode_gop_tpu(frames, speed=10)

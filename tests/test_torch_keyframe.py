@@ -1,21 +1,34 @@
-"""The port's speed-10 keyframe slice against the JAX package's, on the
-CPU: the packet must be byte-identical to rav1e_tpu's
-encode_keyframe_tpu(..., speed=10), the recon identical, and both
-decoders (libdav1d, libaom) must decode the port's packet exactly to the
-port's recon. Only two frame shapes are compared, because each costs a
-JAX compile."""
+"""The port's keyframe slice against the JAX package's, on the CPU: the
+packet must be byte-identical to rav1e_tpu's encode_keyframe_tpu at the
+same speed (10, and 8 with CDEF), the recon identical, and both decoders
+(libdav1d, libaom) must decode the port's packet exactly to the port's
+recon. Only two frame shapes are compared, because each costs a JAX
+compile per speed; the speed-8 references are computed once per test run
+and shared between the runner's workers through a locked file. The
+fixed-strength CDEF keyframe is held to the JAX package's filter alone,
+without a keyframe compile of its own."""
 
 import ctypes
+import fcntl
 import gc
+import os
+import pickle
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from rav1e_tpu.conform import aom, dav1d
+from rav1e_tpu.core.constants import TxSize as JTx
+from rav1e_tpu.core.constants import TxType as JTt
+from rav1e_tpu.ops.tpu import cdef as jc
+from rav1e_tpu.ops.tpu import transforms as jT
 from rav1e_tpu.pipeline import tpu_intra as jti
+from rav1e_tpu_torch.core.constants import TxSize, TxType
+from rav1e_tpu_torch.ops import transforms as tT
 from rav1e_tpu_torch.pipeline import tpu_intra as tti
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,6 +82,113 @@ def _same_as_reference(planes, qindex):
     _check_decoders(pkt, rec)
 
 
+@pytest.fixture(scope="session")
+def shared_dir(tmp_path_factory):
+    """A directory every worker of this test run sees (the workers'
+    common parent under pytest-xdist; the run's own directory without
+    it)."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def _once(shared_dir, name, compute):
+    """compute() run once per test run, whichever worker asks first; the
+    others wait on the lock and read its pickled result."""
+    path = shared_dir / f"{name}.pkl"
+    with open(shared_dir / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                tmp.write_bytes(pickle.dumps(compute()))
+                os.replace(tmp, path)
+            return pickle.loads(path.read_bytes())
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+CDEF = (0, 0, 0, 0, 3)          # the main path's: damping 3, ladder search
+CDEF_FIXED = (3, 1, 2, 0, 4)    # one frame-wide strength (cdef_rdo=False)
+
+
+def _speed8_reference(w, h):
+    """The JAX package's speed-8 CDEF keyframe of synth(w, h) at q 100:
+    (packet, recon)."""
+    pkt, rec = jti.encode_keyframe_tpu(synth(w, h), 100, speed=8, cdef=CDEF)
+    return pkt, [np.asarray(r) for r in rec]
+
+
+@pytest.mark.parametrize("w,h", [(64, 64), (128, 96)])
+def test_speed8_cdef_keyframe_packet_identical_and_conformant(w, h,
+                                                              shared_dir):
+    """Speed 8 (the 7 luma and 4 chroma modes, chroma coded in each mode's
+    TX type) with the per-SB CDEF search, cdef=(0, 0, 0, 0, 3): packet
+    and recon equal rav1e_tpu's, and both decoders decode it exactly."""
+    pkt_j, rec_j = _once(shared_dir, f"kf_speed8_{w}x{h}",
+                         lambda: _speed8_reference(w, h))
+    planes = synth(w, h)
+    kd = tti.analyze_keyframe(planes, 100, speed=8, cdef=CDEF,
+                              device="cpu")
+    assert len(set(np.unique(kd.state[6].numpy()))) > 1      # luma modes
+    pkt, rec = tti.pack_keyframe(kd, planes, 100, device="cpu")
+    assert pkt == pkt_j
+    for a, b in zip(rec, rec_j):
+        np.testing.assert_array_equal(a, b)
+    _check_decoders(pkt, rec)
+
+
+def test_speed8_fixed_cdef_keyframe_identical_and_conformant():
+    """cdef_rdo=False: one frame-wide strength, signalled in the header,
+    applied by cdef_filter_frame (a chroma secondary strength of 0). No
+    JAX keyframe compile: the recon is the JAX package's
+    cdef_filter_frame_jax of the port's CDEF-less speed-8 recon (the same
+    levels, deblocked) on the keyframe's skip gate, it differs from that
+    recon, and both decoders decode the packet exactly to it
+    (tests/test_torch_cdef.py holds cdef_filter_frame to the JAX
+    function on its own)."""
+    planes = synth(64, 64)
+    kd = tti.analyze_keyframe(planes, 100, speed=8, cdef=CDEF_FIXED,
+                              cdef_rdo=False, device="cpu")
+    pkt, rec = tti.pack_keyframe(kd, planes, 100, device="cpu")
+    _, rec0 = tti.encode_keyframe_tpu(planes, 100, speed=8, device="cpu")
+    want = jax.jit(jc.cdef_filter_frame_jax)(
+        [jnp.asarray(r) for r in rec0],
+        jnp.asarray(tti._kf_skip8(kd.state).numpy()), *CDEF_FIXED)
+    for a, b in zip(rec, want):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert any((a != b).any() for a, b in zip(rec, rec0))
+    _check_decoders(pkt, rec)
+
+
+@pytest.mark.parametrize("tt", ["ADST_DCT", "DCT_ADST", "ADST_ADST"])
+def test_tx16_adst_types_against_reference(tt):
+    """The chroma 16x16 TX types of the speed-8 modes: the integer
+    inverse bit-exact; the f32 forward |d| <= 1 and equal on >= 99.99%
+    (the rule of DCT_DCT); the float inverse_approx, which only ranks
+    modes in phase 1 and is never coded, |d| <= 1 and equal on >= 99.9%
+    (one value of these 8,192 rounds the other way: XLA and torch sum
+    its f32 products in other orders)."""
+    rng = np.random.default_rng(12)
+    c = rng.integers(-3000, 3001, (32, 16, 16))
+    c = (c * (rng.random(c.shape) < 0.25)).astype(np.int32)
+    c[:, :4, :4] = rng.integers(-3000, 3001, (32, 4, 4))
+    ref = np.asarray(jT.inverse_transform(jnp.asarray(c), JTx.TX_16X16,
+                                          JTt[tt]))
+    out = tT.inverse_transform(torch.from_numpy(c), TxSize.TX_16X16,
+                               TxType[tt])
+    np.testing.assert_array_equal(out.numpy(), ref)
+    r = (np.round(rng.normal(0, 20, (256, 16, 16))).clip(-255, 255)
+         .astype(np.int32))
+    for j_fn, t_fn, x, share in (
+            (jT.forward_transform, tT.forward_transform, r, 0.9999),
+            (jT.inverse_approx, tT.inverse_approx, c, 0.999)):
+        ref = np.asarray(j_fn(jnp.asarray(x), JTx.TX_16X16, JTt[tt]))
+        out = t_fn(torch.from_numpy(x), TxSize.TX_16X16, TxType[tt]).numpy()
+        d = np.abs(out.astype(np.int64) - ref)
+        assert d.max() <= 1
+        assert (d == 0).mean() >= share
+
+
 @pytest.mark.parametrize("w,h", [(64, 64), (128, 96)])
 def test_keyframe_packet_identical_and_conformant(w, h):
     """64x64 (bh = bw = 2) and 128x96 (bh = 3, bw = 4): the first and
@@ -82,7 +202,7 @@ def test_keyframe_overflow_gather():
     rng = np.random.default_rng(3)
     planes = [rng.integers(0, 256, s).astype(np.uint8)
               for s in ((64, 64), (32, 32), (32, 32))]
-    kd = tti.analyze_keyframe(planes, 30, device="cpu")
+    kd = tti.analyze_keyframe(planes, 30, speed=10, device="cpu")
     nnz = ((kd.lvy != 0).sum((1, 2)) + (kd.lvu != 0).sum((1, 2))
            + (kd.lvv != 0).sum((1, 2)))
     assert (nnz > 128).any()

@@ -22,11 +22,12 @@ import chip_smoke
 from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
 from rav1e_tpu_torch.pipeline.tpu_inter import encode_gop_tpu
 planes = chip_smoke.synth(64, 64)[0]
-pkt, rec = encode_keyframe_tpu(planes, 100, device="cpu")
+pkt, rec = encode_keyframe_tpu(planes, 100, speed=8, cdef=(0, 0, 0, 0, 3),
+                               device="cpu")
 assert len(pkt) > 100 and [r.shape for r in rec] == [(64, 64), (32, 32),
                                                       (32, 32)]
-pkts, recs = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=10,
-                            device="cpu")
+pkts, recs = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=8,
+                            cdef=(0, 0, 0, 0, 3), device="cpu")
 assert pkts[0] == pkt and len(pkts) == 2
 assert [tuple(r.shape) for r in recs[1]] == [(64, 64), (32, 32), (32, 32)]
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
@@ -39,7 +40,7 @@ print("ok", len(pkt))
 def test_port_runs_with_jax_and_reference_blocked():
     """In a subprocess where importing jax or rav1e_tpu fails, the port
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
-    KEY + P GOP on the CPU."""
+    KEY + P GOP on the CPU, at speed 8 with CDEF."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -71,21 +72,25 @@ def test_entry_point_without_device_and_without_cuda_raises():
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        encode_keyframe_tpu(planes, 100)
+        encode_keyframe_tpu(planes, 100, speed=8)
 
 
-@pytest.mark.parametrize("opt,value", [("speed", 8), ("cdef", (0, 0, 0, 0, 3)),
+@pytest.mark.parametrize("opt,value", [("speed", 7), ("speed", 6),
                                        ("aq", True), ("lr", True),
                                        ("deferred", True)])
 def test_options_beyond_the_slice_raise(opt, value):
-    """Options the speed-9/10 slice does not reach raise
+    """Options the speed-8 to 10 slices do not reach raise
     NotImplementedError naming their ROADMAP item; none falls through
-    to another path."""
+    to another path. Speed 6 is the reference's default."""
     from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        encode_keyframe_tpu(planes, 100, device="cpu", **{opt: value})
+        encode_keyframe_tpu(planes, 100, device="cpu",
+                            **{"speed": 8, opt: value})
+    if opt == "speed" and value == 6:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            encode_keyframe_tpu(planes, 100, device="cpu")
 
 
 def test_high_bit_depth_raises():
@@ -94,4 +99,4 @@ def test_high_bit_depth_raises():
               np.full((32, 32), 300, np.uint16),
               np.full((32, 32), 300, np.uint16)]
     with pytest.raises(NotImplementedError, match="bit depth.*ROADMAP"):
-        encode_keyframe_tpu(planes, 100, device="cpu")
+        encode_keyframe_tpu(planes, 100, speed=8, device="cpu")
