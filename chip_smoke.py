@@ -15,8 +15,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      finish and to the port's ECEncoder; and a stream whose carry runs
      back through some 10,000 0xFF bytes;
   4. the patch-gather kernel against its plain version at the 1080p P
-     frame's three shapes (B = 2040; P = 43, 39 from the padded luma
-     plane, P = 23 from a padded chroma plane), starts out of range
+     frame's shapes (B = 2040; P = 43, 39 from the padded luma plane,
+     P = 23 from a padded chroma plane; and refine16's B = 8160 per-16
+     patches, P = 27 luma and P = 15 chroma), starts out of range
      included: max |err| 0; kernel, plain and indexing-call times;
   5. the speed-10 keyframe at 1920x1088 on cuda, once to warm and once
      timed: stage times, the ec_pack launches, the tile's IR coded again
@@ -38,13 +39,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      blocks whose (mv, skip) agree (>= 99%), levels by phase 7's rule,
      identical CDEF index maps and packets where every MV, skip and level
      agrees;
-  10-11. encode_gop_tpu at 1920x1088, q 100: KEY + 1 P at speed 10, then
-     the main path, KEY + 2 P at speed 8 with cdef (0, 0, 0, 0, 3), every
+  10. the same at speed 7 with cdef, on content with sharp squares that
+     makes blocks split: every level, split map, MV field, skip, CDEF map
+     and packet identical;
+  11. encode_pframe_tpu(planes, ref) with the reference's defaults (split
+     RDO with refine16, 16-px search, subpel) at 256x192 on cuda vs cpu:
+     every decision, level, the recon and the packet identical; the
+     gather launches at refine16's patch sizes;
+  12-13. encode_gop_tpu at 1920x1088, q 100: KEY + 1 P at speed 10, then
+     the main path, KEY + 2 P at speed 7 with cdef (0, 0, 0, 0, 3), every
      kernel's count set to 0 just before and read just after: per-frame
-     stage times and packet sizes; every frame launched each kernel that
-     serves it; every tile's IR coded again by pack_ir_plain gives the
-     packet's bytes; recon within 0..255; each tile's ec kernel time at
-     L = 256, 512, 1024 and its per-pass times.
+     stage times, packet sizes and shares of split 32-blocks; every frame
+     launched each kernel that serves it; every tile's IR coded again by
+     pack_ir_plain gives the packet's bytes; recon within 0..255; each
+     tile's ec kernel time at L = 256, 512, 1024 and its per-pass
+     times.
 
 Prints a kernels JSON line, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,7 +75,7 @@ H100_F32_OPS_PER_S = 67e12     # non-tensor float32 peak (no int32 entry)
 # int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
 # white paper, H100 SXM)
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-CDEF_SPEED8 = (0, 0, 0, 0, 3)  # the main path's cdef argument
+CDEF_SPEED8 = (0, 0, 0, 0, 3)  # the speed-7/8 paths' cdef argument
 
 
 def synth(w, h, n=1, seed=3):
@@ -508,7 +517,7 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
 
 
 def gpu_vs_cpu(torch, ti):
-    """Phase 6."""
+    """Phase 7."""
     planes = synth(256, 192)[0]
     kd = {d: ti.analyze_keyframe(planes, 100, speed=10, device=d)
           for d in ("cuda", "cpu")}
@@ -543,20 +552,29 @@ def gpu_vs_cpu(torch, ti):
         fail("levels agree but packets or recon differ")
 
 
+# the patch gathers of a 1080p P frame: (P, padded plane H, W, block
+# pitch, patches B, block-grid columns). 43 / 39 / 23: the 32-blocks'
+# descent patch (M = 2), luma MC and chroma MC; 27 / 15: refine16's
+# per-16 patches (n = 16, M = 2) and its 8x8 chroma MC
+GATHER_SHAPES = ((43, 1152, 1984, 32, 2040, 60),
+                 (39, 1152, 1984, 32, 2040, 60),
+                 (23, 576, 992, 16, 2040, 60),
+                 (27, 1152, 1984, 16, 8160, 120),
+                 (15, 576, 992, 8, 8160, 120))
+
+
 def gather_phase(torch, gp):
     """Phase 4. Per patch size: max |err|, kernel / plain / indexing ms
     (device time by CUDA events, mean of 20 launches) and the byte
     bound."""
-    B = 2040
     rng = np.random.default_rng(5)
     out = {}
-    for P, H, W, blk in ((43, 1152, 1984, 32), (39, 1152, 1984, 32),
-                         (23, 576, 992, 16)):
+    for P, H, W, blk, B, ncol in GATHER_SHAPES:
         plane = torch.from_numpy(
             rng.integers(0, 256, (H, W)).astype(np.int32)).cuda()
-        # the main path's layout: a 34 x 60 block grid with per-block
+        # the main path's layout: a raster block grid with per-block
         # drift, plus starts below 0 and past H-P / W-P
-        gy, gx = np.divmod(np.arange(B), 60)
+        gy, gx = np.divmod(np.arange(B), ncol)
         r0 = gy * blk + rng.integers(0, 2 * blk - 8, B)
         c0 = gx * blk + rng.integers(0, 2 * blk - 8, B)
         r0[:4] = [-1, -2 * P, H - P + 3, H + 40]
@@ -600,30 +618,73 @@ def _level_diffs(a_list, b_list):
             sum(x.size for x in diff), max(int(x.max()) for x in diff))
 
 
-def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None):
-    """Phases 8 and 9: a KEY + 1 P GOP on cuda and on cpu."""
+def squares(frames):
+    """Static sharp-edged 16x16 squares stamped on each frame's luma (as
+    tests/test_torch_split.py does): the 32x32 predictors cannot follow
+    their edges and the zero MV fits them, so blocks split."""
+    for f in frames:
+        h, w = f[0].shape
+        for k, (r, c) in enumerate(((16, 16), (48, 80), (80, 144),
+                                    (16, 112), (96, 48))):
+            if r + 16 <= h and c + 16 <= w:
+                f[0][r:r + 16, c:c + 16] = (230, 30, 220, 40, 200)[k]
+    return frames
+
+
+def panning(w, h):
+    """Two frames of synth's content, the second panned by (3, -2) luma
+    pixels, with squares() stamped on both (static)."""
+    planes = synth(w + 16, h + 16)[0]
+    frames = []
+    for dy, dx in ((0, 0), (3, -2)):
+        frames.append([p[(8 + dy) // s:(8 + dy) // s + h // s,
+                         (8 + dx) // s:(8 + dx) // s + w // s].copy()
+                       for p, s in zip(planes, (1, 2, 2))])
+    return squares(frames)
+
+
+def _recording_fetch(tp):
+    """Patch tp._fetch_packed to keep what it returns; returns (the list
+    it fills, a function that restores it)."""
+    got, orig = [], tp._fetch_packed
+
+    def recording_fetch(o, *a, **k):
+        got.append(orig(o, *a, **k))
+        return got[-1]
+
+    tp._fetch_packed = recording_fetch
+
+    def restore():
+        tp._fetch_packed = orig
+
+    return got, restore
+
+
+FETCHED = ("mv8", "skip", "lv_y", "lv_u", "lv_v", "split", "mv16", "skip16",
+           "lf_lvl", "cdef_idx")
+
+
+def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None, strict=False):
+    """Phases 8-10: a KEY + 1 P GOP on cuda and on cpu. strict: every
+    level, split map, MV field, skip, CDEF map and packet must agree."""
     frames = synth(w, h, n=2)
+    if strict:
+        frames = squares(frames)
     kd = {d: ti.analyze_keyframe(frames[0], 100, speed=speed, cdef=cdef,
                                  device=d)
           for d in ("cuda", "cpu")}
     kf = _level_diffs([x.cpu().numpy() for x in kd["cuda"].state[3:6]],
                       [x.cpu().numpy() for x in kd["cpu"].state[3:6]])
-    orig = tp._fetch_packed
+    kf_split = [kd[d].state[8].cpu().numpy() for d in ("cuda", "cpu")]
 
     def run(device):
         """The GOP's packets and its P frame's fetched decisions."""
-        got = []
-
-        def recording_fetch(o, *a, **k):
-            got.append(orig(o, *a, **k))
-            return got[-1]
-
-        tp._fetch_packed = recording_fetch
+        got, restore = _recording_fetch(tp)
         try:
             pkts, _ = tp.encode_gop_tpu(frames, 100, speed=speed,
                                         cdef=cdef, device=device)
         finally:
-            tp._fetch_packed = orig
+            restore()
         return pkts, got[0]
 
     (pk_g, g), (pk_c, c) = run("cuda"), run("cpu")
@@ -643,7 +704,19 @@ def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None):
           f"({100 * share:.2f}%); keyframe levels differ {kf[0]} of {kf[1]} "
           f"(max |d| {kf[2]}); P levels on agreeing blocks differ {pf[0]} "
           f"of {pf[1]} (max |d| {pf[2]}); CDEF index maps identical: "
-          f"{maps_same}; packets identical: {same_pkts}", flush=True)
+          f"{maps_same}; packets identical: {same_pkts}; split 32-blocks "
+          f"(keyframe, P) {int(kf_split[1].sum())}, {int(c[5].sum())} of "
+          f"{c[5].size}", flush=True)
+    if strict:
+        bad = [k for k, a, b in zip(FETCHED, g, c) if not np.array_equal(a,
+                                                                        b)]
+        if not np.array_equal(*kf_split):
+            bad.append("keyframe split")
+        if kf[0] or bad or not maps_same or not all(same_pkts):
+            fail(f"{w}x{h} speed {speed}: cuda and cpu differ ({bad}, "
+                 f"keyframe levels {kf[0]}, CDEF maps identical "
+                 f"{maps_same}, packets identical {same_pkts})")
+        return
     if share < 0.99:
         fail("cuda and cpu agree on fewer than 99% of the P blocks")
     for nd, nt, dmax in (kf, pf):
@@ -655,8 +728,51 @@ def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None):
              "packets differ")
 
 
+def default_pframe_gpu_vs_cpu(tp, w, h):
+    """Phase 11: encode_pframe_tpu(planes, ref) with the reference's
+    defaults (split RDO with refine16, 16-px search, subpel) on cuda and
+    on cpu; every MV field, split map, skip, level, the recon and the
+    packet must agree. Returns the cuda run's gather launches by patch
+    size."""
+    frames = panning(w, h)
+    sizes: dict = {}
+    orig_g = tp.gather_patches
+
+    def counting_gather(plane, r0, c0, P):
+        if plane.is_cuda:
+            sizes[P] = sizes.get(P, 0) + 1
+        return orig_g(plane, r0, c0, P)
+
+    res = {}
+    for d in ("cuda", "cpu"):
+        got, restore = _recording_fetch(tp)
+        tp.gather_patches = counting_gather
+        try:
+            pkt, rec = tp.encode_pframe_tpu(frames[1], frames[0], device=d)
+        finally:
+            restore()
+            tp.gather_patches = orig_g
+        res[d] = (pkt, rec, got[0])
+    (pk_g, rc_g, g), (pk_c, rc_c, c) = res["cuda"], res["cpu"]
+    bad = [k for k, a, b in zip(FETCHED, g, c) if not np.array_equal(a, b)]
+    if not all(np.array_equal(a, b) for a, b in zip(rc_g, rc_c)):
+        bad.append("recon")
+    split, mv16 = c[5], c[6]
+    print(f"# {w}x{h} default P frame (split, refine16, search 16, subpel), "
+          f"cuda vs cpu: differing {bad or 'nothing'}; packets identical: "
+          f"{pk_g == pk_c} ({len(pk_c)} bytes); split 32-blocks "
+          f"{int(split.sum())} of {split.size}, fractional per-16 MVs "
+          f"{int((mv16[split] % 8 != 0).sum())}; cuda gather launches by "
+          f"patch size {sizes}", flush=True)
+    if bad or pk_g != pk_c:
+        fail(f"the default P frame differs between cuda and cpu: {bad}")
+    if not split.any():
+        fail("the default P frame split no block")
+    return sizes
+
+
 def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
-    """Phases 10 and 11: a 1920x1088 KEY + (n - 1) P GOP on cuda, every
+    """Phases 12 and 13: a 1920x1088 KEY + (n - 1) P GOP on cuda, every
     kernel's count set to 0 just before it and read just after. Checks
     that every frame launched each kernel that serves it (the keyframe:
     ec_pack, and the three CDEF kernels with cdef; each P frame: also
@@ -685,6 +801,7 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
                     cdef_apply=cd.cdef_apply)
     marks = []
     chosen = []                 # each frame's CDEF ladder entries, counted
+    split_share = []            # each frame's share of split 32-blocks
 
     def mark():
         marks.append({k: f.launches for k, f in kern.items()})
@@ -694,6 +811,9 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
     def marking(fn):
         def wrapped(*a, **k):
             mark()
+            sp = (k["split"] if fn is orig_pack
+                  else a[0].state[8].cpu().numpy())
+            split_share.append(float(np.mean(sp)))
             if cdef is not None:
                 # the P frame's map, or the keyframe's meta tail
                 cmap = (k["cdef"][1] if fn is orig_pack
@@ -735,6 +855,8 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
     if chosen:
         print(f"# CDEF ladder entries chosen per frame (SBs per entry "
               f"0..7): {chosen}", flush=True)
+    print(f"# share of split 32-blocks per frame: {split_share}",
+          flush=True)
     if len(marks) != 2 * len(frames):
         fail(f"{len(marks) // 2} frames packed, {len(frames)} expected")
     prev = {k: 0 for k in kern}
@@ -830,9 +952,20 @@ def main() -> int:
     gpu_vs_cpu(torch, ti)
     gop_gpu_vs_cpu(torch, ti, tp, 512, 384, 10)
     gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 8, CDEF_SPEED8)
+    gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 7, CDEF_SPEED8, strict=True)
+    r16_sizes = default_pframe_gpu_vs_cpu(tp, 256, 192)
+    for P in (27, 15):
+        g = gather[P]
+        print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} launches in "
+              f"the 256x192 default P frame; at 1080p (B = 8160) kernel "
+              f"{g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, indexing "
+              f"call {g['library_ms']:.5f} ms, bound {g['bound_ms']:.5f} ms",
+              flush=True)
+        if r16_sizes.get(P, 0) < 1:
+            fail(f"the default P frame launched no gather at P = {P}")
     gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10)
-    # the main path: the speed-8 GOP with CDEF
-    launches, sizes, n_p = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 8,
+    # the main path: the speed-7 GOP with CDEF
+    launches, sizes, n_p = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
                                      CDEF_SPEED8)
 
     # the gather entry: one P frame's launches at the measured sizes

@@ -11,7 +11,8 @@ frame batches:
 - neighbour / median / zero / coarse (4x downsampled) MV candidates,
   8 passes on the search's SSD surface and one exact re-judge;
 - a fixed-trip descent from one gathered patch per block: quarter-pel
-  at speed 8 (subpel), a single full-pel step after ds2 at speeds 9-10;
+  at speeds 7-8 (subpel), a single full-pel step after ds2 at speeds
+  9-10;
 - spec 8-tap MC in int32 from patches that `ops.gather.gather_patches`
   (a CUDA kernel on the card) copies out of the padded reference;
 - DCT + quantize + bit-exact inverse over the [B, 32, 32] batch, skip
@@ -20,10 +21,13 @@ frame batches:
 - host: unpack, TileWriter walk, od_ec coding by the CUDA kernel of
   entropy/ec_cuda, OBU packet.
 
-This slice ports the speed-8 to 10 P toolsets (api/speed.py): single
-reference, subpel at speed 8, CDEF when asked, no split RDO, no 64x64
-merge, no intra-in-inter, no SATD. Other options raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+This slice ports the speed-7 to 10 P toolsets (api/speed.py) and the
+reference's default P call: single reference, subpel at speeds 7-8, CDEF
+when asked, and at speed 7 the PARTITION_SPLIT candidate (per-16 MVs from
+{parent, zero}, or refined in-patch with refine16; TX_16X16 + TX_8X8
+residuals; per-16 skip RD). No 16->8 split, no 64x64 merge, no
+intra-in-inter, no SATD. Other options raise NotImplementedError naming
+the ROADMAP.md item that brings them.
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
@@ -238,7 +242,7 @@ def _mc_batch(ref_pad, pos_r, pos_c, mv8, n, ss, interm=False,
                     "item 11 (other P/B routes)")
     if four_tap:
         _not_ported("the 4-tap MC bank (split8 children)",
-                    "item 8 (keyframes at speeds 8 and 6)")
+                    "item 8 (speed 6)")
     p = PAD >> ss
     p16r = (pos_r << 4) + mv8[:, 0] * (2 >> ss)
     p16c = (pos_c << 4) + mv8[:, 1] * (2 >> ss)
@@ -369,7 +373,7 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
     every candidate predicted from the one patch."""
     if use_satd:
         _not_ported("SATD subpel distortion",
-                    "item 8 (keyframes at speeds 8 and 6)")
+                    "item 8 (speed 6)")
     assert search <= PAD, (search, PAD)
     dev = ryp.device
     nby_l = ryp.shape[0] // 32 - 2                # h // 32
@@ -586,16 +590,14 @@ def _median_q(mv8):
 
 # ---- the P-frame body --------------------------------------------------------
 
-def _check_p_options(use_split, ryp2, fwd2, intra_rdo, b64_rdo,
-                     use_split8, bd):
+def _check_p_options(ryp2, fwd2, intra_rdo, b64_rdo, use_split8, bd):
     if ryp2 is not None or fwd2:
         _not_ported("two-reference P/B steps", "item 11 (other P/B routes)")
-    for on, what in ((use_split, "split RDO"), (intra_rdo, "intra-in-inter"),
+    for on, what in ((intra_rdo, "intra-in-inter"),
                      (b64_rdo, "the 64x64 merge"),
                      (use_split8, "16->8 split RDO")):
         if on:
-            _not_ported(what, "item 8 (keyframes at speeds 8 and 6: the "
-                        "speed-6 P tools)")
+            _not_ported(what, "item 8 (speed 6: the speed-6 P tools)")
     if bd != 8:
         _not_ported("bit depth above 8", "item 12 (bd=10)")
 
@@ -609,16 +611,19 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                  b64_rdo: bool = False,
                  search: int = SEARCH, subpel: bool = True,
                  use_split8: bool = False, bd: int = 8, mark=_nomark):
-    """The batched P-frame encode of one frame, single reference, no
-    split (the speed-9/10 toolset): full-pel search, MV-field candidate
-    passes, skip RD, recon, injected in-loop filter, scan lines.
+    """The batched P-frame encode of one frame, single reference: full-pel
+    search, MV-field candidate passes, skip RD, and with use_split the
+    PARTITION_SPLIT candidate (per-16 MVs, TX_16X16 luma + TX_8X8 chroma,
+    per-16 skip RD), then recon and scan lines.
 
     y/u/v: source planes (int32); ryp/rup/rvp: PADDED reference planes
     (int32); by/bx: int32 pixel origins of the 32-blocks; dcq/acq: luma
-    quantizer 0-d int32 tensors. `mark(name)` is called after each stage
-    (search, cand, code). Returns the reference's 19-tuple."""
-    _check_p_options(use_split, ryp2, fwd2, intra_rdo, b64_rdo, use_split8,
-                     bd)
+    quantizer 0-d int32 tensors. refine16 descends each 16's MV from the
+    better of {parent, zero} in-patch (8, 4, 2, 2 eighth-pel); without it
+    the 16's MV is the better of {parent, zero}. `mark(name)` is called
+    after each stage (search, cand, code, split). Returns the
+    reference's 19-tuple."""
+    _check_p_options(ryp2, fwd2, intra_rdo, b64_rdo, use_split8, bd)
     from rav1e_tpu_torch.pipeline.tpu_intra import _dq_dyn, _q_dyn, block_bits
     h, tw = y.shape[0], y.shape[1]
     B = nby * nbx
@@ -704,8 +709,8 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     for _ in range(8):
         mv8, _ = cand_pass(mv8, gridf0)
     mv_coarse = _coarse_mv(y, ryp, B, search)
-    mv8, _ = cand_pass(mv8, exact_sse(ryp), extra=mv_coarse,
-                       grid_fn=gridf0)
+    mv8, rate32 = cand_pass(mv8, exact_sse(ryp), extra=mv_coarse,
+                            grid_fn=gridf0)
     pred_y = _mc_batch(ryp, by, bx, mv8, 32, 0, bd=bd)
     pred_u = _mc_batch(rup, by // 2, bx // 2, mv8, 16, 1, bd=bd)
     pred_v = _mc_batch(rvp, by // 2, bx // 2, mv8, 16, 1, bd=bd)
@@ -724,41 +729,175 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                                  TxType.DCT_DCT, bd=bd)
         return lv, r2
 
-    lv_y, r2_y = code(blks - pred_y, TxSize.TX_32X32)
-    lv_u, r2_u = code(ub - pred_u, TxSize.TX_16X16, chroma=True)
-    lv_v, r2_v = code(vb - pred_v, TxSize.TX_16X16, chroma=True)
-    # skip as an RD decision: sse(recon) + λ(skip0 + coeff bits) vs
-    # sse(pred) + λ·skip1
-    cd_y = torch.clamp(pred_y + r2_y, 0, mx)
-    cd_u = torch.clamp(pred_u + r2_u, 0, mx)
-    cd_v = torch.clamp(pred_v + r2_v, 0, mx)
-
     def sse(a, b):
         return torch.sum((a - b).to(torch.float32) ** 2, dim=(1, 2))
 
-    sse_c = sse(cd_y, blks) + sse(cd_u, ub) + sse(cd_v, vb)
-    sse_s = sse(pred_y, blks) + sse(pred_u, ub) + sse(pred_v, vb)
-    cbits = (block_bits(lv_y, rd["y32"]) + block_bits(lv_u, rd["c16"])
-             + block_bits(lv_v, rd["c16"]))
-    skip = (ds32 * sse_s + lam * rd["skip1"]
-            <= ds32 * sse_c + lam * (rd["skip0"] + cbits))
-    sk3 = skip[:, None, None]
-    lv_y = torch.where(sk3, 0, lv_y)
-    lv_u = torch.where(sk3, 0, lv_u)
-    lv_v = torch.where(sk3, 0, lv_v)
-    rec_y = torch.where(sk3, pred_y, cd_y)
-    rec_u = torch.where(sk3, pred_u, cd_u)
-    rec_v = torch.where(sk3, pred_v, cd_v)
+    def code_skip(preds, srcs, txs, lv_luts, ds):
+        """Code the residual of each plane, then skip as an RD decision:
+        sse(recon) + λ(skip0 + coeff bits) vs sse(pred) + λ·skip1.
+        Returns (levels, recons, skip, the chosen RD cost)."""
+        lvs, cds = [], []
+        for k, (p, s_, tx) in enumerate(zip(preds, srcs, txs)):
+            lv, r2 = code(s_ - p, tx, chroma=k > 0)
+            lvs.append(lv)
+            cds.append(torch.clamp(p + r2, 0, mx))
+        sse_c = sse(cds[0], srcs[0]) + sse(cds[1], srcs[1]) \
+            + sse(cds[2], srcs[2])
+        sse_s = sse(preds[0], srcs[0]) + sse(preds[1], srcs[1]) \
+            + sse(preds[2], srcs[2])
+        cbits = (block_bits(lvs[0], rd[lv_luts[0]])
+                 + block_bits(lvs[1], rd[lv_luts[1]])
+                 + block_bits(lvs[2], rd[lv_luts[1]]))
+        c_skip = ds * sse_s + lam * rd["skip1"]
+        c_code = ds * sse_c + lam * (rd["skip0"] + cbits)
+        skip = c_skip <= c_code
+        sk3 = skip[:, None, None]
+        return ([torch.where(sk3, 0, lv) for lv in lvs],
+                [torch.where(sk3, p, c) for p, c in zip(preds, cds)],
+                skip, torch.where(skip, c_skip, c_code))
+
+    (lv_y, lv_u, lv_v), (rec_y, rec_u, rec_v), skip, c32 = code_skip(
+        (pred_y, pred_u, pred_v), (blks, ub, vb),
+        (TxSize.TX_32X32, TxSize.TX_16X16, TxSize.TX_16X16), ("y32", "c16"),
+        ds32)
     mark("code")
 
-    split = torch.zeros((B,), dtype=torch.bool, device=dev)
-    zeros = functools.partial(torch.zeros, dtype=i32, device=dev)
+    if not use_split:
+        split = torch.zeros((B,), dtype=torch.bool, device=dev)
+        zeros = functools.partial(torch.zeros, dtype=i32, device=dev)
+        return _finish_outputs(
+            y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8, skip, split,
+            split[:, None, None], mv8[:, None, :].expand(B, 4, 2),
+            skip[:, None].expand(B, 4), lv_y, lv_u, lv_v,
+            zeros((B * 4, 16, 16)), zeros((B * 4, 8, 8)),
+            zeros((B * 4, 8, 8)), rec_y, rec_u, rec_v, deblock_fn, cdef_fn,
+            choice, mvb8, bd=bd)
+
+    # ---- the PARTITION_SPLIT candidate: per-16 MVs, TX16/TX8
+    # residuals, per-16 skip RD ----
+    cost32 = lam * rate32 + c32
+    offs_r = torch.tensor([0, 0, 16, 16], dtype=i32, device=dev)
+    offs_c = torch.tensor([0, 16, 0, 16], dtype=i32, device=dev)
+    by16 = (by[:, None] + offs_r[None, :]).reshape(-1)
+    bx16 = (bx[:, None] + offs_c[None, :]).reshape(-1)
+    blks16 = _quads(blks, 16)
+    ub8 = _quads(ub, 8)
+    vb8 = _quads(vb, 8)
+    ds16f = ds16.reshape(B * 4)
+    mv_par = mv8.repeat_interleave(4, 0)
+    mv_zero = torch.zeros_like(mv_par)
+
+    def mv_bits(mv):
+        # jnp clamps an index past the table; torch would raise
+        a = torch.clamp(torch.abs(mv), max=rd["mv_bits"].shape[0] - 1).long()
+        return rd["mv_bits"][a[..., 0]] + rd["mv_bits"][a[..., 1]]
+
+    def mv_rate(mv):
+        zero = (mv[..., 0] == 0) & (mv[..., 1] == 0)
+        return torch.where(zero, rd["globalmv"], mv_bits(mv) + rd["newmv"])
+
+    def cost16_pred(pred, mv):
+        return ds16f * sse(pred, blks16) + lam * mv_bits(mv)
+
+    if refine16:
+        # two patch gathers (parent- and zero-centred), then the whole
+        # per-16 descent runs in-patch: drift <= 8+4+2+2 eighth-pel = 2 px
+        patch_p, pir_p, pic_p = _gather_patch(ryp, by16, bx16, mv_par, 16,
+                                              0, 2)
+        patch_z, pir_z, pic_z = _gather_patch(ryp, by16, bx16, mv_zero, 16,
+                                              0, 2)
+
+        def pred16(patch, ir0, ic0, mv):
+            return _mc_patch(patch, ir0, ic0, by16, bx16, mv, 16, 0, 2,
+                             bd=bd)
+
+        best_par = cost16_pred(pred16(patch_p, pir_p, pic_p, mv_par), mv_par)
+        zcost = cost16_pred(pred16(patch_z, pir_z, pic_z, mv_zero), mv_zero)
+        zbet = zcost < best_par
+        mv16 = torch.where(zbet[:, None], 0, mv_par)
+        best16 = torch.minimum(best_par, zcost)
+        patch16 = torch.where(zbet[:, None, None], patch_z, patch_p)
+        pir16 = torch.where(zbet, pir_z, pir_p)
+        pic16 = torch.where(zbet, pic_z, pic_p)
+        for step_sz in (8, 4, 2, 2):
+            delta = torch.tensor([[-step_sz, 0], [step_sz, 0],
+                                  [0, -step_sz], [0, step_sz]], dtype=i32,
+                                 device=dev)
+            cands = mv16[None] + delta[:, None, :]          # [4, 4B, 2]
+            costs = torch.stack([cost16_pred(
+                pred16(patch16, pir16, pic16, c), c) for c in cands], 0)
+            k = torch.argmin(costs, dim=0)
+            cbest = torch.gather(costs, 0, k[None])[0]
+            cmv = torch.gather(cands, 0, k[None, :, None].expand(1, -1,
+                                                                 2))[0]
+            better = cbest < best16
+            mv16 = torch.where(better[:, None], cmv, mv16)
+            best16 = torch.where(better, cbest, best16)
+        pred_y16 = pred16(patch16, pir16, pic16, mv16)
+        pred_u8 = _mc_batch(rup, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
+        pred_v8 = _mc_batch(rvp, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
+    else:
+        # per-16 MV in {parent, zero}: parent = the quadrant of the
+        # 32-block's prediction, zero = the co-located reference block
+        hF, wF = ryp.shape[0] - 2 * PAD, ryp.shape[1] - 2 * PAD
+        p2 = PAD // 2
+        idx16 = ((by16 // 16) * (wF // 16) + bx16 // 16).long()
+        pz_y = to_blocks(ryp[PAD:PAD + hF, PAD:PAD + wF], 16)[idx16]
+        pz_u = to_blocks(rup[p2:p2 + hF // 2, p2:p2 + wF // 2], 8)[idx16]
+        pz_v = to_blocks(rvp[p2:p2 + hF // 2, p2:p2 + wF // 2], 8)[idx16]
+        zbet = (cost16_pred(pz_y, mv_zero)
+                < cost16_pred(_quads(pred_y, 16), mv_par))
+        mv16 = torch.where(zbet[:, None], 0, mv_par)
+        z3 = zbet[:, None, None]
+        pred_y16 = torch.where(z3, pz_y, _quads(pred_y, 16))
+        pred_u8 = torch.where(z3, pz_u, _quads(pred_u, 8))
+        pred_v8 = torch.where(z3, pz_v, _quads(pred_v, 8))
+    (lv_y16, lv_u8, lv_v8), (rec_y16, rec_u8, rec_v8), skip16, c16 = \
+        code_skip((pred_y16, pred_u8, pred_v8), (blks16, ub8, vb8),
+                  (TxSize.TX_16X16, TxSize.TX_8X8, TxSize.TX_8X8),
+                  ("y16", "c8"), ds16f)
+    cost_split = (_quad_sum((lam * mv_rate(mv16) + c16).reshape(B, 4))
+                  + lam * rd["split_bits"])
+    split = cost_split < cost32
+    sp3 = split[:, None, None]
+
+    # ---- choose + assemble ----
+    lv_y = torch.where(sp3, _unquads(lv_y16, 16), lv_y)
+    lv_u = torch.where(sp3, _unquads(lv_u8, 8), lv_u)
+    lv_v = torch.where(sp3, _unquads(lv_v8, 8), lv_v)
+    rec_y = torch.where(sp3, _unquads(rec_y16, 16), rec_y)
+    rec_u = torch.where(sp3, _unquads(rec_u8, 8), rec_u)
+    rec_v = torch.where(sp3, _unquads(rec_v8, 8), rec_v)
+    mv16_out = torch.where(sp3, mv16.reshape(B, 4, 2),
+                           mv8[:, None, :].expand(B, 4, 2))
+    skip16_out = torch.where(split[:, None], skip16.reshape(B, 4),
+                             skip[:, None])
+    mark("split")
     return _finish_outputs(
-        y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8, skip, split,
-        split[:, None, None], mv8[:, None, :].expand(B, 4, 2),
-        skip[:, None].expand(B, 4), lv_y, lv_u, lv_v,
-        zeros((B * 4, 16, 16)), zeros((B * 4, 8, 8)), zeros((B * 4, 8, 8)),
+        y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8, skip, split, sp3,
+        mv16_out, skip16_out, lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8,
         rec_y, rec_u, rec_v, deblock_fn, cdef_fn, choice, mvb8, bd=bd)
+
+
+def _quad_sum(c):
+    """[B, 4] -> [B]: the four quads' costs added one at a time in quad
+    order, the order of XLA:CPU's sum over a short f32 axis (torch.sum
+    promises none)."""
+    return ((c[:, 0] + c[:, 1]) + c[:, 2]) + c[:, 3]
+
+
+def _quads(x, n):
+    """[B, 2n, 2n] -> [4B, n, n] in (TL, TR, BL, BR) order."""
+    Bn = x.shape[0]
+    return (x.reshape(Bn, 2, n, 2, n).permute(0, 1, 3, 2, 4)
+            .reshape(Bn * 4, n, n))
+
+
+def _unquads(x, n):
+    """_quads' inverse: [4B, n, n] -> [B, 2n, 2n]."""
+    Bn = x.shape[0] // 4
+    return (x.reshape(Bn, 2, 2, n, n).permute(0, 1, 3, 2, 4)
+            .reshape(Bn, 2 * n, 2 * n))
 
 
 def _finish_outputs(y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8,
@@ -771,8 +910,8 @@ def _finish_outputs(y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8,
     tuple. The 16->8 layout (split16) is not ported; the P frame's CDEF
     runs in _core's `cdef` stage, not through cdef_fn."""
     if split16 is not None:
-        _not_ported("16->8 split RDO", "item 8 (keyframes at speeds 8 and "
-                    "6: the speed-6 P tools)")
+        _not_ported("16->8 split RDO", "item 8 (speed 6: the "
+                    "speed-6 P tools)")
     if cdef_fn is not None:
         raise NotImplementedError(
             "p_frame_body's cdef_fn has no caller in rav1e_tpu_torch: the "
@@ -842,8 +981,7 @@ def scanline(lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8, split, B,
     blocks: quadrant-major sub-TX scans). The reference's split16
     (16->8 sub-quad) layout is not ported yet."""
     if split16 is not None:
-        _not_ported("the 16->8 scan layout", "item 8 (keyframes at "
-                    "speeds 8 and 6)")
+        _not_ported("the 16->8 scan layout", "item 8 (speed 6)")
     scan32, scan16, scan8 = _scans()
     y_n = _take(lv_y.reshape(B, 1024), scan32, 1)
     u_n = _take(lv_u.reshape(B, 256), scan16, 1)
@@ -1117,7 +1255,8 @@ def _core(h: int, w: int, use_cdef: bool = False,
     step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark) ->
     (packed decisions int8, lv_y, lv_u, lv_v (int16, on the device for
     the overflow gather), recon y, u, v uint8). `mark(name)` runs after
-    each stage: search, cand, code (core), filt (deblock), cdef, pack."""
+    each stage: search, cand, code, split (core; split with use_split),
+    filt (deblock), cdef, pack."""
     if two_ref:
         _not_ported("the two-reference step", "item 11 (other P/B routes)")
     nby, nbx = h // 32, w // 32
@@ -1136,7 +1275,8 @@ def _core(h: int, w: int, use_cdef: bool = False,
                             ds16=ds, use_satd=use_satd, refine16=refine16,
                             intra_rdo=intra_rdo, b64_rdo=b64_rdo,
                             search=search, subpel=subpel,
-                            use_split8=use_split8, bd=bd, mark=mark)
+                            use_split8=use_split8 and use_split, bd=bd,
+                            mark=mark)
 
     def filt(src, fry, fru, frv, base_lf, cdef_prm, split, skip16, b64m,
              lam, split16, skip8q, mark=_nomark):
@@ -1202,8 +1342,7 @@ def _fetch_packed(o, gather_dense, nby, nbx, packed=None):
      counts, pos, val, b64_map, split16, skip8) = unpack_outputs(
         o[0].cpu().numpy() if packed is None else packed, nby, nbx)
     if split16.any():
-        _not_ported("the 16->8 stream layout", "item 8 (keyframes at "
-                    "speeds 8 and 6)")
+        _not_ported("the 16->8 stream layout", "item 8 (speed 6)")
     lv_y, lv_u, lv_v, over = unpack_stream(counts, pos, val, split,
                                            _stream_cap(nby * nbx))
     didx = np.nonzero(over)[0]
@@ -1225,16 +1364,19 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
                  lr_ctx=None, split16=None, skip8=None,
                  bit_depth: int = 8, tile_grid: tuple | None = None,
                  device=None, timings: dict | None = None):
-    """Entropy-pack one P frame of 32x32 NONE blocks (single ref, no
-    split) from the batched outputs: TileWriter walks the blocks on the
-    host and its RecordingEncoder has the tile range-coded on `device`
-    (the od_ec kernel on cuda). `timings` receives tile_walk, ec_kernel
-    and finish.
+    """Entropy-pack one P frame (single ref) from the batched outputs:
+    TileWriter walks the blocks on the host and its RecordingEncoder has
+    the tile range-coded on `device` (the od_ec kernel on cuda).
+    `timings` receives tile_walk, ec_kernel and finish.
+
+    split/mv16/skip16 (optional) describe PARTITION_SPLIT 32-blocks: four
+    16x16 inter blocks with their own MVs and skips, their TX_16X16 luma
+    and TX_8X8 chroma levels stored spatially inside lv_*.
 
     cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
     idx_map): the per-SB form signals the ladder entries the SBs chose
     (compact_ladder) and a literal index per 64x64 SB in the tile. The
-    C++ packer, LR, tiles and the split / 64x64 / intra block kinds are
+    C++ packer, LR, tiles and the 16->8 / 64x64 / intra block kinds are
     not ported."""
     if use_native:
         _not_ported("the C++ packer", "item 9 (the C++ packer)")
@@ -1247,13 +1389,12 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         _not_ported("multi-tile frames", "item 17 (parallel)")
     if bit_depth != 8:
         _not_ported("bit depth above 8", "item 12 (bd=10)")
-    for x, what in ((split, "split blocks"), (b64_map, "64x64 blocks"),
+    for x, what in ((b64_map, "64x64 blocks"),
                     (split16, "16->8 split blocks"),
                     (None if choice is None else np.asarray(choice) == 3,
                      "intra-in-inter blocks")):
         if x is not None and np.asarray(x).any():
-            _not_ported(what, "item 8 (keyframes at speeds 8 and 6: the "
-                        "speed-6 P tools)")
+            _not_ported(what, "item 8 (speed 6: the speed-6 P tools)")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq = Sequence(width=w, height=h, enable_cdef=cdef is not None,
@@ -1285,19 +1426,35 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         tw.cdef_idx_map = cdef_map
     partitions: dict = {}
     blocks: dict = {}
+    def inter_block(mv, sk, yl, ul, vl):
+        mv = (int(mv[0]), int(mv[1]))
+        d = BlockDecision(y_mode=(PredictionMode.GLOBALMV if mv == (0, 0)
+                                  else PredictionMode.NEWMV),
+                          uv_mode=PredictionMode.DC_PRED, skip=bool(sk),
+                          mv=mv)
+        if not d.skip:
+            d.coeffs = {0: yl, 1: ul, 2: vl}
+        return d
+
     for b in range(mv8.shape[0]):
         by, bx = (b // nbx) * 32, (b % nbx) * 32
         r, c = by >> 2, bx >> 2
         partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.SPLIT
+        if split is not None and split[b]:
+            partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.SPLIT
+            for q, (dr, dc) in enumerate(((0, 0), (0, 4), (4, 0), (4, 4))):
+                py, px, cy, cx = dr * 4, dc * 4, dr * 2, dc * 2
+                partitions[(r + dr, c + dc, int(BlockSize.B16X16))] = \
+                    PartitionType.NONE
+                blocks[(r + dr, c + dc)] = inter_block(
+                    mv16[b, q], skip16[b, q],
+                    lv_y[b][py: py + 16, px: px + 16],
+                    lv_u[b][cy: cy + 8, cx: cx + 8],
+                    lv_v[b][cy: cy + 8, cx: cx + 8])
+            continue
         partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
-        mv = (int(mv8[b, 0]), int(mv8[b, 1]))
-        d = BlockDecision(y_mode=(PredictionMode.GLOBALMV if mv == (0, 0)
-                                  else PredictionMode.NEWMV),
-                          uv_mode=PredictionMode.DC_PRED,
-                          skip=bool(skip[b]), mv=mv)
-        if not d.skip:
-            d.coeffs = {0: lv_y[b], 1: lv_u[b], 2: lv_v[b]}
-        blocks[(r, c)] = d
+        blocks[(r, c)] = inter_block(mv8[b], skip[b], lv_y[b], lv_u[b],
+                                     lv_v[b])
     tile = tw.write_tile(partitions, blocks)
     pkt = interframe_packet(seq, fp, ti, [tile], order_hint,
                             refresh_flags=refresh_flags,
@@ -1346,12 +1503,13 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     """Batched P frame (single reference) on the device; dims multiples
     of 32, 4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed.
 
-    The defaults are the reference's (split RDO, a 16-px search, subpel),
-    so a call that relies on them raises NotImplementedError naming the
-    ROADMAP item of the tool not ported yet; the speed-8 toolset is
-    use_split=False, refine16=False, search=8, subpel=True, and speeds
-    9-10 take subpel=False. use_native (the reference's C++ packer, which
-    writes the same bytes as the Python writer) is item 9.
+    The defaults are the reference's: split RDO with the per-16 subpel
+    refinement (refine16), a 16-px search, subpel. The speed-7 toolset is
+    refine16=False, search=8; speed 8 adds use_split=False, and speeds
+    9-10 take subpel=False. SATD, the 64x64 merge, intra-in-inter and the
+    16->8 split raise NotImplementedError naming their ROADMAP item, as
+    does use_native (the reference's C++ packer, which writes the same
+    bytes as the Python writer; item 9).
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
@@ -1417,7 +1575,7 @@ def _cdef_prm(cdef):
 def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                    cdef: tuple | None = None, device=None,
                    timings: list | None = None):
-    """KEY + P chain on the device, at speeds 8-10; 4:2:0 8-bit frames
+    """KEY + P chain on the device, at speeds 7-10; 4:2:0 8-bit frames
     with dims multiples of 32. Runs on `cuda` unless device="cpu" is
     passed. cdef (None, or (y_pri, y_sec, uv_pri, uv_sec, damping)) runs
     the per-SB CDEF search on every frame, with damping cdef[4]; each P

@@ -19,12 +19,14 @@ nonzero-coefficient stream; the host unpacks it, walks the blocks into
 TileWriter, whose RecordingEncoder has the tile range-coded by the CUDA
 kernel of entropy/ec_cuda, and builds the OBU packet.
 
-This slice ports the speed-8 to 10 toolsets (api/speed.py): DC-only luma
+This slice ports the speed-7 to 10 toolsets (api/speed.py): DC-only luma
 and chroma at speeds 9-10, the 7 non-directional luma modes and 4 chroma
-modes at speed 8 (chroma 16x16 then codes in the mode's TX type), no
-split RDO, no CfL, no TX search, no split8, no above-right extension.
-Other options raise NotImplementedError naming the ROADMAP.md item that
-brings them.
+modes at speeds 7-8 (chroma 16x16 then codes in the mode's TX type), and
+at speed 7 PARTITION_SPLIT RDO: each 32x32 block also tries four 16x16
+luma + 8x8 joint-uv quads, coded in order TL, TR, BL, BR with each
+quad's edges read from the quads before it. No CfL, no TX search, no
+split8, no above-right extension. Other options raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -53,8 +55,12 @@ from rav1e_tpu_torch.entropy.obu import (
     TileInfo,
     keyframe_packet,
 )
-from rav1e_tpu_torch.entropy.tile import BlockDecision, TileWriter, \
-    chroma_tx_type
+from rav1e_tpu_torch.entropy.tile import (
+    INTRA_TX_SET2,
+    BlockDecision,
+    TileWriter,
+    chroma_tx_type,
+)
 from rav1e_tpu_torch.ops import transforms as T
 from rav1e_tpu_torch.ops.cdef import (
     cdef_filter_frame,
@@ -328,7 +334,40 @@ def _modes_tensor(modes, device):
                         device=device)
 
 
-def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False):
+def _sub_edge(cur, ea, el, etl, has_a, has_l, r0: int, c0: int, half: int):
+    """Edges of the sub-block at (r0, c0), size `half`, of blocks whose
+    in-progress recon is `cur` [n, B, B]; ea/el/etl are the outer
+    blocks' edges (valid per has_a/has_l). Inside the block the edges
+    are always available; the top-left pixel of an edge sub-block comes
+    from the outer edge it lies on, 0 where that edge is missing.
+    Returns (above, left, top-left, has_above, has_left); the first
+    three may be views of `cur`, read before `cur` is written."""
+    n = cur.shape[0]
+    ones = torch.ones((n,), dtype=torch.bool, device=cur.device)
+    if r0 > 0:
+        sa, ha = cur[:, r0 - 1, c0: c0 + half], ones
+    else:
+        sa, ha = ea[:, c0: c0 + half], has_a
+    if c0 > 0:
+        sl, hl = cur[:, r0: r0 + half, c0 - 1], ones
+    else:
+        sl, hl = el[:, r0: r0 + half], has_l
+    if r0 > 0 and c0 > 0:
+        stl = cur[:, r0 - 1, c0 - 1]
+    elif r0 > 0:
+        stl = torch.where(has_l, el[:, r0 - 1], 0)
+    elif c0 > 0:
+        stl = torch.where(has_a, ea[:, c0 - 1], 0)
+    else:
+        stl = etl
+    return sa, sl, stl, ha, hl
+
+
+QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))   # TL, TR, BL, BR (row, col)
+
+
+def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False,
+                    modes_quad=None, split_rdo: bool = False):
     """Phase 1, the dense mode pass (the reference's wavefront_frame
     with dense=True): every block of the frame on ONE "diagonal" in
     raster order, with `edges` (block grids [bh, bw, b, b] of y, u, v)
@@ -338,11 +377,16 @@ def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False):
     Returns the reference's 14 block grids: (y_rec, u_rec, v_rec, y_lv,
     u_lv, v_lv, y_modes [bh,bw,5], uv_modes [bh,bw,5], split, cfl
     [bh,bw,2], y_txs [bh,bw,4], s16 [bh,bw,4], ym8 [bh,bw,4,4],
-    uvm8 [bh,bw,4,4]). Split RDO and CfL are not ported yet."""
+    uvm8 [bh,bw,4,4]). The mode stores hold the 32-mode in slot 0 and
+    the quads' modes in slots 1..4 (the 32-mode again without
+    split_rdo). split_rdo adds the PARTITION_SPLIT candidate over
+    `modes_quad` (default modes_y); CfL is not ported yet."""
     lam = rd["lam"]
     ry, ru, rv = edges
     dev = ry.device
     bh_g, bw_g = ry.shape[0], ry.shape[1]
+    if modes_quad is None:
+        modes_quad = modes_y
 
     def _dn(a):     # row i <- max(i-1, 0)
         return torch.cat([a[:1], a[:-1]], 0)
@@ -397,21 +441,114 @@ def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False):
                       + rd["uvbits"][:, None]))
     bc = torch.argmin(ccost, dim=0)
     c16_mode = _modes_tensor(modes_uv, dev)[bc]
+    u_rec, v_rec = ur[bc, sel], vr[bc, sel]
+    u_lv, v_lv = ulv[bc, sel], vlv[bc, sel]
 
     i32 = torch.int32
     zeros = functools.partial(torch.zeros, device=dev)
+    y_modes = y32_mode[:, None].expand(n, 5).contiguous()
+    uv_modes = c16_mode[:, None].expand(n, 5).contiguous()
+    split = zeros((n,), dtype=torch.bool)
+    if split_rdo:
+        au, lu_, tlu = gather_edges(ru, CB, CB)
+        av, lv_, tlv = gather_edges(rv, CB, CB)
+        q = _split_quads(
+            (a_y, l_y, tl_y), (au, lu_, tlu), (av, lv_, tlv), has_a, has_l,
+            (srcb_y, blk(srcs[1]), blk(srcs[2])), rd, modes_quad, modes_uv,
+            approx)
+        split_cost = q["cost"] + lam * rd["split_bits"]
+        none_cost = cost32[b32, sel] + ccost[bc, sel]
+        split = split_cost < none_cost
+        s3 = split[:, None, None]
+        y_rec = torch.where(s3, q["y"], y_rec)
+        y_lv = torch.where(s3, q["ylv"], y_lv)
+        u_rec = torch.where(s3, q["u"], u_rec)
+        v_rec = torch.where(s3, q["v"], v_rec)
+        u_lv = torch.where(s3, q["ulv"], u_lv)
+        v_lv = torch.where(s3, q["vlv"], v_lv)
+        y_modes = torch.cat([y32_mode[:, None], q["ym"]], 1)
+        uv_modes = torch.cat([c16_mode[:, None], q["uvm"]], 1)
 
     def g(x):
         return x.reshape((bh_g, bw_g) + tuple(x.shape[1:]))
 
-    return (g(y_rec), g(ur[bc, sel]), g(vr[bc, sel]), g(y_lv),
-            g(ulv[bc, sel]), g(vlv[bc, sel]),
-            g(y32_mode[:, None].expand(n, 5).contiguous()),
-            g(c16_mode[:, None].expand(n, 5).contiguous()),
-            g(zeros((n,), dtype=torch.bool)), g(zeros((n, 2), dtype=i32)),
+    return (g(y_rec), g(u_rec), g(v_rec), g(y_lv), g(u_lv), g(v_lv),
+            g(y_modes), g(uv_modes), g(split), g(zeros((n, 2), dtype=i32)),
             g(torch.ones((n, 4), dtype=i32, device=dev)),
             g(zeros((n, 4), dtype=torch.bool)),
             g(zeros((n, 4, 4), dtype=i32)), g(zeros((n, 4, 4), dtype=i32)))
+
+
+def _split_quads(edges_y, edges_u, edges_v, has_a, has_l, srcs, rd,
+                 modes_quad, modes_uv, approx):
+    """The PARTITION_SPLIT candidate of phase 1: per quad (TL, TR, BL,
+    BR) the best 16x16 luma mode over modes_quad, then the best joint-uv
+    8x8 mode, each quad predicted from the recon of the quads before it
+    (_sub_edge). The quad costs are added one at a time in quad order,
+    as the reference adds them. Returns the quads' recon and levels
+    (spatial [n, 32, 32] / [n, 16, 16]), their modes [n, 4] and the
+    summed cost [n]."""
+    lam = rd["lam"]
+    srcb_y, srcu, srcv = srcs
+    n = srcb_y.shape[0]
+    dev = srcb_y.device
+    sel = torch.arange(n, device=dev)
+    i32 = torch.int32
+    K = len(modes_quad)
+    cts8 = [chroma_tx_type(m, TxSize.TX_8X8, True) for m in modes_uv]
+    mode_tab_q = _modes_tensor(modes_quad, dev)
+    mode_tab_uv = _modes_tensor(modes_uv, dev)
+    cur = torch.zeros((n, LB, LB), dtype=i32, device=dev)
+    clv = torch.zeros_like(cur)
+    cur_u = torch.zeros((n, CB, CB), dtype=i32, device=dev)
+    cur_v, cu_lv, cv_lv = (torch.zeros_like(cur_u) for _ in range(3))
+    ym, uvm = [], []
+    tot = torch.zeros((n,), dtype=torch.float32, device=dev)
+    half, h8 = CB, CB // 2
+    for qr, qc in QUADS:
+        r0, c0 = qr * half, qc * half
+        # --- luma 16-whole ---
+        sa, sl, stl, ha, hl = _sub_edge(cur, *edges_y, has_a, has_l, r0, c0,
+                                        half)
+        preds = predict_modes(modes_quad, sa, sl, stl, ha, hl, half, half)
+        sub_src = srcb_y[:, r0: r0 + half, c0: c0 + half]
+        recb, lvk, sse = _cand_eval(preds, sub_src, TxSize.TX_16X16,
+                                    (rd["qdc"], rd["qac"]),
+                                    [TxType.DCT_DCT] * K, approx=approx)
+        cost = sse + lam * (block_bits(lvk, rd["y16"])
+                            + rd["yqbits"][:, None])
+        b16 = torch.argmin(cost, dim=0)
+        # --- chroma 8-whole (joint uv) ---
+        cr0, cc0 = r0 // 2, c0 // 2
+        sau, slu, stu, hau, hlu = _sub_edge(cur_u, *edges_u, has_a, has_l,
+                                            cr0, cc0, h8)
+        sav, slv, stv, _, _ = _sub_edge(cur_v, *edges_v, has_a, has_l, cr0,
+                                        cc0, h8)
+        pu = predict_modes(modes_uv, sau, slu, stu, hau, hlu, h8, h8)
+        pv = predict_modes(modes_uv, sav, slv, stv, hau, hlu, h8, h8)
+        dqs_c = (rd["qdc_c"], rd["qac_c"])
+        ru8, lu8, su8 = _cand_eval(pu, srcu[:, cr0: cr0 + h8, cc0: cc0 + h8],
+                                   TxSize.TX_8X8, dqs_c, cts8, approx=approx)
+        rv8, lv8, sv8 = _cand_eval(pv, srcv[:, cr0: cr0 + h8, cc0: cc0 + h8],
+                                   TxSize.TX_8X8, dqs_c, cts8, approx=approx)
+        cst = (su8 + sv8 + lam * (block_bits(lu8, rd["c8"])
+                                  + block_bits(lv8, rd["c8"])
+                                  + rd["uvbits"][:, None]))
+        bq = torch.argmin(cst, dim=0)
+        tot = tot + cost[b16, sel] + cst[bq, sel]
+        # the edge views above are consumed: write the quads in place
+        cur[:, r0: r0 + half, c0: c0 + half] = recb[b16, sel]
+        clv[:, r0: r0 + half, c0: c0 + half] = lvk[b16, sel]
+        cs = (slice(None), slice(cr0, cr0 + h8), slice(cc0, cc0 + h8))
+        cur_u[cs] = ru8[bq, sel]
+        cur_v[cs] = rv8[bq, sel]
+        cu_lv[cs] = lu8[bq, sel]
+        cv_lv[cs] = lv8[bq, sel]
+        ym.append(mode_tab_q[b16])
+        uvm.append(mode_tab_uv[bq])
+    return {"y": cur, "ylv": clv, "u": cur_u, "v": cur_v, "ulv": cu_lv,
+            "vlv": cv_lv, "ym": torch.stack(ym, 1), "uvm": torch.stack(uvm, 1),
+            "cost": tot}
 
 
 # ---- phase 2: recon wavefront on the diagonal-skewed layout ----------------
@@ -467,7 +604,7 @@ def _clamp_row(arr, r: int) -> int:
 
 
 def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
-                    modes_y, modes_uv):
+                    modes_y, modes_uv, sp_sk=None, modes_quad=None):
     """Decoder-order reconstruction with FIXED per-block decisions.
 
     All arrays are diagonal-skewed: index [d, s] holds block
@@ -475,16 +612,24 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
     never clamp; every row index is still clamped as the reference's
     dynamic slices clamp theirs. The reference's fori_loop over the D
     diagonals is a Python loop; the state updates in place (the rows
-    read in a step are never the row written). Returns skewed (rec_y,
-    rec_u, rec_v, lv_y, lv_u, lv_v)."""
+    read in a step are never the row written). sp_sk [D, S] (split RDO)
+    marks the blocks coded as four 16x16 luma quads (modes ym_sk[..., 1:]
+    over modes_quad) and four 8x8 chroma quads (uvm_sk[..., 1:]), each
+    predicted from the quads before it. Returns skewed (rec_y, rec_u,
+    rec_v, lv_y, lv_u, lv_v)."""
     D, S = has_l_tab.shape
     dev = sy_sk.device
     qdc, qac = rd["qdc"], rd["qac"]
     qdc_c, qac_c = rd["qdc_c"], rd["qac_c"]
+    if modes_quad is None:
+        modes_quad = modes_y
     luty = torch.as_tensor(_mode_lut(modes_y), device=dev).long()
+    lutq = torch.as_tensor(_mode_lut(modes_quad), device=dev).long()
     lutuv = torch.as_tensor(_mode_lut(modes_uv), device=dev).long()
     tts16, tid16_np = _tts_select(modes_uv, TxSize.TX_16X16)
     tid16 = torch.as_tensor(tid16_np, device=dev).long()
+    tts8, tid8_np = _tts_select(modes_uv, TxSize.TX_8X8)
+    tid8 = torch.as_tensor(tid8_np, device=dev).long()
     o_a, o_l, o_tl = 1, 1, 2
     slot_has_a = torch.arange(S, device=dev) > 0
 
@@ -531,30 +676,67 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
         tl = shift1(rows(rp, row - o_tl)[:, b - 1, b - 1])
         return a, left, tl
 
+    def quads(ed, has_l, src, modes, lut, m_d, tx, dq0, dq1, code):
+        """The four quads of one plane in order, each predicted from the
+        quads coded before it: (recon, levels) [S, 2 half, 2 half]."""
+        half = tx.height
+        cur = torch.zeros((S, 2 * half, 2 * half), dtype=i32, device=dev)
+        clv = torch.zeros_like(cur)
+        for qi, (qr, qc) in enumerate(QUADS):
+            r0, c0 = qr * half, qc * half
+            sa, sl, stl, ha, hl = _sub_edge(cur, *ed, slot_has_a, has_l, r0,
+                                            c0, half)
+            pq = predict_modes(modes, sa, sl, stl, ha, hl, half, half)
+            rq, lq = code(sel_modes(pq, lut[m_d[:, 1 + qi].long()]),
+                          src[:, r0: r0 + half, c0: c0 + half], tx, dq0, dq1,
+                          m_d[:, 1 + qi].long())
+            # the edge views above are consumed: write the quad in place
+            cur[:, r0: r0 + half, c0: c0 + half] = rq
+            clv[:, r0: r0 + half, c0: c0 + half] = lq
+        return cur, clv
+
+    def code_y16(pred, src, tx, dq0, dq1, _):
+        return code_one(pred, src, tx, dq0, dq1)
+
+    def code_c8(pred, src, tx, dq0, dq1, m):
+        return code_sel(pred, src, tx, dq0, dq1, tts8, tid8[m])
+
     for d in range(D):
         row = d + 3
         has_l = rows(has_l_tab, d)
         ym_d = rows(ym_sk, d)
         uvm_d = rows(uvm_sk, d)
+        sy_d = rows(sy_sk, d)
 
         # ---- luma 32 (single chosen mode) ----
-        a_y, l_y, tl_y = edges(ry_sk, LB, row)
-        preds32 = predict_modes(modes_y, a_y, l_y, tl_y, slot_has_a,
-                                has_l, LB, LB)
+        ed_y = edges(ry_sk, LB, row)
+        preds32 = predict_modes(modes_y, *ed_y, slot_has_a, has_l, LB, LB)
         p32 = sel_modes(preds32, luty[ym_d[:, 0].long()])
-        rec_y_d, lv_y_d = code_one(p32, rows(sy_sk, d), TxSize.TX_32X32,
-                                   qdc, qac)
+        rec_y_d, lv_y_d = code_one(p32, sy_d, TxSize.TX_32X32, qdc, qac)
+        if sp_sk is not None:
+            s3 = rows(sp_sk, d)[:, None, None]
+            ry_q, ly_q = quads(ed_y, has_l, sy_d, modes_quad, lutq, ym_d,
+                               TxSize.TX_16X16, qdc, qac, code_y16)
+            rec_y_d = torch.where(s3, ry_q, rec_y_d)
+            lv_y_d = torch.where(s3, ly_q, lv_y_d)
 
-        # ---- chroma 16 (chosen joint uv mode) ----
+        # ---- chroma 16 (chosen joint uv mode), then its 8x8 quads ----
         ku = lutuv[uvm_d[:, 0].long()]
         tu = tid16[uvm_d[:, 0].long()]
         out_c = []
         for rp, src in ((ru_sk, su_sk), (rv_sk, sv_sk)):
-            a, left, tl = edges(rp, CB, row)
-            pc = predict_modes(modes_uv, a, left, tl, slot_has_a, has_l,
-                               CB, CB)
-            out_c.append(code_sel(sel_modes(pc, ku), rows(src, d),
-                                  TxSize.TX_16X16, qdc_c, qac_c, tts16, tu))
+            ed_c = edges(rp, CB, row)
+            src_d = rows(src, d)
+            pc = predict_modes(modes_uv, *ed_c, slot_has_a, has_l, CB, CB)
+            rec_c, lv_c = code_sel(sel_modes(pc, ku), src_d,
+                                   TxSize.TX_16X16, qdc_c, qac_c, tts16, tu)
+            if sp_sk is not None:
+                rc_q, lc_q = quads(ed_c, has_l, src_d, modes_uv, lutuv,
+                                   uvm_d, TxSize.TX_8X8, qdc_c, qac_c,
+                                   code_c8)
+                rec_c = torch.where(s3, rc_q, rec_c)
+                lv_c = torch.where(s3, lc_q, lv_c)
+            out_c.append((rec_c, lv_c))
         (rec_u_d, lv_u_d), (rec_v_d, lv_v_d) = out_c
 
         put(ry_sk, row, rec_y_d)
@@ -619,20 +801,24 @@ def _kf_skip8(state):
 
 def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
                 use_cdef: bool, use_deblock: bool, cdef_rdo: bool = False,
-                mark=_nomark):
+                mark=_nomark, split_rdo: bool = False):
     """Keyframe in-loop filters: the deblock level search, then CDEF —
     the per-64x64-SB ladder search against the source (cdef_rdo) or the
     fixed strengths cdef_prm (y_pri, y_sec, uv_pri, uv_sec, damping).
-    `mark(name)` runs after each ("filters", "cdef"). Returns (lf_lvl
-    0-d int32, cdef_idx [ceil(bh/2), ceil(bw/2)] int32, rec_packed uint8
-    [3h/2, w]: y over u|v)."""
+    With split_rdo the deblock runs on the 16-px luma / 8-px chroma grid,
+    its interior edges gated by the split map. `mark(name)` runs after
+    each ("filters", "cdef"). Returns (lf_lvl 0-d int32, cdef_idx
+    [ceil(bh/2), ceil(bw/2)] int32, rec_packed uint8 [3h/2, w]: y over
+    u|v)."""
     bh, bw = state[8].shape
     planes = [_from_blocks_t(state[i]) for i in range(3)]
     dev = planes[0].device
     lf_lvl = torch.zeros((), dtype=torch.int32, device=dev)
     if use_deblock:
+        blk_y, blk_c = (16, 8) if split_rdo else (LB, CB)
         lf_lvl, planes = deblock_search(
-            planes, [_from_blocks_t(s) for s in srcs], base_lf, LB, CB, 8)
+            planes, [_from_blocks_t(s) for s in srcs], base_lf, blk_y,
+            blk_c, 8, state[8] if split_rdo else None)
     mark("filters")
     cdef_idx = torch.zeros(((bh + 1) // 2, (bw + 1) // 2), dtype=torch.int32,
                            device=dev)
@@ -691,12 +877,13 @@ def _kf_meta(state, lf_lvl, cdef_idx):
 
 
 def _finalize_kf(state, srcs, base_lf: int, cdef_prm, lam, use_cdef: bool,
-                 use_deblock: bool, cdef_rdo: bool = False, mark=_nomark):
+                 use_deblock: bool, cdef_rdo: bool = False, mark=_nomark,
+                 split_rdo: bool = False):
     """Device-side keyframe epilogue: in-loop filter searches, then the
     compact meta packing."""
     lf_lvl, cdef_idx, rec_packed = _kf_filters(
         state, srcs, base_lf, cdef_prm, lam, use_cdef, use_deblock,
-        cdef_rdo, mark)
+        cdef_rdo, mark, split_rdo)
     meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx)
     return meta, rec_packed, lvy, lvu, lvv
 
@@ -719,10 +906,10 @@ class KeyframeDevice(NamedTuple):
 
 
 def _check_speed(speed: int):
-    if speed < 8:
-        _not_ported(f"speed {speed} (< 8: split RDO, and at 6 CfL, TX "
-                    "search, split8, the directional modes)",
-                    "item 8 (keyframes at speeds 8 and 6)")
+    if speed < 7:
+        _not_ported(f"speed {speed} (< 7: CfL, TX search, split8, the "
+                    "directional modes, the speed-6 P tools)",
+                    "item 8 (speed 6)")
 
 
 def _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra):
@@ -742,14 +929,15 @@ def _check_options(speed, cdef, lr, aq, deferred, planes, seq_extra):
 
 
 def _mode_sets(speed: int):
-    """(modes_y, modes_uv) of a speed preset, as the reference derives
-    them from SpeedSettings."""
+    """(modes_y, modes_uv, modes_quad) of a speed preset, as the
+    reference's encode_keyframe_tpu derives them from SpeedSettings."""
     ss = SpeedSettings.from_preset(speed)
     modes_y = (MODES_FULL if ss.intra_modes >= 13 else
                (MODES_7 if ss.intra_modes >= 7 else MODES_FAST))
+    modes_quad = MODES_QUAD if ss.intra_modes >= 13 else modes_y
     modes_uv = (MODES_UV_FULL if ss.intra_modes >= 13 else
                 (MODES_UV if ss.intra_modes >= 7 else MODES_FAST))
-    return modes_y, modes_uv
+    return modes_y, modes_uv, modes_quad
 
 
 def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
@@ -777,8 +965,10 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
     sy = _to_blocks_t(src[:h], LB)
     su = _to_blocks_t(src[h:, :w // 2], CB)
     sv = _to_blocks_t(src[h:, w // 2:], CB)
-    modes_y, modes_uv = _mode_sets(speed)
-    rd = build_rd(qindex, modes_y, modes_uv, device=dev)
+    modes_y, modes_uv, modes_quad = _mode_sets(speed)
+    split_rdo = SpeedSettings.from_preset(speed).partition_split_rdo
+    rd = build_rd(qindex, modes_y, modes_uv, modes_quad=modes_quad,
+                  device=dev)
     ii_sk, jj_sk, has_l_sk, _, un_d, un_s = _skew_tables(bh, bw)
     isk, jsk = (torch.as_tensor(a, device=dev).long() for a in (ii_sk,
                                                                   jj_sk))
@@ -794,17 +984,19 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
 
     # ---- phase 1: mode decisions from SOURCE edges, fully batched
     dec = wavefront_frame((sy, su, sv), (sy, su, sv), rd, modes_y,
-                          modes_uv, approx=True)
+                          modes_uv, approx=True, modes_quad=modes_quad,
+                          split_rdo=split_rdo)
     stages.mark("phase1")
     # ---- phase 2: decoder-order recon with the chosen modes
     rw = recon_wavefront(skew(sy), skew(su), skew(sv), skew(dec[6]),
-                         skew(dec[7]), has_l_t, rd, modes_y, modes_uv)
+                         skew(dec[7]), has_l_t, rd, modes_y, modes_uv,
+                         skew(dec[8]) if split_rdo else None, modes_quad)
     stages.mark("recon_wavefront")
     state = tuple(unskew(x) for x in rw) + tuple(dec[6:])
     cdef_prm = tuple(cdef) if cdef is not None else (0, 0, 0, 0, 3)
     lf_lvl, cdef_idx, rec_packed = _kf_filters(
         state, (sy, su, sv), level_from_qindex(qindex), cdef_prm, rd["lam"],
-        cdef is not None, deblock, cdef_rdo, stages.mark)
+        cdef is not None, deblock, cdef_rdo, stages.mark, split_rdo)
     meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx)
     stages.mark("meta")
     return KeyframeDevice(state, meta, rec_packed, lvy, lvu, lvv,
@@ -821,8 +1013,8 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
                         device=None, timings: dict | None = None):
     """KEY frame encode on the device; dims must be multiples of 32,
     4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed. The
-    defaults are the reference's; speeds below 8 raise
-    NotImplementedError (ROADMAP.md item 8).
+    defaults are the reference's; speeds below 7 (the default 6
+    included) raise NotImplementedError (ROADMAP.md item 8).
 
     cdef: None disables CDEF at the sequence level; a 5-tuple (y_pri,
     y_sec, uv_pri, uv_sec, damping) enables it — with cdef_rdo each
@@ -866,6 +1058,7 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     sp = (body[:, 1] != 0).reshape(bh, bw)
     my = body[:, 2:7].astype(np.int32).reshape(bh, bw, 5)
     mu = body[:, 7:12].astype(np.int32).reshape(bh, bw, 5)
+    ytx = body[:, 14:18].astype(np.int32).reshape(bh, bw, 4)
 
     def unw(raw):
         wd = raw.reshape(-1, 2).astype(np.int32)
@@ -924,19 +1117,40 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
         tw.cdef_idx_map = cdef_map
     partitions: dict = {}
     blocks: dict = {}
+    def intra_block(y_mode, uv_mode, yl, ul, vl, y_tx_type):
+        d = BlockDecision(y_mode=PredictionMode(int(y_mode)),
+                          uv_mode=PredictionMode(int(uv_mode)),
+                          skip=False, seg_id=0)
+        if not yl.any() and not ul.any() and not vl.any():
+            d.skip = True
+        else:
+            d.coeffs = {0: yl, 1: ul, 2: vl, "y_tx_type": y_tx_type}
+        return d
+
     for bi in range(bh):
         for bj in range(bw):
             r, c = bi * 8, bj * 8
             yl, ul, vl = ly[bi, bj], lu[bi, bj], lvv[bi, bj]
-            d = BlockDecision(y_mode=PredictionMode(int(my[bi, bj, 0])),
-                              uv_mode=PredictionMode(int(mu[bi, bj, 0])),
-                              skip=False, seg_id=0)
-            if not yl.any() and not ul.any() and not vl.any():
-                d.skip = True
-            else:
-                d.coeffs = {0: yl, 1: ul, 2: vl,
-                            "y_tx_type": TxType.DCT_DCT}
-            blocks[(r, c)] = d
+            if sp[bi, bj]:
+                # PARTITION_SPLIT: four 16x16 NONE children, TX_16X16
+                # luma (intra_ext_tx2 symbol ytx) + TX_8X8 chroma, their
+                # levels stored spatially in the block's level arrays
+                partitions[(r, c, int(BlockSize.B32X32))] = \
+                    PartitionType.SPLIT
+                for q, (qr, qc) in enumerate(QUADS):
+                    dr, dc = 4 * qr, 4 * qc           # in 4x4 units
+                    py, px, cy, cx = 16 * qr, 16 * qc, 8 * qr, 8 * qc
+                    blocks[(r + dr, c + dc)] = intra_block(
+                        my[bi, bj, 1 + q], mu[bi, bj, 1 + q],
+                        yl[py: py + 16, px: px + 16],
+                        ul[cy: cy + 8, cx: cx + 8],
+                        vl[cy: cy + 8, cx: cx + 8],
+                        INTRA_TX_SET2[int(ytx[bi, bj, q])])
+                    partitions[(r + dr, c + dc, int(BlockSize.B16X16))] = \
+                        PartitionType.NONE
+                continue
+            blocks[(r, c)] = intra_block(my[bi, bj, 0], mu[bi, bj, 0],
+                                         yl, ul, vl, TxType.DCT_DCT)
             partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
     for r in range(0, mi_rows, 16):
         for c in range(0, mi_cols, 16):

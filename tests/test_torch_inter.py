@@ -1,4 +1,4 @@
-"""The port's speed-10 P-frame slice against the JAX package's, on the
+"""The port's speed-8 to 10 P-frame slices against the JAX package's, on the
 CPU, with the same numpy-seeded inputs.
 
 MC, the patch gather, the packed decision buffer and whole packets are
@@ -32,6 +32,7 @@ W, H = 192, 128
 # the P toolsets of api/speed.py as encode_pframe_tpu options
 SPEED10 = dict(use_split=False, refine16=False, search=8, subpel=False)
 SPEED8 = dict(use_split=False, refine16=False, search=8, subpel=True)
+SPEED7 = dict(use_split=True, refine16=False, search=8, subpel=True)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -473,28 +474,29 @@ def test_noise_pframe_takes_the_overflow_gather():
     _decode_exactly([kf_pkt, pkt_t], [kf_rec, rec_t])
 
 
-@pytest.mark.parametrize("kw", [{"use_split": True}, {"use_satd": True},
+@pytest.mark.parametrize("kw", [{"use_split8": True}, {"use_satd": True},
                                 {"b64_rdo": True},
                                 {"intra_rdo": True}, {"use_native": True}])
 def test_pframe_options_beyond_the_slice_raise(kw):
-    """On top of the speed-8 toolset, each speed-6 tool (and the C++
-    packer) raises NotImplementedError naming its ROADMAP item; so do
-    the reference's defaults."""
+    """On top of the speed-7 toolset, each speed-6 tool (and the C++
+    packer) raises NotImplementedError naming its ROADMAP item; so does
+    each on top of the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tinter.encode_pframe_tpu(planes, planes, device="cpu",
-                                 **{**SPEED8, **kw})
+                                 **{**SPEED7, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_pframe_tpu(planes, planes, device="cpu")
+        tinter.encode_pframe_tpu(planes, planes, device="cpu", **kw)
 
 
 def test_gop_below_speed_9_raises_and_cuda_is_the_default():
-    """Speed 7 (split RDO) raises; without a device argument the GOP
-    runs on cuda, and without CUDA that raises."""
+    """Speed 6 (the speed-6 tools) raises naming ROADMAP item 8; without
+    a device argument the GOP runs on cuda, and without CUDA that
+    raises."""
     frames = motion_frames(64, 64, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_gop_tpu(frames, speed=7, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
+        tinter.encode_gop_tpu(frames, speed=6, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tinter.encode_gop_tpu(frames, speed=10)
