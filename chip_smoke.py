@@ -29,7 +29,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      skip map (the sampled branch) and on it cut to 1920x1056 (the full
      branch): dir, var, the SSE tables and the applied planes (ladder
      winners and a uniform strength) exactly equal; kernel and plain
-     device ms (mean of 3) and the bound;
+     device ms (mean of 3) and the bound; then noise at q 255 (256x192
+     sampled, 160x96 full), where a cell's SSE passes 2^24 and the f32
+     order decides: the tables of kernel and plain version, and the
+     search's index and planes on cuda and on cpu, exactly equal;
   7. the port on cuda vs the port on cpu, keyframe at 256x192, speed 10:
      level differences (|d| = 1 at < 1e-4 of the coefficients allowed,
      from the f32 forward transform) and identical recon wherever no
@@ -46,17 +49,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      RDO with refine16, 16-px search, subpel) at 256x192 on cuda vs cpu:
      every decision, level, the recon and the packet identical; the
      gather launches at refine16's patch sizes;
-  12-13. encode_gop_tpu at 1920x1088, q 100: KEY + 1 P at speed 10, then
-     the main path, KEY + 2 P at speed 7 with cdef (0, 0, 0, 0, 3), every
+  12-13. encode_gop_tpu at q 100: KEY + 1 P at speed 10 at 1920x544 (its
+     depth cut, to keep the run short), then the main path, KEY + 2 P
+     at 1920x1088 at speed 7 with cdef (0, 0, 0, 0, 3), every
      kernel's count set to 0 just before and read just after: per-frame
      stage times, packet sizes and shares of split 32-blocks; every frame
      launched each kernel that serves it; every tile's IR coded again by
      pack_ir_plain gives the packet's bytes; recon within 0..255; each
      tile's ec kernel time at L = 256, 512, 1024 and its per-pass
-     times.
+     times;
+  14. the default keyframe (speed 6: 13 luma modes on the 2i+j schedule,
+     CfL, the quads' TX type search, the 16->8 split) with cdef
+     (0, 0, 0, 0, 3) at 256x192 on cuda vs on cpu, twice: on synth
+     content with squares, a straight edge and chroma that follows luma
+     (the split8 gate off) and on it with an 8-px checkerboard region
+     (the gate on; the 8..16 px band printed): every level, recon,
+     mode map, CfL alpha, TX type, split and 16->8 map, CDEF index, the
+     filtered recon and the packet identical; the blocks that took CfL, a
+     directional mode, each TX type and the 16->8 split counted;
+  15. the speed-6 keyframe at 1920x1088, q 100, cdef (0, 0, 0, 0, 3), the
+     same frame as phase 13's keyframe, every kernel's count set to 0
+     just before and read just after: its stage times beside phase 13's
+     speed-7 keyframe, its packet size, each of its kernels launched, its
+     tile's IR coded again by pack_ir_plain, recon within 0..255;
+  16. the same on a 1920x128 frame with phase 14's checkerboard every
+     256 px (the split8 gate on, quads split 16->8 at full width; the
+     depth cut to keep the run short).
 
-Prints a kernels JSON line, then, as the last line,
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Prints a kernels JSON line (launches: phases 13, 15 and 16 together,
+and each path's own count, every count set to 0 just before its path),
+then,
+as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
 rav1e_tpu_torch package beside it.
 """
@@ -449,7 +472,7 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
         if not torch.equal(got, want):
             fail(f"{w}x{h} plane {i}: cdef_ladder_sse kernel and plain "
                  f"version differ (max |err| "
-                 f"{int((got.long() - want.long()).abs().max())})")
+                 f"{float((got - want).abs().max())})")
         sses.append(got)
         ph, pw = p.shape
         mask = (_sampled_mask(torch, ph, pw, 16 if chroma else 32, p.device)
@@ -514,6 +537,62 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
           + f"; cdef_apply on the winners' map {winners_ms:.5f} ms",
           flush=True)
     return res
+
+
+def noise_at_q255(w, h, seed, scale=1):
+    """Binary noise (0 / 255) as the source and, as its recon, the 8x8
+    block means with mild noise (what q 255 leaves of it), divided by
+    `scale`: per-plane cell SSEs pass 2^24. (recon, source, skip8)."""
+    rng = np.random.default_rng(seed)
+    rec, src = [], []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        s = np.where(rng.random((ph, pw)) < 0.5, 0, 255).astype(np.int32)
+        m = s.reshape(ph // 8, 8, pw // 8, 8).mean((1, 3))
+        r = np.kron(m, np.ones((8, 8))) + rng.normal(0, 12, (ph, pw))
+        rec.append(np.clip(r.clip(0, 255).astype(np.int32) // scale, 0, 255))
+        src.append(s)
+    return rec, src, rng.random((h // 8, w // 8)) < 0.1
+
+
+def cdef_past_2_24(torch, cd):
+    """Phase 6, past 2^24: on noise at q 255, 256x192 (sampled branch)
+    and 160x96 with a heavier error (full branch), the SSE tables of the
+    kernel and of the plain version on the card, and the search's index
+    and filtered planes on cuda and on cpu, exactly equal; a luma cell
+    passes 2^24, where the order of the f32 sum decides."""
+    for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
+        rec, src, skip8 = noise_at_q255(w, h, seed, scale)
+        sampled = h % 64 == 0 and w % 64 == 0
+        dev = {d: ([torch.from_numpy(p.astype(np.uint8)).to(d) for p in rec],
+                   [torch.from_numpy(p.astype(np.uint8)).to(d) for p in src],
+                   torch.from_numpy(skip8).to(d)) for d in ("cuda", "cpu")}
+        rd, sd, kd = dev["cuda"]
+        dirs, var = cd.cdef_dirs(rd[0])
+        top = 0.0
+        for i in range(3):
+            args = (rd[i], sd[i], dirs, var, kd, 3, i > 0, sampled)
+            got = cd.cdef_ladder_sse(*args)
+            if not torch.equal(got, cd.cdef_ladder_sse_plain(*args)):
+                fail(f"{w}x{h} noise plane {i}: cdef_ladder_sse kernel and "
+                     "plain version differ")
+            top = max(top, float(got.max()))
+        if top < 2 ** 24:
+            fail(f"{w}x{h} noise: no cell passes 2^24 ({top})")
+        same = []
+        for lam in (None, 60.0, 2000.0):
+            out = {d: cd.cdef_search_persb(
+                *dev[d], 3, lam=None if lam is None
+                else torch.tensor(lam, device=d)) for d in dev}
+            same.append(torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+                        and all(torch.equal(a.cpu(), b) for a, b in
+                                zip(out["cuda"][1], out["cpu"][1])))
+        print(f"# CDEF past 2^24 at {w}x{h} (noise at q 255, "
+              f"{'sampled' if sampled else 'full'} branch, largest cell "
+              f"SSE {top:.0f}): kernel and plain tables identical; index "
+              f"and planes cuda = cpu at lam None, 60, 2000: {same}",
+              flush=True)
+        if not all(same):
+            fail(f"{w}x{h} noise: cdef_search_persb differs on cuda and cpu")
 
 
 def gpu_vs_cpu(torch, ti):
@@ -771,15 +850,16 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
     return sizes
 
 
-def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
-    """Phases 12 and 13: a 1920x1088 KEY + (n - 1) P GOP on cuda, every
+def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
+              h: int = 1088):
+    """Phases 12 and 13: a 1920 x h KEY + (n - 1) P GOP on cuda, every
     kernel's count set to 0 just before it and read just after. Checks
     that every frame launched each kernel that serves it (the keyframe:
     ec_pack, and the three CDEF kernels with cdef; each P frame: also
     gather_patches). Returns ({kernel: launches}, gather launches per
     patch size, P frames)."""
-    frames = synth(1920, 1088, n=n)
-    h, w = frames[0][0].shape
+    frames = synth(1920, h, n=n)
+    w = 1920
     nsb = ((h // 32 + 1) // 2) * ((w // 32 + 1) // 2)
     captured = []
 
@@ -844,7 +924,7 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
         ti.RecordingEncoder, tp.RecordingEncoder, tp.gather_patches = saved
         tp._pack_pframe, ti.pack_keyframe = orig_pack, orig_kpack
     n_p = len(frames) - 1
-    print(f"# 1080p GOP (KEY + {n_p} P, speed {speed}, cdef {cdef}, q 100, "
+    print(f"# {w}x{h} GOP (KEY + {n_p} P, speed {speed}, cdef {cdef}, q 100, "
           f"cuda): {wall:.3f} s; packets {[len(p) for p in pkts]} bytes; "
           f"launches {json.dumps(launches)}, gather by patch size {sizes}",
           flush=True)
@@ -888,7 +968,7 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
                 or any(r.dtype != torch.uint8 for r in rec):
             fail(f"P frame {i}: recon shapes or type wrong")
     rows = [int(x.shape[0]) for x in captured]
-    print(f"# 1080p GOP: {len(captured)} tiles ({rows} symbols) re-coded "
+    print(f"# {w}x{h} GOP: {len(captured)} tiles ({rows} symbols) re-coded "
           "by pack_ir_plain: identical bytes; every frame launched the "
           "kernels that serve it", flush=True)
     for i, ir in enumerate(captured):
@@ -900,7 +980,168 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None):
               f"{json.dumps({L: round(t, 4) for L, t in ms.items()})}; "
               f"passes (ms): {json.dumps(pass_times(torch, ec, ir_d))}",
               flush=True)
-    return launches, sizes, n_p
+    return launches, sizes, n_p, timings
+
+
+
+def speed6_content(w, h):
+    """synth content with squares() stamped on it, a straight diagonal
+    luma edge and u following luma: blocks split, take directional
+    modes, the four TX types of the quads and CfL."""
+    planes = squares([synth(w, h)[0]])[0]
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = np.where(xx - yy > w // 3, planes[0].astype(np.int32) + 60,
+                 planes[0])
+    planes[0] = np.clip(y, 0, 255).astype(np.uint8)
+    yd = planes[0].reshape(h // 2, 2, w // 2, 2).mean((1, 3))
+    planes[1] = np.clip(128 + 0.5 * (yd - 128), 0, 255).astype(np.uint8)
+    return planes
+
+
+def checker_region(planes, y0=48, x0=64):
+    """An 8-px checkerboard (+-40) over a 96x128 luma region of the
+    planes at (y0, x0) (in place): 8x8 blocks flat, 16x16 blocks not, so
+    the frame's 8..16 px band passes the split8 gate."""
+    yy, xx = np.mgrid[0:96, 0:128]
+    y = planes[0][y0:y0 + 96, x0:x0 + 128].astype(np.int32)
+    planes[0][y0:y0 + 96, x0:x0 + 128] = np.clip(
+        y + np.where((xx // 8 + yy // 8) % 2, 40, -40), 0, 255)
+    return planes
+
+
+def checker_tiled(planes):
+    """checker_region every 256 px across the frame's width (and every
+    192 px down, from row 16): enough of the frame for the gate."""
+    h, w = planes[0].shape
+    for y0 in range(16, h - 96 + 1, 192):
+        for x0 in range(64, w - 128 + 1, 256):
+            checker_region(planes, y0, x0)
+    return planes
+
+
+STATE = ("rec_y", "rec_u", "rec_v", "lv_y", "lv_u", "lv_v", "y_modes",
+         "uv_modes", "split", "cfl", "ytx", "s16", "ym8", "uvm8")
+DIRECTIONAL = (3, 4, 5, 6, 7, 8)       # D45 D135 D113 D157 D203 D67
+
+
+def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
+    """Phase 14: the default keyframe with cdef on cuda and on cpu. Every
+    grid of the state, the meta buffer, the filtered recon and the packet
+    must be identical. Returns the tools' counts."""
+    planes = speed6_content(w, h)
+    if split8:
+        planes = checker_region(planes)
+    band = ti._detail_band8(planes[0])
+    if (band > 256.0) != split8:
+        fail(f"{w}x{h}: the 8..16 px band {band:.1f} is on the wrong side "
+             "of the split8 gate")
+    kd = {d: ti.analyze_keyframe(planes, 100, cdef=CDEF_SPEED8, device=d)
+          for d in ("cuda", "cpu")}
+    bad = [n for n, a, b in zip(STATE, kd["cuda"].state, kd["cpu"].state)
+           if not torch.equal(a.cpu(), b.cpu())]
+    for k in ("meta", "rec_packed"):
+        if not torch.equal(getattr(kd["cuda"], k).cpu(),
+                           getattr(kd["cpu"], k).cpu()):
+            bad.append(k)
+    out = {d: ti.pack_keyframe(kd[d], planes, 100, device=d) for d in kd}
+    if out["cuda"][0] != out["cpu"][0]:
+        bad.append("packet")
+    if not all(np.array_equal(a, b) for a, b in zip(out["cuda"][1],
+                                                    out["cpu"][1])):
+        bad.append("recon")
+    g = [x.cpu().numpy() for x in kd["cpu"].state]
+    my, mu, sp, ytx, s16 = g[6], g[7], g[8], g[10], g[11]
+    whole = ~sp
+    quads = sp[..., None] & ~s16
+    counts = {
+        "blocks": int(sp.size), "split": int(sp.sum()),
+        "cfl": int((mu[..., 0][whole] == 13).sum()),
+        "directional_32": int(np.isin(my[..., 0][whole], DIRECTIONAL).sum()),
+        "directional_16": int(np.isin(my[..., 1:][quads], DIRECTIONAL).sum()),
+        "tx_types_16 (DCT, ADST_ADST, ADST_DCT, DCT_ADST)":
+            np.bincount(ytx[quads], minlength=5)[1:].tolist(),
+        "split_16_to_8": int(s16.sum())}
+    tag = " with a checkerboard" if split8 else ""
+    print(f"# {w}x{h} speed-6 keyframe{tag}, cuda vs cpu: 8..16 px band "
+          f"{band:.3f} (gate "
+          f"{'on' if split8 else 'off'}); differing {bad or 'nothing'}; "
+          f"{len(out['cpu'][0])} bytes; taken: {json.dumps(counts)}",
+          flush=True)
+    if bad:
+        fail(f"{w}x{h} speed 6: cuda and cpu differ ({bad})")
+    if split8 and not counts["split_16_to_8"]:
+        fail(f"{w}x{h}: no quad split 16->8 over the gate")
+    return counts
+
+
+def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool,
+                    kf7: dict | None = None, expect: int | None = None):
+    """Phases 15-16: a full-width speed-6 keyframe with cdef on cuda,
+    every kernel's count set to 0 just before and read just after; the
+    split8 gate must be `split8`. Returns ({kernel: launches}, stage
+    times)."""
+    band = ti._detail_band8(planes[0])
+    if (band > 256.0) != split8:
+        fail(f"{what}: the 8..16 px band {band:.1f} is on the wrong side of "
+             "the split8 gate")
+    captured = []
+
+    class Capture(ec.RecordingEncoder):
+        def done(self):
+            captured.append(self.ir_tensor())
+            return super().done()
+
+    kern = {"ec_pack": ec.pack_ir, "cdef_dirs": cd.cdef_dirs,
+            "cdef_ladder_sse": cd.cdef_ladder_sse, "cdef_apply": cd.cdef_apply}
+    timings: dict = {}
+    kds = []
+    saved = ti.RecordingEncoder, ti.analyze_keyframe
+
+    def analyze(*a, **k):
+        kds.append(saved[1](*a, **k))
+        return kds[-1]
+
+    ti.RecordingEncoder, ti.analyze_keyframe = Capture, analyze
+    try:
+        for f in kern.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        pkt, rec = ti.encode_keyframe_tpu(planes, 100, cdef=CDEF_SPEED8,
+                                          device="cuda", timings=timings)
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in kern.items()}
+    finally:
+        ti.RecordingEncoder, ti.analyze_keyframe = saved
+    n8 = int(kds[0].state[STATE.index("s16")].sum())
+    if kf7 is None:
+        stages = {k: round(v, 4) for k, v in timings.items()}
+        col = ""
+    else:
+        stages = {k: [round(v, 4), round(kf7.get(k, float("nan")), 4)]
+                  for k, v in timings.items()}
+        col = " [speed 6, phase 13's speed 7]"
+    ref = ("" if expect is None else
+           f" (the reference's speed-6 GOP keyframe of this content: "
+           f"{expect} bytes; equal: {len(pkt) == expect})")
+    print(f"# {what} speed-6 keyframe (q 100, cdef {CDEF_SPEED8}, cuda): "
+          f"{len(pkt)} bytes in {wall:.3f} s{ref}; 8..16 px band "
+          f"{band:.3f} (gate {'on' if split8 else 'off'}); quads split "
+          f"16->8: {n8}; launches "
+          f"{json.dumps(launches)}; stages (s){col}: {json.dumps(stages)}",
+          flush=True)
+    idle = [k for k, n in launches.items() if n < 1]
+    if idle:
+        fail(f"the {what} speed-6 keyframe did not launch {idle}")
+    if split8 and not n8:
+        fail(f"the {what} speed-6 keyframe split no quad 16->8")
+    if [r.shape for r in rec] != [p.shape for p in planes] or any(
+            r.min() < 0 or r.max() > 255 for r in rec):
+        fail(f"the {what} speed-6 recon has other shapes or leaves 0..255")
+    c_p, st_p = ec.pack_ir_plain(captured[0])
+    if ec.finish(c_p.tolist(), *st_p[:3].tolist()) not in pkt:
+        fail(f"the {what} speed-6 tile's IR coded by pack_ir_plain is not "
+             "the packet's tile")
+    return launches, timings
 
 
 def main() -> int:
@@ -949,6 +1190,7 @@ def main() -> int:
     cut = [rec_d[0][:1056], rec_d[1][:528], rec_d[2][:528]]
     cdef_phase(torch, cd, cut, [src_d[0][:1056], src_d[1][:528],
                                 src_d[2][:528]], skip8[:132])
+    cdef_past_2_24(torch, cd)
     gpu_vs_cpu(torch, ti)
     gop_gpu_vs_cpu(torch, ti, tp, 512, 384, 10)
     gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 8, CDEF_SPEED8)
@@ -963,10 +1205,21 @@ def main() -> int:
               flush=True)
         if r16_sizes.get(P, 0) < 1:
             fail(f"the default P frame launched no gather at P = {P}")
-    gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10)
+    for split8 in (False, True):
+        speed6_gpu_vs_cpu(torch, ti, 256, 192, split8)
+    # the speed-10 GOP, its depth cut to 544 rows to keep the run short
+    gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10, h=544)
     # the main path: the speed-7 GOP with CDEF
-    launches, sizes, n_p = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
-                                     CDEF_SPEED8)
+    launches, sizes, n_p, gop_t = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
+                                            CDEF_SPEED8)
+    # this slice's paths: the default (speed-6) keyframe of the same
+    # frame, and a full-width one whose quads split 16->8
+    kf6_launches, _ = speed6_keyframe(torch, ec, cd, ti,
+                                      synth(1920, 1088)[0], "1080p", False,
+                                      gop_t[0], 86204)
+    kf6s_launches, _ = speed6_keyframe(torch, ec, cd, ti,
+                                       checker_tiled(synth(1920, 128)[0]),
+                                       "1920x128 split8", True)
 
     # the gather entry: one P frame's launches at the measured sizes
     per_frame = {P: n / n_p for P, n in sizes.items()}
@@ -990,14 +1243,29 @@ def main() -> int:
     print(f"# gather per P frame ({per_frame} launches by patch size): "
           f"kernel {gather_entry['ms']:.5f} ms, bound {bound:.5f} ms",
           flush=True)
+    # launches on the main paths, each counted from 0 in its own run:
+    # phase 13's GOP, phase 15's keyframe and phase 16's split8 keyframe
+    by_path = {"gop7": dict(launches), "kf6": kf6_launches,
+               "kf6_split8": kf6s_launches}
+    for k in launches:
+        launches[k] = sum(p.get(k, 0) for p in by_path.values())
+    print(f"# launches on the main paths (phases 13, 15, 16): "
+          f"{json.dumps(by_path)}", flush=True)
+
+    def paths(k):
+        return {p: n.get(k, 0) for p, n in by_path.items()}
+
     ec_entry["launches"] = launches["ec_pack"]
+    ec_entry["launches_by_path"] = paths("ec_pack")
+    gather_entry["launches_by_path"] = paths("gather_patches")
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": 0, "ms": r[0],
+         "launches": launches[k], "launches_by_path": paths(k),
+         "max_abs_err": 0, "ms": r[0],
          "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
          "library_ms": None} for k, r in cdef_ms.items()]
     print(json.dumps({"kernels": [ec_entry, gather_entry]

@@ -39,10 +39,15 @@
 //     32-block (the full branch). The region and a 2-pixel halo go to
 //     shared memory, LARGE outside the frame; each thread selects a
 //     pixel's 4 primary and 8 secondary taps once by its block's
-//     direction, runs the 8 ladder entries on them in registers and adds
-//     each entry's squared error against the source into its own sum;
-//     the block then reduces the 8 sums (warp shuffles, then one warp)
-//     and writes them, without atomics, so runs are deterministic.
+//     direction and runs the 8 ladder entries on them in registers; each
+//     entry's squared error against the source goes to shared memory.
+//     The block then sums each cell in f32 in the order XLA:CPU sums the
+//     reference's `d.sum(...)` (ops/cdef.py, _xla_rows_sum): the cell's
+//     rows in order, each row over 8 lanes, the running total entering
+//     lane 0, the lanes folded in halves. One thread per (entry, row)
+//     forms the row's exact integer terms; one thread per entry adds
+//     them to its total, so the table is the reference's f32 table also
+//     where a cell passes 2^24, and runs are deterministic.
 //     Bound: the operations, not the 3 MB it reads: the 8 entries need
 //     about 600 integer ops per filtered luma pixel (550 chroma) when
 //     the tap work they share (difference, |.|, in-frame test, clamp
@@ -215,7 +220,11 @@ cdef_dirs_kernel(const uint8_t* __restrict__ y, int H, int W,
 }
 
 // (b) the ladder's SSE table. Region side B (32 luma, 16 chroma); unit
-// side N (8 luma, 4 chroma: one direction / skip flag each).
+// side N (8 luma, 4 chroma: one direction / skip flag each). Each cell's
+// sum is the reference's f32 one (see the header): every squared error
+// is exact in f32 and so is every sum of at most 16 of them, so the
+// only roundings are the adds into the running total, which
+// `row_terms` lists in XLA:CPU's order for one row.
 template <int B, int N>
 __global__ void __launch_bounds__(THREADS)
 cdef_ladder_sse_kernel(const uint8_t* __restrict__ plane,
@@ -223,18 +232,21 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ plane,
                        const int8_t* __restrict__ dirs,
                        const int* __restrict__ var,
                        const uint8_t* __restrict__ skip8, int damping,
-                       int sampled, int R, int C, int* __restrict__ out) {
+                       int sampled, int R, int C, float* __restrict__ out) {
   constexpr int T = B + 4;
   constexpr bool LUMA = N == 8;
+  // per row: the pixels at 0, 8, .. (lane 0 of each chunk of 8), then
+  // the lane-4, lanes-2+6 and odd-lane totals of the 8-lane fold
+  constexpr int NT = B / 8 + 3;
+  static_assert(8 * B <= THREADS, "one thread per (entry, row)");
   __shared__ int tile[T][T + 1];
-  __shared__ int red[THREADS / 32][8];
+  __shared__ uint16_t err[8][B][B + 2];   // squared errors <= 255^2
+  __shared__ int terms[8][B][NT];
   const int br = blockIdx.x / C;
   const int bc = blockIdx.x - br * C;
   const int gw = W / N;
   const int pdamp = LUMA ? damping : damping - 1;
-  int acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0;
+  float total = 0.0f;       // thread k < 8: entry k's running total
   const int nreg = sampled ? 2 : 1;
   for (int q = 0; q < nreg; ++q) {
     const int r0 = (sampled ? 2 * br + q : br) * B;
@@ -274,26 +286,39 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ plane,
         const int sec = c_ladder[k][LUMA ? 1 : 3];
         const int pa = LUMA ? luma_pri_adj(pri, v) : pri;
         const int e = cdef_px(x, pt, st, pa, sec, pdamp, sk) - s0;
-        acc[k] += e * e;
+        err[k][py][px] = static_cast<uint16_t>(e * e);
+      }
+    }
+    __syncthreads();
+    // row_terms, one thread per (entry, row), exact integers
+    if (threadIdx.x < 8 * B) {
+      const int k = threadIdx.x / B;
+      const int r = threadIdx.x - k * B;
+      const uint16_t* e = err[k][r];
+      int l4 = 0, l26 = 0, lodd = 0;
+#pragma unroll
+      for (int c = 0; c < B / 8; ++c) {
+        terms[k][r][c] = e[8 * c];
+        l4 += e[8 * c + 4];
+        l26 += e[8 * c + 2] + e[8 * c + 6];
+        lodd += e[8 * c + 1] + e[8 * c + 3] + e[8 * c + 5] + e[8 * c + 7];
+      }
+      terms[k][r][B / 8] = l4;
+      terms[k][r][B / 8 + 1] = l26;
+      terms[k][r][B / 8 + 2] = lodd;
+    }
+    __syncthreads();
+    // the running total, rows in order, each term one f32 add
+    if (threadIdx.x < 8) {
+      for (int r = 0; r < B; ++r) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          total = __fadd_rn(total, static_cast<float>(terms[threadIdx.x][r][j]));
       }
     }
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    int a = acc[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
-    if (lane == 0) red[warp][k] = a;
-  }
-  __syncthreads();
-  if (threadIdx.x < 8) {
-    int a = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) a += red[w][threadIdx.x];
-    out[static_cast<int64_t>(threadIdx.x) * R * C + blockIdx.x] = a;
-  }
+  if (threadIdx.x < 8)
+    out[static_cast<int64_t>(threadIdx.x) * R * C + blockIdx.x] = total;
 }
 
 // (c) the filtered plane, one thread per pixel. idx (per SB, row stride
@@ -358,7 +383,7 @@ extern "C" int cdef_dirs_launch(const void* y, int H, int W, void* dir_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out int32 [8, R, C]: R x C = the SBs (sampled) or the 32-blocks (full).
+// out f32 [8, R, C]: R x C = the SBs (sampled) or the 32-blocks (full).
 extern "C" int cdef_ladder_sse_launch(const void* plane, const void* src,
                                       int H, int W, const void* dirs,
                                       const void* var, const void* skip8,
@@ -372,7 +397,7 @@ extern "C" int cdef_ladder_sse_launch(const void* plane, const void* src,
     auto d = static_cast<const int8_t*>(dirs);
     auto v = static_cast<const int*>(var);
     auto k = static_cast<const uint8_t*>(skip8);
-    auto o = static_cast<int*>(out);
+    auto o = static_cast<float*>(out);
     if (chroma) {
       cdef_ladder_sse_kernel<16, 4><<<R * C, THREADS, 0, s>>>(
           p, q, H, W, d, v, k, damping, sampled, R, C, o);

@@ -9,23 +9,24 @@ PyTorch version here:
 - `cdef_ladder_sse`: each ladder entry's squared error against the
   source, per sampled superblock or per 32-block, for one plane
   (`_prep_plane` + 8 x `_filter_from_prep` + the sums of
-  `cdef_search_persb_jax`), exact integers;
+  `cdef_search_persb_jax`), f32 summed in the reference's order;
 - `cdef_apply`: one plane filtered with each SB's winning entry, or with
   one uniform strength pair (`cdef_filter_frame_jax`).
 
-Between them, shared by both routes: the plane SSEs as f32 in the
-reference's order, the nb_strengths subset RD over the 107 masks (its
-sum over the SBs in XLA:CPU's order, `_tree_sum`) and the argmin.
+Between them, shared by both routes: the per-SB SSE from the three
+planes' tables, the nb_strengths subset RD over the 107 masks (its sum
+over the SBs in XLA:CPU's order, `_subset_sum`) and the argmin.
 `cdef_search_persb` and `cdef_filter_frame` are the reference's entry
 points. Each wrapper takes a CPU tensor to its plain version and a CUDA
 tensor to its kernel (counted in `<wrapper>.launches`); there is no
 fallback, and the kernels take 8-bit content only (bd > 8 raises,
 ROADMAP.md item 12).
 
-The reference's SSEs are f32 sums; the port's are exact integers. They
-agree while a plane's SSE over a superblock stays below 2^24, which real
-content at any useful quantizer does (tests/test_torch_cdef.py asserts it
-of its content).
+The reference's SSEs are f32 sums, and the order of the sum decides
+once a cell reaches 2^24 (an RMS error of 64 a pixel, noise at q 255):
+the kernel and the plain version both sum in XLA:CPU's order
+(`_xla_rows_sum`; tests/test_torch_speed6.py holds the table to the
+reference's bit for bit past 2^24).
 """
 
 from __future__ import annotations
@@ -259,13 +260,12 @@ def cdef_dirs_plain(y, bd: int = 8):
     return dirs.to(torch.int8), var
 
 
-def cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping: int,
-                          chroma: bool, sampled: bool, bd: int = 8):
-    """int32 [8, R, C]: each ladder entry's exact squared error of one
-    plane against `src`, summed over the TL and BR quadrants of each SB
-    (sampled: R x C = the SBs) or over each 32-block (32 luma / 16
-    chroma px; R x C = the block grid). dirs/var/skip8: the luma 8x8
-    grids; damping: the frame's (luma) damping."""
+def _ladder_errors(plane, src, dirs, var, skip8, damping: int, chroma: bool,
+                   sampled: bool, bd: int):
+    """Each ladder entry's filtered plane minus `src`, int32, in the
+    cells of the SSE table: [2, R, b, C, b] (sampled: the TL and BR
+    b x b quadrants of each SB) or [R, b, C, b] (each b-block). Returns
+    (the 8 error arrays, the cell's pixel dims)."""
     shift = bd - 8
     n, b = (4, 16) if chroma else (8, 32)
     pp = _prep_plane(plane, _upsample(dirs, n), n, not chroma)
@@ -284,14 +284,53 @@ def cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping: int,
         h, w = plane.shape
         src = src.reshape(h // b, b, w // b, b)
         dims = (1, 3)
-    out = []
+    errs = []
     for c in CDEF_LADDER:
         pri, sec = (c[2], c[3]) if chroma else (c[0], c[1])
         y = _filter_from_prep(pp, skip_pix, pri << shift, sec << shift,
                               damping + shift, var_pix, coeff_shift=shift)
-        d = y.to(torch.int32).reshape(src.shape) - src
-        out.append(torch.sum(d * d, dim=dims))
-    return torch.stack(out).to(torch.int32)
+        errs.append(y.to(torch.int32).reshape(src.shape) - src)
+    return errs, dims
+
+
+def _xla_rows_sum(x, lanes: int = 8):
+    """x [..., rows, L] summed over its last two dims in f32 as XLA:CPU
+    sums a fused reduce whose innermost reduced dim is a row of L: the
+    rows in order, each row vectorized over `lanes` lanes (the running
+    total enters lane 0, the row's chunks of `lanes` add lane by lane,
+    then the lanes fold in halves: 8 -> 4 -> 2 -> 1)."""
+    s = torch.zeros(x.shape[:-2], dtype=torch.float32, device=x.device)
+    for r in range(x.shape[-2]):
+        seg = x[..., r, :].reshape(x.shape[:-2] + (-1, lanes))
+        acc = torch.cat([(s + seg[..., 0, 0])[..., None], seg[..., 0, 1:]],
+                        -1)
+        for c in range(1, seg.shape[-2]):
+            acc = acc + seg[..., c, :]
+        while acc.shape[-1] > 1:
+            k = acc.shape[-1] // 2
+            acc = acc[..., :k] + acc[..., k:]
+        s = acc[..., 0]
+    return s
+
+
+def cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping: int,
+                          chroma: bool, sampled: bool, bd: int = 8):
+    """f32 [8, R, C]: each ladder entry's squared error of one plane
+    against `src`, summed over the TL and BR quadrants of each SB
+    (sampled: R x C = the SBs) or over each 32-block (32 luma / 16
+    chroma px; R x C = the block grid), in the reference's f32 order
+    (_xla_rows_sum over each cell's rows: sampled, the TL quadrant's
+    then the BR one's). dirs/var/skip8: the luma 8x8 grids; damping:
+    the frame's (luma) damping."""
+    errs, dims = _ladder_errors(plane, src, dirs, var, skip8, damping,
+                                chroma, sampled, bd)
+    d = torch.stack(errs).to(torch.float32) ** 2
+    if sampled:     # [8, 2, R, b, C, b] -> [8, R, C, 2 b, b]
+        d = d.permute(0, 2, 4, 1, 3, 5)
+        d = d.reshape(d.shape[:3] + (-1, d.shape[-1]))
+    else:           # [8, R, b, C, b] -> [8, R, C, b, b]
+        d = d.permute(0, 1, 3, 2, 4)
+    return _xla_rows_sum(d)
 
 
 def cdef_apply_plain(plane, dirs, var, skip8, damping: int, chroma: bool,
@@ -415,7 +454,7 @@ cdef_dirs.launches = 0
 
 def cdef_ladder_sse(plane, src, dirs, var, skip8, damping: int, chroma: bool,
                     sampled: bool, bd: int = 8):
-    """int32 [8, R, C] (see cdef_ladder_sse_plain). CUDA: the
+    """f32 [8, R, C] (see cdef_ladder_sse_plain). CUDA: the
     cdef_ladder_sse kernel; CPU: the plain version."""
     n, b = (4, 16) if chroma else (8, 32)
     _check_grids(plane, dirs, var, skip8, n)
@@ -432,7 +471,8 @@ def cdef_ladder_sse(plane, src, dirs, var, skip8, damping: int, chroma: bool,
     R, C = (h // (2 * b), w // (2 * b)) if sampled else (h // b, w // b)
     p8, s8 = _u8(plane), _u8(src)
     with torch.cuda.device(plane.device):
-        out = torch.empty((8, R, C), dtype=torch.int32, device=plane.device)
+        out = torch.empty((8, R, C), dtype=torch.float32,
+                          device=plane.device)
         _raise_on(lib.cdef_ladder_sse_launch(
             _ptr(p8), _ptr(s8), h, w, _ptr(dirs.contiguous()),
             _ptr(None if chroma else var.contiguous()),
@@ -499,6 +539,33 @@ def _tree_sum(x, window: int = 32):
     return acc
 
 
+def _subset_sum(x):
+    """x.sum(-1) over the SBs as the reference's fused subset RD sums
+    it on XLA:CPU: more than 32 SBs as `_tree_sum`; up to 32 in a loop
+    that LLVM vectorizes by the trip count n. Up to 16 over 8 lanes with
+    the tail masked (zeros past the end); 17-32 over 8 lanes, or over 4
+    where n % 8 >= 4, with the tail added one at a time after. The SBs
+    add lane by lane in chunks, then the lanes fold in halves
+    (8 -> 4 -> 2 -> 1). Read from the loop's optimized LLVM IR and
+    matched at 1-32 and 33-1100 SBs (tests/test_torch_speed6.py)."""
+    n = x.shape[-1]
+    if n > 32:
+        return _tree_sum(x)
+    lanes = 4 if n > 16 and n % 8 >= 4 else 8
+    body = n if n <= 16 else n - n % lanes
+    v = torch.nn.functional.pad(x[..., :body], (0, (-body) % lanes))
+    acc = v[..., :lanes]
+    for c in range(1, v.shape[-1] // lanes):
+        acc = acc + v[..., lanes * c: lanes * c + lanes]
+    while acc.shape[-1] > 1:
+        k = acc.shape[-1] // 2
+        acc = acc[..., :k] + acc[..., k:]
+    acc = acc[..., 0]
+    for i in range(body, n):
+        acc = acc + x[..., i]
+    return acc
+
+
 @lru_cache(maxsize=None)
 def _subsets(nsb: int):
     """The nb_strengths RD's static 1-, 2-, 4- and 8-entry subsets of
@@ -514,12 +581,11 @@ def _subsets(nsb: int):
     return np.array(masks), np.array(bits, np.float32)
 
 
-def _sse_sb(sses, sampled: bool, nr: int, nc: int):
-    """Per-SB f32 SSE [8, nr, nc] from the three planes' integer tables,
-    in the reference's order: 2 (Y + U + V) sampled (half the pixels
-    stand for the SB); else Y + U + V per 32-block, then the 2x2 sum
-    (edge SBs of frames that are not 64-aligned cover fewer blocks)."""
-    f = [s.to(torch.float32) for s in sses]
+def _sse_sb(f, sampled: bool, nr: int, nc: int):
+    """Per-SB f32 SSE [8, nr, nc] from the three planes' f32 tables, in
+    the reference's order: 2 (Y + U + V) sampled (half the pixels stand
+    for the SB); else Y + U + V per 32-block, then the 2x2 sum (edge SBs
+    of frames that are not 64-aligned cover fewer blocks)."""
     if sampled:
         return 2.0 * (f[0] + f[1] + f[2])
     sse32 = f[0] + f[1] + f[2]
@@ -543,7 +609,7 @@ def _choose(sse_sb, lam):
         lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
         flat = sse_sb.reshape(K, nr * nc)
         msse = torch.where(masks[:, :, None], flat[None], torch.inf)
-        tot = _tree_sum(torch.amin(msse, 1)) + lam * bits
+        tot = _subset_sum(torch.amin(msse, 1)) + lam * bits
         allowed = masks[torch.argmin(tot)]
         sse_sb = torch.where(allowed[:, None, None], sse_sb, torch.inf)
     return torch.argmin(sse_sb, dim=0).to(torch.int32)
@@ -573,7 +639,8 @@ def cdef_search_persb(planes, srcs, skip8, damping: int, lam=None,
     dirs, var = cdef_dirs(y, bd)
     sampled = h % 64 == 0 and w % 64 == 0 and planes[1].shape[0] * 2 == h
     sses = [cdef_ladder_sse(p, s, dirs, var, skip8, damping, i > 0, sampled,
-                            bd) for i, (p, s) in enumerate(zip(planes, srcs))]
+                            bd)
+            for i, (p, s) in enumerate(zip(planes, srcs))]
     nby, nbx = h // 32, w // 32
     idx = _choose(_sse_sb(sses, sampled, (nby + 1) // 2, (nbx + 1) // 2),
                   lam)

@@ -174,15 +174,28 @@ def _levels_to_thresholds(level):
 
 
 def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
-                  bd: int = 8, split_map=None, outer_block: int = 32):
+                  bd: int = 8, split_map=None, outer_block: int = 32,
+                  sub_map=None):
     """Filter one plane (the reference's deblock_plane_jax). plane
     [H, W] int32; level_v/level_h 0-d int32 tensors, 0 disables.
     split_map: bool [bh, bw] per outer block — inner edges filter only
-    where set. The reference's merge_map / sub_map / edge_on options
-    (64x64 merge, 16->8 split, tiles) are not ported yet."""
+    where set.
+
+    sub_map: bool [H//cs, W//cs] with cs = block//2 — cells whose TX is
+    the half size (16x16 quads split to four 8x8 blocks: TX_8X8 luma /
+    TX_4X4 chroma). The filter length follows the MIN adjacent TX (spec
+    7.14.5): block-grid edges flanked by a sub cell drop 14->8 taps
+    (luma) / 6->4 (chroma) per row, and half-spacing interior edges
+    appear inside sub quads (8-tap luma / 4-tap chroma). At 4:2:0 the
+    luma 8-cell grid and the chroma 4-cell grid coincide, so one
+    [H/8, W/8] map serves all three planes. The reference's merge_map
+    and edge_on options (64x64 merge, tiles) are not ported yet."""
     H, W = plane.shape
     size = 14 if is_luma else 6
     n = size // 2
+    size2 = 8 if is_luma else 4   # sub-TX filter + its sample span
+    n2 = size2 // 2
+    cs = block // 2               # sub-TX extent on this plane
     ob = outer_block if is_luma else outer_block // 2
     dev = plane.device
     out = plane
@@ -202,6 +215,22 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
                                      device=dev))
         return torch.stack(ms, dim=1)
 
+    def two_lengths(pf, qf, m, small, limit, blimit, thresh):
+        """The grid edges' filter: `size` taps, or `size2` on the rows
+        where `small` [M] (a sub cell flanks the edge)."""
+        if small is None:
+            return _filter_stack(pf, qf, limit, blimit, thresh, size, bd, m)
+        m_big = ~small if m is None else (m & ~small)
+        m_small = small if m is None else (m & small)
+        np_, nq = _filter_stack(pf, qf, limit, blimit, thresh, size, bd,
+                                m_big)
+        np2, nq2 = _filter_stack(pf[:, :n2], qf[:, :n2], limit, blimit,
+                                 thresh, size2, bd, m_small)
+        sc = small[:, None]
+        np_ = torch.cat([torch.where(sc, np2, np_[:, :n2]), np_[:, n2:]], 1)
+        nq = torch.cat([torch.where(sc, nq2, nq[:, :n2]), nq[:, n2:]], 1)
+        return np_, nq
+
     # Uniform edge spacing: the p/q samples of ALL edges are pure slices
     # of the [.., G, block] group reshape, and the filtered plane
     # reassembles by concatenation.
@@ -215,16 +244,41 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
         p = g[:, :-1, block - n:].flip(-1)            # [H, E, n]
         q = g[:, 1:, :n]
         m = edge_mask(xs, H, 0)
+        small = None
+        if sub_map is not None:
+            ix = torch.as_tensor(xs // cs, device=dev)
+            sm = sub_map[:, ix - 1] | sub_map[:, ix]     # [H//cs, E]
+            small = torch.repeat_interleave(sm, cs, 0)[:H].reshape(-1)
         pf = p.reshape(-1, n)
         qf = q.reshape(-1, n)
-        np_, nq = _filter_stack(pf, qf, limit, blimit, thresh, size, bd,
-                                None if m is None else m.reshape(-1))
+        np_, nq = two_lengths(pf, qf, None if m is None else m.reshape(-1),
+                              small, limit, blimit, thresh)
         on = level_v > 0
         np_ = torch.where(on, np_, pf).reshape(H, E, n).flip(-1)
         nq = torch.where(on, nq, qf).reshape(H, E, n)
         q_side = torch.cat([g[:, :1, :n], nq], dim=1)
         p_side = torch.cat([np_, g[:, -1:, block - n:]], dim=1)
         out = torch.cat([q_side, g[:, :, n:block - n], p_side],
+                        dim=2).reshape(H, W)
+
+    if sub_map is not None and W >= 2 * block:
+        # interior half-spacing vertical edges (one per block group, at
+        # column k*block + cs): only inside sub quads, where both flanks
+        # are sub TXs, so one size2 pass
+        limit, blimit, thresh = _levels_to_thresholds(level_v)
+        g = out.reshape(H, W // block, block)
+        p = g[:, :, cs - n2: cs].flip(-1)             # [H, G, n2]
+        q = g[:, :, cs: cs + n2]
+        ec = torch.as_tensor((np.arange(W // block) * block + cs) // cs,
+                             device=dev)
+        sm = sub_map[:, ec - 1] & sub_map[:, ec]
+        m = torch.repeat_interleave(sm, cs, 0)[:H].reshape(-1)
+        pf, qf = p.reshape(-1, n2), q.reshape(-1, n2)
+        np_, nq = _filter_stack(pf, qf, limit, blimit, thresh, size2, bd, m)
+        on = level_v > 0
+        np_ = torch.where(on, np_, pf).reshape(H, -1, n2).flip(-1)
+        nq = torch.where(on, nq, qf).reshape(H, -1, n2)
+        out = torch.cat([g[:, :, :cs - n2], np_, nq, g[:, :, cs + n2:]],
                         dim=2).reshape(H, W)
 
     ys = np.arange(block, H, block)
@@ -237,10 +291,15 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
         p = g[:-1, block - n:, :].flip(1).permute(2, 0, 1)
         q = g[1:, :n, :].permute(2, 0, 1)
         m = edge_mask(ys, W, 1)
+        small = None
+        if sub_map is not None:
+            iy = torch.as_tensor(ys // cs, device=dev)
+            sm = sub_map[iy - 1, :] | sub_map[iy, :]     # [E, W//cs]
+            small = torch.repeat_interleave(sm, cs, 1)[:, :W].T.reshape(-1)
         pf = p.reshape(-1, n)
         qf = q.reshape(-1, n)
-        np_, nq = _filter_stack(pf, qf, limit, blimit, thresh, size, bd,
-                                None if m is None else m.reshape(-1))
+        np_, nq = two_lengths(pf, qf, None if m is None else m.reshape(-1),
+                              small, limit, blimit, thresh)
         on = level_h > 0
         np_ = (torch.where(on, np_, pf).reshape(W, E, n).flip(-1)
                .permute(1, 2, 0))
@@ -249,23 +308,45 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
         p_side = torch.cat([np_, g[-1:, block - n:, :]], dim=0)
         out = torch.cat([q_side, g[:, n:block - n, :], p_side],
                         dim=1).reshape(H, W)
+
+    if sub_map is not None and H >= 2 * block:
+        # interior half-spacing horizontal edges inside sub quads
+        limit, blimit, thresh = _levels_to_thresholds(level_h)
+        g = out.reshape(H // block, block, W)
+        p = g[:, cs - n2: cs, :].flip(1).permute(2, 0, 1)   # [W, G, n2]
+        q = g[:, cs: cs + n2, :].permute(2, 0, 1)
+        er = torch.as_tensor((np.arange(H // block) * block + cs) // cs,
+                             device=dev)
+        sm = sub_map[er - 1, :] & sub_map[er, :]            # [G, W//cs]
+        m = torch.repeat_interleave(sm, cs, 1)[:, :W].T.reshape(-1)
+        G = H // block
+        pf, qf = p.reshape(-1, n2), q.reshape(-1, n2)
+        np_, nq = _filter_stack(pf, qf, limit, blimit, thresh, size2, bd, m)
+        on = level_h > 0
+        np_ = (torch.where(on, np_, pf).reshape(W, G, n2).flip(-1)
+               .permute(1, 2, 0))
+        nq = torch.where(on, nq, qf).reshape(W, G, n2).permute(1, 2, 0)
+        out = torch.cat([g[:, :cs - n2, :], np_, nq, g[:, cs + n2:, :]],
+                        dim=1).reshape(H, W)
     return out
 
 
 def deblock_frame(planes, level_y, level_uv, block_y: int = 32,
-                  block_c: int = 16, bd: int = 8, split_map=None):
+                  block_c: int = 16, bd: int = 8, split_map=None,
+                  sub_map=None):
     """Deblock [y, u, v] (the reference's deblock_frame_jax)."""
     y = deblock_plane(planes[0], block_y, level_y, level_y, True, bd,
-                      split_map)
+                      split_map, sub_map=sub_map)
     u = deblock_plane(planes[1], block_c, level_uv, level_uv, False, bd,
-                      split_map)
+                      split_map, sub_map=sub_map)
     v = deblock_plane(planes[2], block_c, level_uv, level_uv, False, bd,
-                      split_map)
+                      split_map, sub_map=sub_map)
     return [y, u, v]
 
 
 def deblock_search(planes, srcs, base_level, block_y: int = 32,
-                   block_c: int = 16, bd: int = 8, split_map=None):
+                   block_c: int = 16, bd: int = 8, split_map=None,
+                   sub_map=None):
     """Whole-frame deblock level search: try a fixed ladder of scale
     factors around the q-derived level, pick the one minimizing the
     f32 SSE vs source (`torch.argmin` takes the first minimum, as
@@ -290,12 +371,14 @@ def deblock_search(planes, srcs, base_level, block_y: int = 32,
                   srcs[2][lo >> 1: hi >> 1]]
         split_c = (split_map[lo // 32: hi // 32]
                    if split_map is not None else None)
+        sub_c = sub_map[lo // 8: hi // 8] if sub_map is not None else None
     else:
-        planes_c, srcs_c, split_c = planes, srcs, split_map
+        planes_c, srcs_c = planes, srcs
+        split_c, sub_c = split_map, sub_map
 
     def est(level):
         o = deblock_frame(planes_c, level, level, block_y, block_c, bd,
-                          split_c)
+                          split_c, sub_c)
         sse = None
         for a, s in zip(o, srcs_c):
             e = torch.sum((a - s).to(torch.float32) ** 2)
@@ -305,4 +388,4 @@ def deblock_search(planes, srcs, base_level, block_y: int = 32,
     sses = torch.stack([est(cand[i]) for i in range(cand.shape[0])])
     best = cand[torch.argmin(sses)]
     return best, deblock_frame(planes, best, best, block_y, block_c, bd,
-                               split_map)
+                               split_map, sub_map)

@@ -966,7 +966,8 @@ def _scans():
     from rav1e_tpu_torch.entropy.coeffs import TX_CLASS_2D, scan_order
     return (scan_order(32, 32, TX_CLASS_2D),
             scan_order(16, 16, TX_CLASS_2D),
-            scan_order(8, 8, TX_CLASS_2D))
+            scan_order(8, 8, TX_CLASS_2D),
+            scan_order(4, 4, TX_CLASS_2D))
 
 
 def _take(x, scan, dim):
@@ -978,29 +979,38 @@ def _take(x, scan, dim):
 def scanline(lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8, split, B,
              lv_y8=None, lv_u4=None, lv_v4=None, split16=None):
     """Device-side [B, 1536] int16 scan-ordered level line (split
-    blocks: quadrant-major sub-TX scans). The reference's split16
-    (16->8 sub-quad) layout is not ported yet."""
-    if split16 is not None:
-        _not_ported("the 16->8 scan layout", "item 8 (speed 6)")
-    scan32, scan16, scan8 = _scans()
+    blocks: quadrant-major sub-TX scans; split16 quads: sub-quadrant-
+    major 8x8/4x4 scans inside the quad's 256/64-entry region, from
+    lv_y8 / lv_u4 / lv_v4 in (quad, sub-quad) order)."""
+    scan32, scan16, scan8, scan4 = _scans()
     y_n = _take(lv_y.reshape(B, 1024), scan32, 1)
     u_n = _take(lv_u.reshape(B, 256), scan16, 1)
     v_n = _take(lv_v.reshape(B, 256), scan16, 1)
-    y_s = _take(lv_y16.reshape(B, 4, 256), scan16, 2).reshape(B, 1024)
-    u_s = _take(lv_u8.reshape(B, 4, 64), scan8, 2).reshape(B, 256)
-    v_s = _take(lv_v8.reshape(B, 4, 64), scan8, 2).reshape(B, 256)
+    y_s = _take(lv_y16.reshape(B, 4, 256), scan16, 2)       # [B, 4, 256]
+    u_s = _take(lv_u8.reshape(B, 4, 64), scan8, 2)          # [B, 4, 64]
+    v_s = _take(lv_v8.reshape(B, 4, 64), scan8, 2)
+    if split16 is not None:
+        sq = split16.reshape(B, 4)[:, :, None]
+        y_s = torch.where(sq, _take(lv_y8.reshape(B, 4, 4, 64), scan8, 3)
+                          .reshape(B, 4, 256), y_s)
+        u_s = torch.where(sq, _take(lv_u4.reshape(B, 4, 4, 16), scan4, 3)
+                          .reshape(B, 4, 64), u_s)
+        v_s = torch.where(sq, _take(lv_v4.reshape(B, 4, 4, 16), scan4, 3)
+                          .reshape(B, 4, 64), v_s)
     s1 = split[:, None]
     return torch.cat(
-        [torch.where(s1, y_s, y_n), torch.where(s1, u_s, u_n),
-         torch.where(s1, v_s, v_n)], dim=1).to(torch.int16)
+        [torch.where(s1, y_s.reshape(B, 1024), y_n),
+         torch.where(s1, u_s.reshape(B, 256), u_n),
+         torch.where(s1, v_s.reshape(B, 256), v_n)], dim=1).to(torch.int16)
 
 
 @lru_cache(maxsize=1)
 def _stream_maps():
     """Host inverse maps: stream position p (0..1535) -> plane and
     raster (spatial) index within the plane's level array, for the
-    NONE-partition and SPLIT layouts."""
-    scan32, scan16, scan8 = _scans()
+    NONE-partition, SPLIT and sub-SPLIT (16->8) layouts, plus the quad
+    index of each position (selects the per-quad layout)."""
+    scan32, scan16, scan8, scan4 = _scans()
     pl = np.empty(SL_LEN, np.int8)
     pl[:1024] = 0
     pl[1024:1280] = 1
@@ -1010,16 +1020,28 @@ def _stream_maps():
     idx_ns[1024:1280] = scan16
     idx_ns[1280:] = scan16
     idx_sp = np.empty(SL_LEN, np.int32)
+    idx_s8 = np.empty(SL_LEN, np.int32)
+    quad_of = np.empty(SL_LEN, np.int32)
     for p in range(1024):
         q, s = p // 256, scan16[p % 256]
         sr, sc = s // 16, s % 16
         idx_sp[p] = (16 * (q // 2) + sr) * 32 + 16 * (q % 2) + sc
+        quad_of[p] = q
+        k, s8 = (p % 256) // 64, scan8[p % 64]
+        r8, c8 = s8 // 8, s8 % 8
+        idx_s8[p] = ((16 * (q // 2) + 8 * (k // 2) + r8) * 32
+                     + 16 * (q % 2) + 8 * (k % 2) + c8)
     for base in (1024, 1280):
         for k in range(256):
             q, s = k // 64, scan8[k % 64]
             sr, sc = s // 8, s % 8
             idx_sp[base + k] = (8 * (q // 2) + sr) * 16 + 8 * (q % 2) + sc
-    return pl, idx_ns, idx_sp
+            quad_of[base + k] = q
+            j, s4 = (k % 64) // 16, scan4[k % 16]
+            r4, c4 = s4 // 4, s4 % 4
+            idx_s8[base + k] = ((8 * (q // 2) + 4 * (j // 2) + r4) * 16
+                                + 8 * (q % 2) + 4 * (j % 2) + c4)
+    return pl, idx_ns, idx_sp, idx_s8, quad_of
 
 
 def nnz_stream(sl, cap):
@@ -1049,12 +1071,12 @@ def nnz_stream(sl, cap):
             torch.cat([val.reshape(-1), pad]))
 
 
-def unpack_stream(counts, pos, val, split, cap):
+def unpack_stream(counts, pos, val, split, cap, split16=None):
     """Host: scatter the nonzero stream back into per-block level
     arrays (lv_y [B,32,32], lv_u/lv_v [B,16,16] int16). Returns the
     arrays plus `over` — blocks whose entries ran past the stream
-    capacity (the caller full-gathers those). The reference's split16
-    (16->8) layout is not ported yet."""
+    capacity (the caller full-gathers those). split16 [B, 4] selects the
+    sub-split (8x8 / 4x4 scan) layout per quad of a split block."""
     B = counts.shape[0]
     k = cap // B
     kc = np.minimum(counts, k)
@@ -1068,9 +1090,12 @@ def unpack_stream(counts, pos, val, split, cap):
         blk, slot = np.nonzero(mask)
         p = pos[:B * k].reshape(B, k)[blk, slot]
         v = val[:B * k].reshape(B, k)[blk, slot]
-        pl, idx_ns, idx_sp = _stream_maps()
+        pl, idx_ns, idx_sp, idx_s8, quad_of = _stream_maps()
         plane = pl[p]
         sidx = np.where(split[blk], idx_sp[p], idx_ns[p])
+        if split16 is not None and split16.any():
+            sub = split[blk] & split16[blk, quad_of[p]]
+            sidx = np.where(sub, idx_s8[p], sidx)
         for i, lv in enumerate((lv_y, lv_u, lv_v)):
             m = plane == i
             lv[blk[m], sidx[m]] = v[m]
@@ -1575,11 +1600,13 @@ def _cdef_prm(cdef):
 def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                    cdef: tuple | None = None, device=None,
                    timings: list | None = None):
-    """KEY + P chain on the device, at speeds 7-10; 4:2:0 8-bit frames
-    with dims multiples of 32. Runs on `cuda` unless device="cpu" is
-    passed. cdef (None, or (y_pri, y_sec, uv_pri, uv_sec, damping)) runs
-    the per-SB CDEF search on every frame, with damping cdef[4]; each P
-    frame then references the CDEF-filtered recon.
+    """KEY + P chain on the device, at speeds 7-10 (below 7 the P
+    frames' tools raise, ROADMAP.md item 8; a keyframe alone runs at any
+    speed); 4:2:0 8-bit frames with dims multiples of 32. Runs on
+    `cuda` unless device="cpu" is passed. cdef (None, or (y_pri, y_sec,
+    uv_pri, uv_sec, damping)) runs the per-SB CDEF search on every
+    frame, with damping cdef[4]; each P frame then references the
+    CDEF-filtered recon.
 
     The frames run in order: the keyframe's device half, its host pack,
     then each P step, its fetch and its host pack. The reference planes
@@ -1595,7 +1622,12 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                                                     analyze_keyframe,
                                                     encode_keyframe_tpu,
                                                     pack_keyframe)
-    _check_options(speed, cdef, False, False, False, frames[0], None)
+    _check_options(cdef, False, False, False, frames[0], None)
+    ss = SpeedSettings.from_preset(speed)
+    if len(frames) > 1:
+        # the P frames' tools raise before the keyframe is encoded
+        _check_p_options(None, False, ss.intra_in_inter, ss.b64_merge,
+                         ss.partition_split8, 8)
     dev = resolve_device(device)
 
     def frame_times():
@@ -1616,7 +1648,6 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                                    timings=t_kf)
     pkts, recs = [kf_pkt], [kf_rec]
     h, w = frames[0][0].shape
-    ss = SpeedSettings.from_preset(speed)
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=ss.partition_split_rdo,
                                      use_satd=ss.satd_subpel,

@@ -7,11 +7,12 @@ that adds noise of a strength that varies per 64x64 superblock plus
 Everything is held bit-exact: directions and variances, the prepared
 taps and the filter, the fixed-strength frame filter, and the per-SB
 search (index map and planes) on both branches: 192x128 is 64-aligned
-(the sampled TL + BR quadrants), 160x96 is not (every 32-block). The
-port's SSEs are exact integers where the reference's are f32 sums; they
-agree because every per-plane SB SSE of the content is below 2^24, which
-one test asserts. The card-only cases, which hold the kernels to the
-plain versions, are in tests/test_torch_cdef_cuda.py (no jax there)."""
+(the sampled TL + BR quadrants), 160x96 is not (every 32-block). Every
+per-plane SB SSE of this content is below 2^24, where the f32 sums are
+exact integers in any order (one test asserts it); the order past 2^24
+is held in tests/test_torch_speed6.py. The card-only cases, which hold
+the kernels to the plain versions, are in tests/test_torch_cdef_cuda.py
+(no jax there)."""
 
 import ctypes
 import gc

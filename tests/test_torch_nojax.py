@@ -30,6 +30,8 @@ pkts, recs = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=7,
                             cdef=(0, 0, 0, 0, 3), device="cpu")
 assert pkts[0] == pkt and len(pkts) == 2
 assert [tuple(r.shape) for r in recs[1]] == [(64, 64), (32, 32), (32, 32)]
+pkt6, _ = encode_keyframe_tpu(planes, device="cpu")     # speed 6
+assert len(pkt6) > 100
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "rav1e_tpu"))]
 assert not bad, bad
@@ -40,7 +42,8 @@ print("ok", len(pkt))
 def test_port_runs_with_jax_and_reference_blocked():
     """In a subprocess where importing jax or rav1e_tpu fails, the port
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
-    KEY + P GOP on the CPU, at speed 7 with CDEF."""
+    KEY + P GOP on the CPU, at speed 7 with CDEF, and the default
+    (speed-6) keyframe."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -75,24 +78,38 @@ def test_entry_point_without_device_and_without_cuda_raises():
         encode_keyframe_tpu(planes, 100, speed=8)
 
 
-@pytest.mark.parametrize("opt,value", [("speed", 5), ("speed", 6),
-                                       ("aq", True), ("lr", True),
+@pytest.mark.parametrize("opt,value", [("aq", True), ("lr", True),
                                        ("deferred", True)])
 def test_options_beyond_the_slice_raise(opt, value):
-    """Options the speed-7 to 10 slices do not reach raise
-    NotImplementedError naming their ROADMAP item; none falls through
-    to another path. Speed 6 is the reference's default; speeds 6 and
-    below name item 8."""
+    """Options the ported slices do not reach raise NotImplementedError
+    naming their ROADMAP item; none falls through to another path."""
     from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
-    match = "ROADMAP.md.*item 8" if opt == "speed" else "ROADMAP.md"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         encode_keyframe_tpu(planes, 100, device="cpu",
                             **{"speed": 7, opt: value})
-    if opt == "speed" and value == 6:
-        with pytest.raises(NotImplementedError, match=match):
-            encode_keyframe_tpu(planes, 100, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def speed6_keyframe():
+    import chip_smoke
+    from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
+    planes = chip_smoke.synth(64, 64)[0]
+    return planes, encode_keyframe_tpu(planes, 100, cdef=(0, 0, 0, 0, 3),
+                                       device="cpu")[0]
+
+
+@pytest.mark.parametrize("speed", [5, 0])
+def test_speeds_below_6_are_the_speed_6_keyframe(speed, speed6_keyframe):
+    """The keyframe reads the same toolset at speeds 0-6 (api/speed.py),
+    so speeds 5 and 0 give the default (speed 6) packet byte for byte;
+    none raises."""
+    from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
+    planes, pkt6 = speed6_keyframe
+    pkt, _ = encode_keyframe_tpu(planes, 100, speed=speed,
+                                 cdef=(0, 0, 0, 0, 3), device="cpu")
+    assert pkt == pkt6
 
 
 def test_high_bit_depth_raises():
