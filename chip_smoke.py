@@ -16,9 +16,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      back through some 10,000 0xFF bytes;
   4. the patch-gather kernel against its plain version at the 1080p P
      frame's shapes (B = 2040; P = 43, 39 from the padded luma plane,
-     P = 23 from a padded chroma plane; and refine16's B = 8160 per-16
-     patches, P = 27 luma and P = 15 chroma), starts out of range
-     included: max |err| 0; kernel, plain and indexing-call times;
+     P = 23 from a padded chroma plane; the 64x64 merge's B = 510, P = 71
+     luma and P = 39 chroma; and refine16's B = 8160 per-16 patches,
+     P = 27 luma and P = 15 chroma), starts out of range included: max
+     |err| 0; kernel, plain and indexing-call times;
   5. the speed-10 keyframe at 1920x1088 on cuda, once to warm and once
      timed: stage times, the ec_pack launches, the tile's IR coded again
      by pack_ir_plain with identical bytes, and the ec kernels' device
@@ -49,15 +50,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      RDO with refine16, 16-px search, subpel) at 256x192 on cuda vs cpu:
      every decision, level, the recon and the packet identical; the
      gather launches at refine16's patch sizes;
-  12-13. encode_gop_tpu at q 100: KEY + 1 P at speed 10 at 1920x544 (its
-     depth cut, to keep the run short), then the main path, KEY + 2 P
-     at 1920x1088 at speed 7 with cdef (0, 0, 0, 0, 3), every
-     kernel's count set to 0 just before and read just after: per-frame
-     stage times, packet sizes and shares of split 32-blocks; every frame
-     launched each kernel that serves it; every tile's IR coded again by
-     pack_ir_plain gives the packet's bytes; recon within 0..255; each
-     tile's ec kernel time at L = 256, 512, 1024 and its per-pass
-     times;
+  12-13. encode_gop_tpu at q 100 at 1920x544 (the depth cut, to keep
+     the run short): KEY + 1 P at speed 10, then KEY + 2 P at speed 7
+     with cdef (0, 0, 0, 0, 3), every kernel's count set to 0 just before
+     and read just after: per-frame stage times, packet sizes and shares
+     of split 32-blocks; every frame launched each kernel that serves
+     it; every tile's IR coded again by pack_ir_plain gives the packet's
+     bytes; recon within 0..255; each tile's ec kernel time at L = 256,
+     512, 1024 and its per-pass times;
   14. the default keyframe (speed 6: 13 luma modes on the 2i+j schedule,
      CfL, the quads' TX type search, the 16->8 split) with cdef
      (0, 0, 0, 0, 3) at 256x192 on cuda vs on cpu, twice: on synth
@@ -67,16 +67,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      mode map, CfL alpha, TX type, split and 16->8 map, CDEF index, the
      filtered recon and the packet identical; the blocks that took CfL, a
      directional mode, each TX type and the 16->8 split counted;
-  15. the speed-6 keyframe at 1920x1088, q 100, cdef (0, 0, 0, 0, 3), the
-     same frame as phase 13's keyframe, every kernel's count set to 0
-     just before and read just after: its stage times beside phase 13's
-     speed-7 keyframe, its packet size, each of its kernels launched, its
-     tile's IR coded again by pack_ir_plain, recon within 0..255;
-  16. the same on a 1920x128 frame with phase 14's checkerboard every
-     256 px (the split8 gate on, quads split 16->8 at full width; the
-     depth cut to keep the run short).
+  14b. a speed-6 KEY + 1 P GOP with cdef at 256x192 on cuda vs on cpu,
+     on panning content with 8x8 squares, a flat SB and new flat 32x32
+     squares: every fetched decision (MVs, skips, levels, split, 16->8,
+     64x64 and intra maps, per-8 skips, CDEF map), the recon and the
+     packets identical; the P frame must split a quad 16->8, merge a
+     64x64 SB and take an intra block (SATD ranks every descent);
+  15. the main path: encode_gop_tpu(frames, 100, speed=6, cdef=(0, 0, 0,
+     0, 3)), the preset the reference's bench times, KEY + 2 P at
+     1920x1088 on synth(1920, 1088, n=3) (the keyframe is phase 5's
+     frame), checked as phases 12-13; the packets must be the JAX
+     package's [86204, 13929, 5602] bytes (their SHA-256 printed); each
+     P frame's shares of split, 16->8, merged and intra blocks; the
+     gather at P = 71, 39 (the merge) and 23 (the 4-tap chroma)
+     launched;
+  16. a speed-6 keyframe on a 1920x128 frame with phase 14's
+     checkerboard every 256 px (the split8 gate on, quads split 16->8 at
+     full width; the depth cut to keep the run short), counted as
+     phase 15.
 
-Prints a kernels JSON line (launches: phases 13, 15 and 16 together,
+Prints a kernels JSON line (launches: phases 15, 13 and 16 together,
 and each path's own count, every count set to 0 just before its path),
 then,
 as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -98,6 +108,9 @@ H100_F32_OPS_PER_S = 67e12     # non-tensor float32 peak (no int32 entry)
 # int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
 # white paper, H100 SXM)
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the JAX package's speed-6 KEY + 2 P GOP of synth(1920, 1088, n=3) at
+# q 100 with cdef (0, 0, 0, 0, 3), on the CPU (ROADMAP.md, Recent)
+GOP6_BYTES = [86204, 13929, 5602]
 CDEF_SPEED8 = (0, 0, 0, 0, 3)  # the speed-7/8 paths' cdef argument
 
 
@@ -632,20 +645,23 @@ def gpu_vs_cpu(torch, ti):
 
 
 # the patch gathers of a 1080p P frame: (P, padded plane H, W, block
-# pitch, patches B, block-grid columns). 43 / 39 / 23: the 32-blocks'
-# descent patch (M = 2), luma MC and chroma MC; 27 / 15: refine16's
-# per-16 patches (n = 16, M = 2) and its 8x8 chroma MC
+# pitch, patches B, block-grid columns). 43 / 39 / 23 at B = 2040: the
+# 32-blocks' descent patch (M = 2), luma MC and chroma MC (8- or 4-tap);
+# 71 / 39 at B = 510: the 64x64 merge's luma and 32x32 chroma MC;
+# 27 / 15: refine16's per-16 patches (n = 16, M = 2) and its 8x8 chroma
 GATHER_SHAPES = ((43, 1152, 1984, 32, 2040, 60),
                  (39, 1152, 1984, 32, 2040, 60),
                  (23, 576, 992, 16, 2040, 60),
+                 (71, 1152, 1984, 64, 510, 30),
+                 (39, 576, 992, 32, 510, 30),
                  (27, 1152, 1984, 16, 8160, 120),
                  (15, 576, 992, 8, 8160, 120))
 
 
 def gather_phase(torch, gp):
-    """Phase 4. Per patch size: max |err|, kernel / plain / indexing ms
-    (device time by CUDA events, mean of 20 launches) and the byte
-    bound."""
+    """Phase 4. Per patch size and count (P, B): max |err|, kernel /
+    plain / indexing ms (device time by CUDA events, mean of 20 launches)
+    and the byte bound."""
     rng = np.random.default_rng(5)
     out = {}
     for P, H, W, blk, B, ncol in GATHER_SHAPES:
@@ -685,8 +701,8 @@ def gather_phase(torch, gp):
               f"bound {bound:.5f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s), "
               f"max |err| {err}; launches as the host paces them "
               f"{paced:.5f} ms each", flush=True)
-        out[P] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "bound_ms": bound, "err": err}
+        out[(P, B)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "err": err}
     return out
 
 
@@ -807,6 +823,70 @@ def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None, strict=False):
              "packets differ")
 
 
+FETCHED6 = FETCHED + ("choice", "mvb8", "b64_map", "split16", "skip8")
+
+
+def speed6_p_content(w, h):
+    """panning()'s two frames with sharp static 8x8 squares (quads split
+    16->8), a flat ramp over the bottom-left 64x64 SB (merges) and, in
+    the second frame only, two flat 32x32 squares the first does not hold
+    (intra-in-inter)."""
+    frames = panning(w, h)
+    for i, f in enumerate(frames):
+        y = f[0].astype(np.int32)
+        y[h - 64:h, 0:64] = 90 + np.arange(64)[None, :] // 5
+        for r, c, val in ((8, 72, 230), (40, 136, 30), (72, 104, 220),
+                          (136, 200, 25)):
+            if r + 8 <= h and c + 8 <= w:
+                y[r:r + 8, c:c + 8] = val
+        if i == 1:
+            for r, c, val in ((0, w - 64, 250), (96, 96, 10)):
+                y[r:r + 32, c:c + 32] = val
+        f[0] = np.clip(y, 0, 255).astype(np.uint8)
+    return frames
+
+
+def speed6_gop_gpu_vs_cpu(tp, w, h):
+    """Phase 14b: a speed-6 KEY + 1 P GOP with cdef at w x h on cuda and
+    on cpu: every fetched decision (MVs, skips, levels, split / split16 /
+    b64 / choice maps, skip8, CDEF map), the recon and the packets must
+    agree, and the P frame must take each speed-6 tool. Returns the P
+    frame's tool counts."""
+    frames = speed6_p_content(w, h)
+    res = {}
+    for d in ("cuda", "cpu"):
+        got, restore = _recording_fetch(tp)
+        try:
+            pkts, recs = tp.encode_gop_tpu(frames, 100, speed=6,
+                                           cdef=CDEF_SPEED8, device=d)
+        finally:
+            restore()
+        rec = [np.asarray(r.cpu() if hasattr(r, "cpu") else r, np.int32)
+               for r in recs[1]]
+        res[d] = (pkts, rec, got[0])
+    (pk_g, rc_g, g), (pk_c, rc_c, c) = res["cuda"], res["cpu"]
+    bad = [k for k, a, b in zip(FETCHED6, g, c) if not np.array_equal(a, b)]
+    if not all(np.array_equal(a, b) for a, b in zip(rc_g, rc_c)):
+        bad.append("recon")
+    d = dict(zip(FETCHED6, c))
+    counts = {"blocks": int(d["split"].size), "split": int(d["split"].sum()),
+              "quads_split_16_to_8": int(d["split16"].sum()),
+              "merged_64x64": int(d["b64_map"].sum()),
+              "intra_32": int((d["choice"] == 3).sum()),
+              "satd": "every descent"}
+    print(f"# {w}x{h} speed-6 GOP (KEY + 1 P, cdef {CDEF_SPEED8}), cuda vs "
+          f"cpu: differing {bad or 'nothing'}; packets identical: "
+          f"{pk_g == pk_c} ({[len(p) for p in pk_c]} bytes); P frame took: "
+          f"{json.dumps(counts)}", flush=True)
+    if bad or pk_g != pk_c:
+        fail(f"the {w}x{h} speed-6 GOP differs between cuda and cpu: {bad}")
+    lacking = [k for k in ("quads_split_16_to_8", "merged_64x64",
+                           "intra_32") if counts[k] < 1]
+    if lacking:
+        fail(f"the {w}x{h} speed-6 P frame took no {lacking}")
+    return counts
+
+
 def default_pframe_gpu_vs_cpu(tp, w, h):
     """Phase 11: encode_pframe_tpu(planes, ref) with the reference's
     defaults (split RDO with refine16, 16-px search, subpel) on cuda and
@@ -851,13 +931,15 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
 
 
 def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
-              h: int = 1088):
-    """Phases 12 and 13: a 1920 x h KEY + (n - 1) P GOP on cuda, every
-    kernel's count set to 0 just before it and read just after. Checks
-    that every frame launched each kernel that serves it (the keyframe:
-    ec_pack, and the three CDEF kernels with cdef; each P frame: also
-    gather_patches). Returns ({kernel: launches}, gather launches per
-    patch size, P frames)."""
+              h: int = 1088, expect=None):
+    """Phases 12, 13 and 15: a 1920 x h KEY + (n - 1) P GOP on cuda,
+    every kernel's count set to 0 just before it and read just after.
+    Checks that every frame launched each kernel that serves it (the
+    keyframe: ec_pack, and the three CDEF kernels with cdef; each P
+    frame: also gather_patches), and with `expect` that the packets have
+    those sizes (printing each packet's SHA-256). Returns ({kernel:
+    launches}, gather launches per (patch size, count), P frames, stage
+    times)."""
     frames = synth(1920, h, n=n)
     w = 1920
     nsb = ((h // 32 + 1) // 2) * ((w // 32 + 1) // 2)
@@ -871,7 +953,8 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
     sizes: dict = {}
 
     def counting_gather(plane, r0, c0, P):
-        sizes[P] = sizes.get(P, 0) + 1
+        key = (P, int(r0.shape[0]))
+        sizes[key] = sizes.get(key, 0) + 1
         return gp.gather_patches(plane, r0, c0, P)
 
     kern = {"gather_patches": gp.gather_patches, "ec_pack": ec.pack_ir}
@@ -882,6 +965,7 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
     marks = []
     chosen = []                 # each frame's CDEF ladder entries, counted
     split_share = []            # each frame's share of split 32-blocks
+    tools = []                  # each P frame's speed-6 block kinds
 
     def mark():
         marks.append({k: f.launches for k, f in kern.items()})
@@ -894,6 +978,14 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
             sp = (k["split"] if fn is orig_pack
                   else a[0].state[8].cpu().numpy())
             split_share.append(float(np.mean(sp)))
+            if fn is orig_pack and k.get("choice") is not None:
+                # shares of the 32-blocks: split 16->8 (any quad), in a
+                # merged 64x64 SB, intra-in-inter
+                b64 = np.repeat(np.repeat(k["b64_map"], 2, 0), 2, 1)
+                tools.append({
+                    "split16": float(np.mean(k["split16"].any(1))),
+                    "merged": float(np.mean(b64)),
+                    "intra": float(np.mean(k["choice"] == 3))})
             if cdef is not None:
                 # the P frame's map, or the keyframe's meta tail
                 cmap = (k["cdef"][1] if fn is orig_pack
@@ -937,6 +1029,18 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
               f"0..7): {chosen}", flush=True)
     print(f"# share of split 32-blocks per frame: {split_share}",
           flush=True)
+    if tools:
+        print(f"# P frames' shares of 32-blocks with a quad split 16->8, "
+              f"merged into 64x64, intra: {json.dumps(tools)}", flush=True)
+    sizes_b = [len(p) for p in pkts]
+    if expect is not None:
+        import hashlib
+        print(f"# packets {sizes_b} bytes, the reference's {expect} "
+              f"(the JAX package on the CPU): equal {sizes_b == expect}; "
+              f"SHA-256: {[hashlib.sha256(p).hexdigest()[:16] for p in pkts]}",
+              flush=True)
+        if sizes_b != expect:
+            fail(f"speed {speed} GOP packets {sizes_b}, expected {expect}")
     if len(marks) != 2 * len(frames):
         fail(f"{len(marks) // 2} frames packed, {len(frames)} expected")
     prev = {k: 0 for k in kern}
@@ -1074,9 +1178,8 @@ def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
     return counts
 
 
-def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool,
-                    kf7: dict | None = None, expect: int | None = None):
-    """Phases 15-16: a full-width speed-6 keyframe with cdef on cuda,
+def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool):
+    """Phase 16: a full-width speed-6 keyframe with cdef on cuda,
     every kernel's count set to 0 just before and read just after; the
     split8 gate must be `split8`. Returns ({kernel: launches}, stage
     times)."""
@@ -1113,21 +1216,12 @@ def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool,
     finally:
         ti.RecordingEncoder, ti.analyze_keyframe = saved
     n8 = int(kds[0].state[STATE.index("s16")].sum())
-    if kf7 is None:
-        stages = {k: round(v, 4) for k, v in timings.items()}
-        col = ""
-    else:
-        stages = {k: [round(v, 4), round(kf7.get(k, float("nan")), 4)]
-                  for k, v in timings.items()}
-        col = " [speed 6, phase 13's speed 7]"
-    ref = ("" if expect is None else
-           f" (the reference's speed-6 GOP keyframe of this content: "
-           f"{expect} bytes; equal: {len(pkt) == expect})")
+    stages = {k: round(v, 4) for k, v in timings.items()}
     print(f"# {what} speed-6 keyframe (q 100, cdef {CDEF_SPEED8}, cuda): "
-          f"{len(pkt)} bytes in {wall:.3f} s{ref}; 8..16 px band "
+          f"{len(pkt)} bytes in {wall:.3f} s; 8..16 px band "
           f"{band:.3f} (gate {'on' if split8 else 'off'}); quads split "
           f"16->8: {n8}; launches "
-          f"{json.dumps(launches)}; stages (s){col}: {json.dumps(stages)}",
+          f"{json.dumps(launches)}; stages (s): {json.dumps(stages)}",
           flush=True)
     idle = [k for k, n in launches.items() if n < 1]
     if idle:
@@ -1197,7 +1291,7 @@ def main() -> int:
     gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 7, CDEF_SPEED8, strict=True)
     r16_sizes = default_pframe_gpu_vs_cpu(tp, 256, 192)
     for P in (27, 15):
-        g = gather[P]
+        g = gather[(P, 8160)]
         print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} launches in "
               f"the 256x192 default P frame; at 1080p (B = 8160) kernel "
               f"{g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, indexing "
@@ -1207,25 +1301,36 @@ def main() -> int:
             fail(f"the default P frame launched no gather at P = {P}")
     for split8 in (False, True):
         speed6_gpu_vs_cpu(torch, ti, 256, 192, split8)
-    # the speed-10 GOP, its depth cut to 544 rows to keep the run short
+    speed6_gop_gpu_vs_cpu(tp, 256, 192)
+    # the speed-10 and speed-7 GOPs, their depth cut to 544 rows to keep
+    # the run short
     gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10, h=544)
-    # the main path: the speed-7 GOP with CDEF
-    launches, sizes, n_p, gop_t = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
-                                            CDEF_SPEED8)
-    # this slice's paths: the default (speed-6) keyframe of the same
-    # frame, and a full-width one whose quads split 16->8
-    kf6_launches, _ = speed6_keyframe(torch, ec, cd, ti,
-                                      synth(1920, 1088)[0], "1080p", False,
-                                      gop_t[0], 86204)
+    gop7_launches, _, _, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
+                                       CDEF_SPEED8, h=544)
+    # the main path: the speed-6 GOP with CDEF, the preset the
+    # reference's bench times
+    launches, sizes, n_p, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 6,
+                                        CDEF_SPEED8, expect=GOP6_BYTES)
+    # a full-width speed-6 keyframe whose quads split 16->8
     kf6s_launches, _ = speed6_keyframe(torch, ec, cd, ti,
                                        checker_tiled(synth(1920, 128)[0]),
                                        "1920x128 split8", True)
 
     # the gather entry: one P frame's launches at the measured sizes
-    per_frame = {P: n / n_p for P, n in sizes.items()}
+    per_frame = {k: n / n_p for k, n in sizes.items()}
     if set(per_frame) - set(gather):
-        fail(f"the GOP gathered patch sizes {sorted(per_frame)}, phase 4 "
-             f"measured {sorted(gather)}")
+        fail(f"the GOP gathered (patch size, count) {sorted(per_frame)}, "
+             f"phase 4 measured {sorted(gather)}")
+    for k in ((71, 510), (39, 510), (23, 2040)):
+        g = gather[k]
+        print(f"# gather P={k[0]} B={k[1]} on the speed-6 main path: "
+              f"{per_frame.get(k, 0)} launches a P frame; kernel "
+              f"{g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, indexing "
+              f"call {g['library_ms']:.5f} ms, bound {g['bound_ms']:.5f} ms "
+              f"({100 * g['bound_ms'] / g['ms']:.0f}% of it)", flush=True)
+        if per_frame.get(k, 0) < 1:
+            fail(f"the speed-6 P frames launched no gather at P = {k[0]}, "
+                 f"B = {k[1]}")
 
     def frame_sum(key):
         return sum(k * gather[P][key] for P, k in per_frame.items())
@@ -1240,16 +1345,17 @@ def main() -> int:
         "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
         "bound_ms": bound, "bound_by": "bytes",
         "library_ms": frame_sum("library_ms")}
-    print(f"# gather per P frame ({per_frame} launches by patch size): "
-          f"kernel {gather_entry['ms']:.5f} ms, bound {bound:.5f} ms",
-          flush=True)
+    print(f"# gather per speed-6 P frame ({per_frame} launches by (patch "
+          f"size, count)): kernel {gather_entry['ms']:.5f} ms, bound "
+          f"{bound:.5f} ms", flush=True)
     # launches on the main paths, each counted from 0 in its own run:
-    # phase 13's GOP, phase 15's keyframe and phase 16's split8 keyframe
-    by_path = {"gop7": dict(launches), "kf6": kf6_launches,
+    # phase 15's speed-6 GOP, phase 13's speed-7 GOP and phase 16's
+    # split8 keyframe
+    by_path = {"gop6": dict(launches), "gop7": gop7_launches,
                "kf6_split8": kf6s_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
-    print(f"# launches on the main paths (phases 13, 15, 16): "
+    print(f"# launches on the main paths (phases 15, 13, 16): "
           f"{json.dumps(by_path)}", flush=True)
 
     def paths(k):

@@ -175,11 +175,13 @@ def _levels_to_thresholds(level):
 
 def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
                   bd: int = 8, split_map=None, outer_block: int = 32,
-                  sub_map=None):
+                  merge_map=None, sub_map=None):
     """Filter one plane (the reference's deblock_plane_jax). plane
     [H, W] int32; level_v/level_h 0-d int32 tensors, 0 disables.
     split_map: bool [bh, bw] per outer block — inner edges filter only
-    where set.
+    where set. merge_map: bool [nr, nc] per 64x64 SB — PARTITION_NONE
+    at 64 removes the SB's inner 32-level edges (no longer block edges in
+    the stream).
 
     sub_map: bool [H//cs, W//cs] with cs = block//2 — cells whose TX is
     the half size (16x16 quads split to four 8x8 blocks: TX_8X8 luma /
@@ -188,8 +190,8 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
     (luma) / 6->4 (chroma) per row, and half-spacing interior edges
     appear inside sub quads (8-tap luma / 4-tap chroma). At 4:2:0 the
     luma 8-cell grid and the chroma 4-cell grid coincide, so one
-    [H/8, W/8] map serves all three planes. The reference's merge_map
-    and edge_on options (64x64 merge, tiles) are not ported yet."""
+    [H/8, W/8] map serves all three planes. The reference's edge_on
+    options (tiles) are not ported yet."""
     H, W = plane.shape
     size = 14 if is_luma else 6
     n = size // 2
@@ -197,22 +199,30 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
     n2 = size2 // 2
     cs = block // 2               # sub-TX extent on this plane
     ob = outer_block if is_luma else outer_block // 2
+    sb = 2 * ob                   # 64x64 SB extent on this plane
     dev = plane.device
     out = plane
 
     def edge_mask(pos, axis_len, ax):
-        # [axis_len, E] active mask per edge from split_map
-        if split_map is None:
+        # [axis_len, E] active mask per edge from split_map / merge_map
+        if split_map is None and merge_map is None:
             return None
+        ones = torch.ones(axis_len, dtype=torch.bool, device=dev)
         ms = []
         for x in pos:
             if x % ob != 0:
+                if split_map is None:
+                    ms.append(ones)
+                    continue
                 line = split_map[:, x // ob] if ax == 0 else \
                     split_map[x // ob, :]
                 ms.append(torch.repeat_interleave(line, ob)[:axis_len])
+            elif merge_map is not None and x % sb != 0:
+                line = merge_map[:, x // sb] if ax == 0 else \
+                    merge_map[x // sb, :]
+                ms.append(~torch.repeat_interleave(line, sb)[:axis_len])
             else:
-                ms.append(torch.ones(axis_len, dtype=torch.bool,
-                                     device=dev))
+                ms.append(ones)
         return torch.stack(ms, dim=1)
 
     def two_lengths(pf, qf, m, small, limit, blimit, thresh):
@@ -333,20 +343,18 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
 
 def deblock_frame(planes, level_y, level_uv, block_y: int = 32,
                   block_c: int = 16, bd: int = 8, split_map=None,
-                  sub_map=None):
+                  sub_map=None, merge_map=None):
     """Deblock [y, u, v] (the reference's deblock_frame_jax)."""
-    y = deblock_plane(planes[0], block_y, level_y, level_y, True, bd,
-                      split_map, sub_map=sub_map)
-    u = deblock_plane(planes[1], block_c, level_uv, level_uv, False, bd,
-                      split_map, sub_map=sub_map)
-    v = deblock_plane(planes[2], block_c, level_uv, level_uv, False, bd,
-                      split_map, sub_map=sub_map)
-    return [y, u, v]
+    return [deblock_plane(p, blk, lvl, lvl, i == 0, bd, split_map,
+                          merge_map=merge_map, sub_map=sub_map)
+            for i, (p, blk, lvl) in enumerate(
+                zip(planes, (block_y, block_c, block_c),
+                    (level_y, level_uv, level_uv)))]
 
 
 def deblock_search(planes, srcs, base_level, block_y: int = 32,
                    block_c: int = 16, bd: int = 8, split_map=None,
-                   sub_map=None):
+                   sub_map=None, merge_map=None):
     """Whole-frame deblock level search: try a fixed ladder of scale
     factors around the q-derived level, pick the one minimizing the
     f32 SSE vs source (`torch.argmin` takes the first minimum, as
@@ -371,14 +379,16 @@ def deblock_search(planes, srcs, base_level, block_y: int = 32,
                   srcs[2][lo >> 1: hi >> 1]]
         split_c = (split_map[lo // 32: hi // 32]
                    if split_map is not None else None)
+        merge_c = (merge_map[lo // 64: hi // 64]
+                   if merge_map is not None else None)
         sub_c = sub_map[lo // 8: hi // 8] if sub_map is not None else None
     else:
         planes_c, srcs_c = planes, srcs
-        split_c, sub_c = split_map, sub_map
+        split_c, merge_c, sub_c = split_map, merge_map, sub_map
 
     def est(level):
         o = deblock_frame(planes_c, level, level, block_y, block_c, bd,
-                          split_c, sub_c)
+                          split_c, sub_c, merge_c)
         sse = None
         for a, s in zip(o, srcs_c):
             e = torch.sum((a - s).to(torch.float32) ** 2)
@@ -388,4 +398,4 @@ def deblock_search(planes, srcs, base_level, block_y: int = 32,
     sses = torch.stack([est(cand[i]) for i in range(cand.shape[0])])
     best = cand[torch.argmin(sses)]
     return best, deblock_frame(planes, best, best, block_y, block_c, bd,
-                               split_map, sub_map)
+                               split_map, sub_map, merge_map)

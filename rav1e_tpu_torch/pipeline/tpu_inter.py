@@ -21,19 +21,21 @@ frame batches:
 - host: unpack, TileWriter walk, od_ec coding by the CUDA kernel of
   entropy/ec_cuda, OBU packet.
 
-This slice ports the speed-7 to 10 P toolsets (api/speed.py) and the
-reference's default P call: single reference, subpel at speeds 7-8, CDEF
-when asked, and at speed 7 the PARTITION_SPLIT candidate (per-16 MVs from
+This slice ports the speed-3 to 10 P toolsets (api/speed.py) and the
+reference's default P call: single reference, subpel at speeds <= 8, CDEF
+when asked, at speeds <= 7 the PARTITION_SPLIT candidate (per-16 MVs from
 {parent, zero}, or refined in-patch with refine16; TX_16X16 + TX_8X8
-residuals; per-16 skip RD). No 16->8 split, no 64x64 merge, no
-intra-in-inter, no SATD. Other options raise NotImplementedError naming
-the ROADMAP.md item that brings them.
+residuals; per-16 skip RD), and at speed 6 SATD in the subpel descent,
+the 16->8 split (TX_8X8 + TX_4X4 children on 4-tap chroma MC), the 64x64
+merge (TX_64X64) and intra-in-inter (DC_PRED 32x32). Other options raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
-one f32 add at a time, row-major), so the port's decisions match the
-reference's on the CPU; residual SSEs stay below 2^24 on real content
-and are summed by torch.
+one f32 add at a time, row-major; the merge's and intra-in-inter's
+SSEs: _sse64_xla, _sse_cols_xla, _sse_rows_xla), so the port's
+decisions match the reference's on the CPU; the other residual SSEs stay
+below 2^24 on real content and are summed by torch.
 """
 
 from __future__ import annotations
@@ -106,10 +108,11 @@ def _nomark(name: str):
 # ---- tables ------------------------------------------------------------------
 
 @lru_cache(maxsize=None)
-def _filt(device: torch.device) -> torch.Tensor:
-    """The spec's REGULAR 8-tap bank [16, 8] int32."""
-    return torch.as_tensor(np.asarray(SUBPEL_FILTERS["REGULAR"], np.int32),
-                           device=device)
+def _filt(device: torch.device, four_tap: bool = False) -> torch.Tensor:
+    """The spec's REGULAR 8-tap bank [16, 8] int32, or with four_tap its
+    4-tap bank (Subpel_Filters[4], zero-padded to 8 taps)."""
+    bank = SUBPEL_FILTERS["REGULAR_4" if four_tap else "REGULAR"]
+    return torch.as_tensor(np.asarray(bank, np.int32), device=device)
 
 
 def _round2(x, n):
@@ -236,20 +239,19 @@ def _mc_batch(ref_pad, pos_r, pos_c, mv8, n, ss, interm=False,
     edge replication; pos_r/pos_c int32 [B] plane-scale block origins;
     mv8 int32 [B, 2] luma-scale 1/8-pel MVs; n = block size. Returns
     [B, n, n] int32. Each block's (n+7)^2 window is one gather_patches
-    call for the whole batch."""
+    call for the whole batch. four_tap takes the spec's 4-tap bank (blocks
+    of w/h <= 4: the 4x4 chroma of 16->8 children, predicted here as one
+    region that shares the MV)."""
     if interm:
         _not_ported("compound-precision MC (interm)",
                     "item 11 (other P/B routes)")
-    if four_tap:
-        _not_ported("the 4-tap MC bank (split8 children)",
-                    "item 8 (speed 6)")
     p = PAD >> ss
     p16r = (pos_r << 4) + mv8[:, 0] * (2 >> ss)
     p16c = (pos_c << 4) + mv8[:, 1] * (2 >> ss)
     ir, fr = p16r >> 4, p16r & 15
     ic, fc = p16c >> 4, p16c & 15
     patch = gather_patches(ref_pad, ir + (p - 3), ic + (p - 3), n + 7)
-    bank = _filt(ref_pad.device)
+    bank = _filt(ref_pad.device, four_tap)
     intm = _round2(_taps(bank[fc.long()], patch, n, -1), 3)
     out = _taps(bank[fr.long()], intm, n, -2)
     return torch.clamp(_round2(out, 11), 0, (1 << bd) - 1)
@@ -311,6 +313,33 @@ def _mc_patch_multi(patch, ir0, ic0, pos_r, pos_c, mv8c, n, ss, M,
                      pos_c[None], mv8c, n, ss, M, bd=bd)
 
 
+def _wht8(x, dim: int):
+    """The 8-point Walsh-Hadamard transform (Sylvester order) of x along
+    `dim`, in exact int32 butterflies."""
+    x = x.movedim(dim, -1)
+    shape = x.shape
+    for h in (4, 2, 1):
+        y = x.reshape(shape[:-1] + (8 // (2 * h), 2, h))
+        x = torch.stack([y[..., 0, :] + y[..., 1, :],
+                         y[..., 0, :] - y[..., 1, :]], -2).reshape(shape)
+    return x.movedim(-1, dim)
+
+
+def satd(d):
+    """SAD-normalised SATD over 8x8 Hadamard tiles (the reference's
+    `satd`): [B, n, n] int32 residual -> [B] f32. The reference sums the
+    f32 |H x H| over the block; at 8 bits each output is at most
+    64 x 255 and a 32-block's 1,024 of them stay below 2^24, so every
+    partial sum is an exact integer and the int32 sum cast once to f32
+    is the reference's value in any order."""
+    B, n, _ = d.shape
+    x = (d.reshape(B, n // 8, 8, n // 8, 8).permute(0, 1, 3, 2, 4)
+         .to(torch.int32))
+    t = _wht8(_wht8(x, -2), -1)
+    tot = torch.sum(torch.abs(t).reshape(B, -1), dim=1, dtype=torch.int32)
+    return tot.to(torch.float32) * 0.125
+
+
 def to_blocks(plane, n):
     return (plane.reshape(-1, n, plane.shape[1] // n, n)
             .permute(0, 2, 1, 3).reshape(-1, n, n))
@@ -370,10 +399,9 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
     has >= 510 blocks, then opens the descent with a full-pel step from
     M=2 patches. subpel (speed 8) descends on to quarter pel: steps of
     8, 4, 2, 2 eighth-pel after ds2, 4, 2, 2 at full resolution (M=1),
-    every candidate predicted from the one patch."""
-    if use_satd:
-        _not_ported("SATD subpel distortion",
-                    "item 8 (speed 6)")
+    every candidate predicted from the one patch. use_satd ranks the
+    descent's candidates by SATD + lam_sad x MV bits (speed 6) instead
+    of SSE + lam x MV bits."""
     assert search <= PAD, (search, PAD)
     dev = ryp.device
     nby_l = ryp.shape[0] // 32 - 2                # h // 32
@@ -496,18 +524,24 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
         return (rd["mv_bits"][torch.abs(mv[..., 0]).long()]
                 + rd["mv_bits"][torch.abs(mv[..., 1]).long()])
 
+    def dist(d, mv):
+        """[C, B, 32, 32] residuals -> [C, B] descent costs."""
+        C = d.shape[0]
+        if use_satd:
+            return (satd(d.reshape(C * B, 32, 32)).reshape(C, B)
+                    + rd["lam_sad"] * mv_rate(mv))
+        df = d.to(torch.float32)
+        return torch.sum(df * df, dim=(2, 3)) + rd["lam"] * mv_rate(mv)
+
     pred = _mc_patch(patch32, pir0, pic0, by, bx, mv8, 32, 0, M, bd=bd)
-    d = (pred - blks).to(torch.float32)
-    best = torch.sum(d * d, dim=(1, 2)) + rd["lam"] * mv_rate(mv8)
+    best = dist((pred - blks)[None], mv8[None])[0]
     for step_sz in desc_steps:
         delta = torch.tensor([[-step_sz, 0], [step_sz, 0], [0, -step_sz],
                               [0, step_sz]], dtype=torch.int32, device=dev)
         cands = mv8[None] + delta[:, None, :]            # [4,B,2]
         pred = _mc_patch_multi(patch32, pir0, pic0, by, bx, cands, 32, 0,
                                M, bd=bd)
-        df = (pred - blks[None]).to(torch.float32)
-        costs = (torch.sum(df * df, dim=(2, 3))
-                 + rd["lam"] * mv_rate(cands))           # [4,B]
+        costs = dist(pred - blks[None], cands)           # [4,B]
         k = torch.argmin(costs, dim=0)
         cbest = torch.gather(costs, 0, k[None])[0]
         cmv = torch.gather(cands, 0, k[None, :, None].expand(1, B, 2))[0]
@@ -590,21 +624,8 @@ def _median_q(mv8):
 
 # ---- the P-frame body --------------------------------------------------------
 
-def _check_p_options(ryp2, fwd2, intra_rdo, b64_rdo, use_split8, bd):
-    if ryp2 is not None or fwd2:
-        _not_ported("two-reference P/B steps", "item 11 (other P/B routes)")
-    for on, what in ((intra_rdo, "intra-in-inter"),
-                     (b64_rdo, "the 64x64 merge"),
-                     (use_split8, "16->8 split RDO")):
-        if on:
-            _not_ported(what, "item 8 (speed 6: the speed-6 P tools)")
-    if bd != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
-
-
 def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
-                 by, bx, nby, nbx, deblock_fn=None, cdef_fn=None,
-                 use_split: bool = True,
+                 by, bx, nby, nbx, use_split: bool = True,
                  ryp2=None, rup2=None, rvp2=None, ds16=None,
                  use_satd: bool = False, refine16: bool = True,
                  fwd2: bool = False, intra_rdo: bool = False,
@@ -612,18 +633,27 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                  search: int = SEARCH, subpel: bool = True,
                  use_split8: bool = False, bd: int = 8, mark=_nomark):
     """The batched P-frame encode of one frame, single reference: full-pel
-    search, MV-field candidate passes, skip RD, and with use_split the
-    PARTITION_SPLIT candidate (per-16 MVs, TX_16X16 luma + TX_8X8 chroma,
-    per-16 skip RD), then recon and scan lines.
+    search (use_satd: the descent ranks by SATD), MV-field candidate
+    passes, skip RD, and with use_split the PARTITION_SPLIT candidate
+    (per-16 MVs, TX_16X16 luma + TX_8X8 chroma, per-16 skip RD; with
+    use_split8 each quad's 16->8 split, TX_8X8 luma + TX_4X4 chroma on
+    4-tap chroma MC, per-8 skip RD), then with b64_rdo the 64x64 merge
+    (when nby and nbx are even) and with intra_rdo the intra-in-inter
+    flips, then recon and scan lines.
 
     y/u/v: source planes (int32); ryp/rup/rvp: PADDED reference planes
     (int32); by/bx: int32 pixel origins of the 32-blocks; dcq/acq: luma
     quantizer 0-d int32 tensors. refine16 descends each 16's MV from the
     better of {parent, zero} in-patch (8, 4, 2, 2 eighth-pel); without it
     the 16's MV is the better of {parent, zero}. `mark(name)` is called
-    after each stage (search, cand, code, split). Returns the
-    reference's 19-tuple."""
-    _check_p_options(ryp2, fwd2, intra_rdo, b64_rdo, use_split8, bd)
+    after each stage (search, cand, code, split, merge64, intra). Returns
+    the reference's 19-tuple; the in-loop filters run after it, in
+    _core's `filt` (the reference's deblock_fn / cdef_fn have no caller
+    here)."""
+    if ryp2 is not None or fwd2:
+        _not_ported("two-reference P/B steps", "item 11 (other P/B routes)")
+    if bd != 8:
+        _not_ported("bit depth above 8", "item 12 (bd=10)")
     from rav1e_tpu_torch.pipeline.tpu_intra import _dq_dyn, _q_dyn, block_bits
     h, tw = y.shape[0], y.shape[1]
     B = nby * nbx
@@ -763,15 +793,16 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     mark("code")
 
     if not use_split:
+        if b64_rdo and nby % 2 == 0 and nbx % 2 == 0:
+            _not_ported("the 64x64 merge without split RDO",
+                        "item 8c (the speed-6 P tools off their presets)")
         split = torch.zeros((B,), dtype=torch.bool, device=dev)
         zeros = functools.partial(torch.zeros, dtype=i32, device=dev)
         return _finish_outputs(
-            y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8, skip, split,
-            split[:, None, None], mv8[:, None, :].expand(B, 4, 2),
-            skip[:, None].expand(B, 4), lv_y, lv_u, lv_v,
-            zeros((B * 4, 16, 16)), zeros((B * 4, 8, 8)),
-            zeros((B * 4, 8, 8)), rec_y, rec_u, rec_v, deblock_fn, cdef_fn,
-            choice, mvb8, bd=bd)
+            y, h, tw, nby, nbx, B, mv8, skip, split,
+            mv8[:, None, :].expand(B, 4, 2), skip[:, None].expand(B, 4),
+            lv_y, lv_u, lv_v, zeros((B * 4, 16, 16)), zeros((B * 4, 8, 8)),
+            zeros((B * 4, 8, 8)), rec_y, rec_u, rec_v, choice, mvb8, bd=bd)
 
     # ---- the PARTITION_SPLIT candidate: per-16 MVs, TX16/TX8
     # residuals, per-16 skip RD ----
@@ -836,6 +867,13 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         pred_y16 = pred16(patch16, pir16, pic16, mv16)
         pred_u8 = _mc_batch(rup, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
         pred_v8 = _mc_batch(rvp, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
+        if use_split8:
+            # the 16->8 children's 4x4 chroma: the 4-tap bank over the
+            # 8x8 region, which shares the quad's MV
+            pred_u8_4t = _mc_batch(rup, by16 // 2, bx16 // 2, mv16, 8, 1,
+                                   four_tap=True, bd=bd)
+            pred_v8_4t = _mc_batch(rvp, by16 // 2, bx16 // 2, mv16, 8, 1,
+                                   four_tap=True, bd=bd)
     else:
         # per-16 MV in {parent, zero}: parent = the quadrant of the
         # 32-block's prediction, zero = the co-located reference block
@@ -852,12 +890,53 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         pred_y16 = torch.where(z3, pz_y, _quads(pred_y, 16))
         pred_u8 = torch.where(z3, pz_u, _quads(pred_u, 8))
         pred_v8 = torch.where(z3, pz_v, _quads(pred_v, 8))
+        if use_split8:
+            # the parent 32-block's chroma through the 4-tap bank,
+            # quartered; the zero MV is an integer phase, the same in
+            # both banks
+            pred_u8_4t = torch.where(z3, pz_u, _quads(_mc_batch(
+                rup, by // 2, bx // 2, mv8, 16, 1, four_tap=True, bd=bd), 8))
+            pred_v8_4t = torch.where(z3, pz_v, _quads(_mc_batch(
+                rvp, by // 2, bx // 2, mv8, 16, 1, four_tap=True, bd=bd), 8))
     (lv_y16, lv_u8, lv_v8), (rec_y16, rec_u8, rec_v8), skip16, c16 = \
         code_skip((pred_y16, pred_u8, pred_v8), (blks16, ub8, vb8),
                   (TxSize.TX_16X16, TxSize.TX_8X8, TxSize.TX_8X8),
                   ("y16", "c8"), ds16f)
-    cost_split = (_quad_sum((lam * mv_rate(mv16) + c16).reshape(B, 4))
-                  + lam * rd["split_bits"])
+    cost16 = lam * mv_rate(mv16) + c16
+
+    # ---- the 16->8 split: four 8x8 children per quad on the quad's MV
+    # (NEAREST aliases), TX_8X8 luma + TX_4X4 chroma, per-8 skip RD ----
+    split16 = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+    skip8_out = torch.zeros((B, 4, 4), dtype=torch.bool, device=dev)
+    lv_y8 = lv_u4 = lv_v4 = None
+    if use_split8:
+        ds8 = ds16f.repeat_interleave(4)
+        (lv_y8, lv_u4, lv_v4), (rec_y8, rec_u4, rec_v4), skip8, c8 = \
+            code_skip((_quads(pred_y16, 8), _quads(pred_u8_4t, 4),
+                       _quads(pred_v8_4t, 4)),
+                      (_quads(blks16, 8), _quads(ub8, 4), _quads(vb8, 4)),
+                      (TxSize.TX_8X8, TxSize.TX_4X4, TxSize.TX_4X4),
+                      ("y8", "c4"), ds8)
+        cost8 = lam * rd["nearest"] + c8
+        c_s16 = (_quad_sum(cost8.reshape(B * 4, 4))
+                 + lam * rd["split_bits8"])
+        s16f = c_s16 < cost16
+        cost16 = torch.where(s16f, c_s16, cost16)
+        s16q = s16f[:, None, None]
+        lv_y16 = torch.where(s16q, _unquads(lv_y8, 8), lv_y16)
+        lv_u8 = torch.where(s16q, _unquads(lv_u4, 4), lv_u8)
+        lv_v8 = torch.where(s16q, _unquads(lv_v4, 4), lv_v8)
+        rec_y16 = torch.where(s16q, _unquads(rec_y8, 8), rec_y16)
+        rec_u8 = torch.where(s16q, _unquads(rec_u4, 4), rec_u8)
+        rec_v8 = torch.where(s16q, _unquads(rec_v4, 4), rec_v8)
+        # a split quad reports skip16 = AND of its children (the exact
+        # per-8 skips travel in skip8_out)
+        skip16 = torch.where(s16f, torch.all(skip8.reshape(B * 4, 4), 1),
+                             skip16)
+        split16 = s16f.reshape(B, 4)
+        skip8_out = skip8.reshape(B, 4, 4)
+
+    cost_split = _quad_sum(cost16.reshape(B, 4)) + lam * rd["split_bits"]
     split = cost_split < cost32
     sp3 = split[:, None, None]
 
@@ -872,11 +951,262 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                            mv8[:, None, :].expand(B, 4, 2))
     skip16_out = torch.where(split[:, None], skip16.reshape(B, 4),
                              skip[:, None])
+    cost_fin = torch.where(split, cost_split, cost32)
     mark("split")
+
+    b64_map = torch.zeros(((nby + 1) // 2, (nbx + 1) // 2), dtype=torch.bool,
+                          device=dev)
+    b64g = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if b64_rdo and nby % 2 == 0 and nbx % 2 == 0:
+        (b64_map, b64g, mv8, rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, skip,
+         split, skip16_out, choice, mvb8) = _merge64_pass(
+            y, u, v, ryp, rup, rvp, rd, code, nby, nbx, mv8, rec_y, rec_u,
+            rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out, choice, mvb8,
+            cost_fin, bd=bd)
+        mark("merge64")
+
+    if intra_rdo:
+        (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out,
+         choice, mv8) = _intra_pass(
+            blks, ub, vb, rd, code, nby, nbx, ds32, cost_fin, b64g, rec_y,
+            rec_u, rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out, choice,
+            mv8, bd=bd)
+        mark("intra")
+
+    # the merge and the intra flips may clear `split` under a quad that
+    # wanted its 16->8 split: re-mask so the coded tree stays valid
+    split16 = split16 & split[:, None]
+    skip8_out = skip8_out & split16[:, :, None]
     return _finish_outputs(
-        y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8, skip, split, sp3,
-        mv16_out, skip16_out, lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8,
-        rec_y, rec_u, rec_v, deblock_fn, cdef_fn, choice, mvb8, bd=bd)
+        y, h, tw, nby, nbx, B, mv8, skip, split, mv16_out, skip16_out, lv_y,
+        lv_u, lv_v, lv_y16, lv_u8, lv_v8, rec_y, rec_u, rec_v, choice, mvb8,
+        b64_map=b64_map, split16=split16 if use_split8 else None,
+        skip8_out=skip8_out, lv_y8=lv_y8, lv_u4=lv_u4, lv_v4=lv_v4, bd=bd)
+
+
+def _merge64_pass(y, u, v, ryp, rup, rvp, rd, code, nby, nbx, mv8, rec_y,
+                  rec_u, rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out,
+                  choice, mvb8, cost_fin, bd: int = 8):
+    """PARTITION_NONE at 64x64 (the reference's _merge64_pass, single
+    reference): one MV per SB from {the TL child's MV, zero}, TX_64X64
+    luma (its 32x32 retained levels) and TX_32X32 chroma with a skip RD,
+    against the four 32-level costs. Returns the updated per-32 outputs
+    with (b64_map, b64g)."""
+    from rav1e_tpu_torch.pipeline.tpu_intra import block_bits
+    mx = (1 << bd) - 1
+    lam = rd["lam"]
+    dev = y.device
+    B = nby * nbx
+    nr64, nc64 = nby // 2, nbx // 2
+    B64n = nr64 * nc64
+    by64, bx64 = (o * 2 for o in _block_origins(nr64, nc64, dev))
+    blks64 = to_blocks(y, 64)
+    ub32 = to_blocks(u.to(torch.int32), 32)
+    vb32 = to_blocks(v.to(torch.int32), 32)
+    mv_tl = mv8.reshape(nby, nbx, 2)[0::2, 0::2].reshape(B64n, 2)
+    zero = torch.zeros_like(mv_tl)
+    # the merged block's MV-stack predictor: the left SB's TL MV
+    mvtl_g = mv_tl.reshape(nr64, nc64, 2)
+    pred64 = torch.cat([mvtl_g[:, :1], mvtl_g[:, :-1]], 1).reshape(B64n, 2)
+
+    def mvr64(mv):
+        z = (mv[:, 0] == 0) & (mv[:, 1] == 0)
+        d0 = torch.clamp(torch.abs(mv[:, 0] - pred64[:, 0]), max=1024)
+        d1 = torch.clamp(torch.abs(mv[:, 1] - pred64[:, 1]), max=1024)
+        same = (d0 == 0) & (d1 == 0) & ~z
+        r = rd["newmv"] + rd["mv_bits"][d0.long()] + rd["mv_bits"][d1.long()]
+        r = torch.where(same, rd["nearest"], r)
+        return torch.where(z, rd["globalmv"], r)
+
+    preds = [_mc_batch(ryp, by64, bx64, m, 64, 0, bd=bd) for m in (mv_tl,
+                                                                   zero)]
+    costs = torch.stack([_sse64_xla(p, blks64) + lam * mvr64(m)
+                         for p, m in zip(preds, (mv_tl, zero))], 0)
+    k1 = torch.argmin(costs, dim=0) == 1
+    mv64 = torch.where(k1[:, None], zero, mv_tl)
+    pred_y64 = torch.where(k1[:, None, None], preds[1], preds[0])
+    pred_u64 = _mc_batch(rup, by64 // 2, bx64 // 2, mv64, 32, 1, bd=bd)
+    pred_v64 = _mc_batch(rvp, by64 // 2, bx64 // 2, mv64, 32, 1, bd=bd)
+    lv_y64, r2_y64 = code(blks64 - pred_y64, TxSize.TX_64X64)
+    lv_u32, r2_u32 = code(ub32 - pred_u64, TxSize.TX_32X32, chroma=True)
+    lv_v32, r2_v32 = code(vb32 - pred_v64, TxSize.TX_32X32, chroma=True)
+    cd_y64 = torch.clamp(pred_y64 + r2_y64, 0, mx)
+    cd_u32 = torch.clamp(pred_u64 + r2_u32, 0, mx)
+    cd_v32 = torch.clamp(pred_v64 + r2_v32, 0, mx)
+    sse64_c = (_sse64_xla(cd_y64, blks64) + _sse_cols_xla(cd_u32, ub32)
+               + _sse_cols_xla(cd_v32, vb32))
+    sse64_s = (_sse64_xla(pred_y64, blks64) + _sse_cols_xla(pred_u64, ub32)
+               + _sse_cols_xla(pred_v64, vb32))
+    # TX_64X64 codes only its low-frequency 32x32 (zeroed beyond)
+    lv64r = lv_y64[:, :32, :32]
+    cbits64 = (block_bits(lv64r, rd["y32"]) + block_bits(lv_u32, rd["c32"])
+               + block_bits(lv_v32, rd["c32"]))
+    c_skip = sse64_s + lam * rd["skip1"]
+    c_code = sse64_c + lam * (rd["skip0"] + cbits64)
+    skip64 = c_skip <= c_code
+    cost64 = (lam * (mvr64(mv64) - rd["merge_save"])
+              + torch.where(skip64, c_skip, c_code))
+    # the four 32-costs as XLA:CPU sums them: (TL + TR) + (BL + BR)
+    cf = cost_fin.reshape(nr64, 2, nc64, 2)
+    cf22 = ((cf[:, 0, :, 0] + cf[:, 0, :, 1])
+            + (cf[:, 1, :, 0] + cf[:, 1, :, 1])).reshape(B64n)
+    b64 = cost64 < cf22
+    b64_map = b64.reshape(nr64, nc64)
+
+    def quads64(x, n):
+        return (x.reshape(nr64, nc64, 2, n, 2, n).permute(0, 2, 1, 4, 3, 5)
+                .reshape(B, n, n))
+
+    def up(x):
+        # per-SB -> per-32 (raster)
+        return (x.reshape((nr64, nc64) + x.shape[1:])
+                .repeat_interleave(2, 0).repeat_interleave(2, 1)
+                .reshape((B,) + x.shape[1:]))
+
+    b64g = up(b64)
+    b3 = b64g[:, None, None]
+    sk3 = skip64[:, None, None]
+    rec_y = torch.where(b3, quads64(torch.where(sk3, pred_y64, cd_y64), 32),
+                        rec_y)
+    rec_u = torch.where(b3, quads64(torch.where(sk3, pred_u64, cd_u32), 16),
+                        rec_u)
+    rec_v = torch.where(b3, quads64(torch.where(sk3, pred_v64, cd_v32), 16),
+                        rec_v)
+    # the retained luma levels ride in the SB's TL child slot
+    lv64_tl = torch.zeros((nby, nbx, 32, 32), dtype=lv_y.dtype, device=dev)
+    lv64_tl[0::2, 0::2] = torch.where(sk3, 0, lv64r).reshape(
+        nr64, nc64, 32, 32).to(lv_y.dtype)
+    lv_y = torch.where(b3, lv64_tl.reshape(B, 32, 32), lv_y)
+    lv_u = torch.where(b3, quads64(torch.where(sk3, 0, lv_u32), 16), lv_u)
+    lv_v = torch.where(b3, quads64(torch.where(sk3, 0, lv_v32), 16), lv_v)
+    skip64g = up(skip64)
+    skip = torch.where(b64g, skip64g, skip)
+    split = split & ~b64g
+    skip16_out = torch.where(b64g[:, None], skip64g[:, None], skip16_out)
+    mv8 = torch.where(b64g[:, None], up(mv64), mv8)
+    choice = torch.where(b64g, 0, choice)
+    mvb8 = torch.where(b64g[:, None], 0, mvb8)
+    return (b64_map, b64g, mv8, rec_y, rec_u, rec_v, lv_y, lv_u, lv_v,
+            skip, split, skip16_out, choice, mvb8)
+
+
+def _intra_pass(blks, ub, vb, rd, code, nby, nbx, ds32, cost_fin, b64g,
+                rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, skip, split,
+                skip16_out, choice, mv8, bd: int = 8):
+    """Intra-in-inter (the reference's intra_rdo block): DC_PRED at 32x32
+    luma and 16x16 chroma from the UNFILTERED inter recon of the
+    neighbours, coded with its skip RD; a block flips to intra
+    (choice 3) where that is cheaper, it is not merged, and its above,
+    left and above-left neighbours do not also want intra (so no flipped
+    block gives edges to another). Returns the updated per-32 outputs."""
+    from rav1e_tpu_torch.ops.intra import predict_modes
+    from rav1e_tpu_torch.pipeline.tpu_intra import block_bits
+    mx = (1 << bd) - 1
+    lam = rd["lam"]
+    dev = blks.device
+    B = nby * nbx
+    iy, jx = (o // 32 for o in _block_origins(nby, nbx, dev))
+    has_a, has_l = iy > 0, jx > 0
+
+    def dn(a):
+        return torch.cat([a[:1], a[:-1]], 0)
+
+    def rt(a):
+        return torch.cat([a[:, :1], a[:, :-1]], 1)
+
+    def pred_dc(rec, n):
+        g = rec.reshape(nby, nbx, n, n)
+        a = dn(g)[:, :, n - 1, :].reshape(B, n)
+        le = rt(g)[:, :, :, n - 1].reshape(B, n)
+        tl = rt(dn(g))[:, :, n - 1, n - 1].reshape(B)
+        return predict_modes((PredictionMode.DC_PRED,), a, le, tl, has_a,
+                             has_l, n, n)[0]
+
+    pi_y, pi_u, pi_v = pred_dc(rec_y, 32), pred_dc(rec_u, 16), \
+        pred_dc(rec_v, 16)
+    lvi_y, r2i_y = code(blks - pi_y, TxSize.TX_32X32)
+    lvi_u, r2i_u = code(ub - pi_u, TxSize.TX_16X16, chroma=True)
+    lvi_v, r2i_v = code(vb - pi_v, TxSize.TX_16X16, chroma=True)
+    cdi_y = torch.clamp(pi_y + r2i_y, 0, mx)
+    cdi_u = torch.clamp(pi_u + r2i_u, 0, mx)
+    cdi_v = torch.clamp(pi_v + r2i_v, 0, mx)
+    sse_ic = (_sse_rows_xla(cdi_y, blks) + _sse_rows_xla(cdi_u, ub)
+              + _sse_rows_xla(cdi_v, vb))
+    sse_is = (_sse_rows_xla(pi_y, blks) + _sse_rows_xla(pi_u, ub)
+              + _sse_rows_xla(pi_v, vb))
+    cbits_i = (block_bits(lvi_y, rd["y32"]) + block_bits(lvi_u, rd["c16"])
+               + block_bits(lvi_v, rd["c16"]))
+    c_skip = ds32 * sse_is + lam * rd["skip1"]
+    c_code = ds32 * sse_ic + lam * (rd["skip0"] + cbits_i)
+    skip_i = c_skip <= c_code
+    cost_i = lam * rd["intra32"] + torch.where(skip_i, c_skip, c_code)
+    dg = ((cost_i < cost_fin) & ~b64g).reshape(nby, nbx)
+
+    def false_dn(a):
+        return torch.cat([torch.zeros_like(a[:1]), a[:-1]], 0)
+
+    def false_rt(a):
+        return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], 1)
+
+    flip = (dg & ~false_dn(dg) & ~false_rt(dg)
+            & ~false_rt(false_dn(dg))).reshape(B)
+    f3 = flip[:, None, None]
+    s_i3 = skip_i[:, None, None]
+    rec_y = torch.where(f3, torch.where(s_i3, pi_y, cdi_y), rec_y)
+    rec_u = torch.where(f3, torch.where(s_i3, pi_u, cdi_u), rec_u)
+    rec_v = torch.where(f3, torch.where(s_i3, pi_v, cdi_v), rec_v)
+    lv_y = torch.where(f3, torch.where(s_i3, 0, lvi_y), lv_y)
+    lv_u = torch.where(f3, torch.where(s_i3, 0, lvi_u), lv_u)
+    lv_v = torch.where(f3, torch.where(s_i3, 0, lvi_v), lv_v)
+    skip = torch.where(flip, skip_i, skip)
+    split = split & ~flip
+    skip16_out = torch.where(flip[:, None], skip_i[:, None], skip16_out)
+    choice = torch.where(flip, 3, choice)          # 3 = INTRA (DC)
+    mv8 = torch.where(flip[:, None], 0, mv8)
+    return (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out,
+            choice, mv8)
+
+
+def _sse64_xla(a, b):
+    """The merge's luma SSE of [N, 64, 64] blocks in XLA:CPU's f32 order:
+    each 32x32 quadrant summed one add at a time, row-major (the tree
+    rewriter's reduce-window), then the quadrants as (TL + TR) +
+    (BL + BR) (a 2-lane vector reduce). Read from the reference's fused
+    loops' optimized IR (--xla_dump_to); its sums pass 2^24."""
+    d = (a - b).to(torch.float32) ** 2
+    n = d.shape[0]
+    q = d.reshape(n, 2, 32, 2, 32).permute(0, 1, 3, 2, 4).reshape(n, 4, 1024)
+    p = q[..., 0]
+    for i in range(1, 1024):
+        p = p + q[..., i]
+    return (p[:, 0] + p[:, 1]) + (p[:, 2] + p[:, 3])
+
+
+def _sse_cols_xla(a, b):
+    """An SSE over [N, R, C] blocks as XLA:CPU sums the merge's chroma:
+    rows in order, each vectorized over 8 lanes along the row
+    (ops.cdef._xla_rows_sum)."""
+    from rav1e_tpu_torch.ops.cdef import _xla_rows_sum
+    return _xla_rows_sum((a - b).to(torch.float32) ** 2, 8)
+
+
+def _sse_rows_xla(a, b):
+    """An SSE over [N, R, C] blocks as XLA:CPU sums intra-in-inter's:
+    vectorized over 8 lanes ACROSS rows (lane j takes rows j, j + 8,
+    ..., each row's C terms one at a time), then the lanes fold in
+    halves (8 -> 4 -> 2 -> 1). Read from the fused loop's optimized IR;
+    the luma sum passes 2^24 on noise."""
+    d = (a - b).to(torch.float32) ** 2
+    n, R, C = d.shape
+    g = d.reshape(n, R // 8, 8, C)
+    acc = torch.zeros((n, 8), dtype=torch.float32, device=d.device)
+    for k in range(R // 8):
+        for c in range(C):
+            acc = acc + g[:, k, :, c]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
 
 
 def _quad_sum(c):
@@ -900,54 +1230,42 @@ def _unquads(x, n):
             .reshape(Bn, 2 * n, 2 * n))
 
 
-def _finish_outputs(y, u, v, h, tw, nby, nbx, B, rd, cdef_prm, mv8,
-                    skip, split, sp3, mv16_out, skip16_out, lv_y, lv_u,
-                    lv_v, lv_y16, lv_u8, lv_v8, rec_y, rec_u, rec_v,
-                    deblock_fn, cdef_fn, choice, mvb8, b64_map=None,
-                    split16=None, skip8_out=None, lv_y8=None,
-                    lv_u4=None, lv_v4=None, bd: int = 8):
-    """Common tail of p_frame_body: in-loop filter + scan line + output
-    tuple. The 16->8 layout (split16) is not ported; the P frame's CDEF
-    runs in _core's `cdef` stage, not through cdef_fn."""
-    if split16 is not None:
-        _not_ported("16->8 split RDO", "item 8 (speed 6: the "
-                    "speed-6 P tools)")
-    if cdef_fn is not None:
-        raise NotImplementedError(
-            "p_frame_body's cdef_fn has no caller in rav1e_tpu_torch: the "
-            "P frame's CDEF search runs in _core (its `cdef` stage)")
+def _finish_outputs(y, h, tw, nby, nbx, B, mv8, skip, split, mv16_out,
+                    skip16_out, lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8,
+                    rec_y, rec_u, rec_v, choice, mvb8, b64_map=None,
+                    split16=None, skip8_out=None, lv_y8=None, lv_u4=None,
+                    lv_v4=None, bd: int = 8):
+    """Common tail of p_frame_body: scan line + output tuple. split16
+    None: no 16->8 layout."""
     dev = y.device
     fry = from_blocks(rec_y, h, tw, 32)
     fru = from_blocks(rec_u, h // 2, tw // 2, 16)
     frv = from_blocks(rec_v, h // 2, tw // 2, 16)
-    if deblock_fn is not None:
-        srcs32 = [y, u.to(torch.int32), v.to(torch.int32)]
-        lf_lvl, (fry, fru, frv) = deblock_fn(
-            [fry, fru, frv], srcs32, rd["base_lf"],
-            split.reshape(nby, nbx), None)
-    else:
-        lf_lvl = torch.zeros((), dtype=torch.int32, device=dev)
+    sl = scanline(lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8, split, B,
+                  lv_y8, lv_u4, lv_v4, split16)
+    if split16 is None:
+        split16 = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+        skip8_out = torch.zeros((B, 4, 4), dtype=torch.bool, device=dev)
     nsb = ((nby + 1) // 2, (nbx + 1) // 2)
-    cdef_idx = torch.zeros(nsb, dtype=torch.int32, device=dev)
-    sl = scanline(lv_y, lv_u, lv_v, lv_y16, lv_u8, lv_v8, split, B)
     if b64_map is None:
         b64_map = torch.zeros(nsb, dtype=torch.bool, device=dev)
     pix = _pix_dtype(bd)
     return (mv8, skip, sl,
             lv_y.to(torch.int16), lv_u.to(torch.int16),
             lv_v.to(torch.int16),
-            fry.to(pix), fru.to(pix), frv.to(pix), lf_lvl, cdef_idx,
+            fry.to(pix), fru.to(pix), frv.to(pix),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros(nsb, dtype=torch.int32, device=dev),
             split, mv16_out.to(torch.int32), skip16_out,
             choice.to(torch.int32), mvb8.to(torch.int32), b64_map,
-            torch.zeros((B, 4), dtype=torch.bool, device=dev),
-            torch.zeros((B, 4, 4), dtype=torch.bool, device=dev))
+            split16, skip8_out)
 
 
 def _sub_grids(nby, nbx, split16, skip16_out, skip8_out):
     """Spatial grids from quad-ordered flags: s16g [2nby, 2nbx] — the
     per-16 sub-split map; skip8g [4nby, 4nbx] — the exact 8x8-unit skip
     map (per-8 inside split16 quads, the 16's skip elsewhere): CDEF's
-    skip gate (and the 16->8 deblock map of item 8)."""
+    skip gate; s16g at 8-px cells is the deblock's sub_map."""
     s16g = (split16.reshape(nby, nbx, 2, 2)
             .permute(0, 2, 1, 3).reshape(nby * 2, nbx * 2))
     sk16 = (skip16_out.reshape(nby, nbx, 2, 2)
@@ -1280,8 +1598,9 @@ def _core(h: int, w: int, use_cdef: bool = False,
     step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark) ->
     (packed decisions int8, lv_y, lv_u, lv_v (int16, on the device for
     the overflow gather), recon y, u, v uint8). `mark(name)` runs after
-    each stage: search, cand, code, split (core; split with use_split),
-    filt (deblock), cdef, pack."""
+    each stage: search, cand, code, split, merge64, intra (core; split
+    with use_split, merge64 with b64_rdo on even block counts, intra with
+    intra_rdo), filt (deblock), cdef, pack."""
     if two_ref:
         _not_ported("the two-reference step", "item 11 (other P/B routes)")
     nby, nbx = h // 32, w // 32
@@ -1296,7 +1615,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
         ryp, rup, rvp = pad3(ry, ru, rv)
         by, bx = _block_origins(nby, nbx, src.device)
         return p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm,
-                            rd, by, bx, nby, nbx, None, None, use_split,
+                            rd, by, bx, nby, nbx, use_split,
                             ds16=ds, use_satd=use_satd, refine16=refine16,
                             intra_rdo=intra_rdo, b64_rdo=b64_rdo,
                             search=search, subpel=subpel,
@@ -1307,21 +1626,26 @@ def _core(h: int, w: int, use_cdef: bool = False,
              lam, split16, skip8q, mark=_nomark):
         """The in-loop filter searches as their own stages: the deblock
         level search on the 16-px edge grid (interior edges gated by the
-        split map), then, with use_cdef, the per-64x64-SB CDEF ladder
-        search against the source (damping cdef_prm[4], the
-        nb_strengths RD at lam) on the exact 8x8-unit skip gate.
+        split map, the merged SBs' inner 32-edges off, 8-px edges and
+        shorter taps at 16->8 quads), then, with use_cdef, the
+        per-64x64-SB CDEF ladder search against the source (damping
+        cdef_prm[4], the nb_strengths RD at lam) on the exact 8x8-unit
+        skip gate.
         Returns (lf_lvl, cdef_idx, y, u, v uint8)."""
         from rav1e_tpu_torch.ops.cdef import cdef_search_persb
         from rav1e_tpu_torch.ops.deblock import deblock_search
         y, u, v = _unpack_src(src, h, w)
         planes = [fry.to(torch.int32), fru.to(torch.int32),
                   frv.to(torch.int32)]
-        _, skip8 = _sub_grids(nby, nbx, split16, skip16, skip8q)
+        s16g, skip8 = _sub_grids(nby, nbx, split16, skip16, skip8q)
         lf_lvl = torch.zeros((), dtype=torch.int32, device=src.device)
         if use_deblock:
             lf_lvl, planes = deblock_search(
                 planes, [y, u, v], base_lf, block_y=16, block_c=8, bd=bd,
-                split_map=split.reshape(nby, nbx))
+                split_map=split.reshape(nby, nbx),
+                merge_map=b64m if b64_rdo else None,
+                sub_map=(s16g.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                         if use_split8 else None))
         mark("filt")
         if use_cdef:
             cdef_idx, planes = cdef_search_persb(
@@ -1366,10 +1690,9 @@ def _fetch_packed(o, gather_dense, nby, nbx, packed=None):
     (mv8, skip, split, mv16, skip16, choice, mvb8, lf, cdef_map,
      counts, pos, val, b64_map, split16, skip8) = unpack_outputs(
         o[0].cpu().numpy() if packed is None else packed, nby, nbx)
-    if split16.any():
-        _not_ported("the 16->8 stream layout", "item 8 (speed 6)")
     lv_y, lv_u, lv_v, over = unpack_stream(counts, pos, val, split,
-                                           _stream_cap(nby * nbx))
+                                           _stream_cap(nby * nbx),
+                                           split16=split16)
     didx = np.nonzero(over)[0]
     if len(didx):
         g = gather_dense(o[1], o[2], o[3], torch.as_tensor(
@@ -1396,13 +1719,18 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
 
     split/mv16/skip16 (optional) describe PARTITION_SPLIT 32-blocks: four
     16x16 inter blocks with their own MVs and skips, their TX_16X16 luma
-    and TX_8X8 chroma levels stored spatially inside lv_*.
+    and TX_8X8 chroma levels stored spatially inside lv_*. split16/skip8
+    ([B, 4] / [B, 4, 4], quad then sub-quad order) split a quad further
+    into four 8x8 children on the quad's MV (TX_8X8 luma, TX_4X4
+    chroma). choice == 3 marks an intra-in-inter block (DC luma and
+    chroma); b64_map [nby/2, nbx/2] marks 64x64 PARTITION_NONE blocks
+    (TX_64X64 luma from the TL child's retained 32x32 levels, TX_32X32
+    chroma from the four children's slots).
 
     cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
     idx_map): the per-SB form signals the ladder entries the SBs chose
     (compact_ladder) and a literal index per 64x64 SB in the tile. The
-    C++ packer, LR, tiles and the 16->8 / 64x64 / intra block kinds are
-    not ported."""
+    C++ packer, LR and tiles are not ported."""
     if use_native:
         _not_ported("the C++ packer", "item 9 (the C++ packer)")
     cdef_map = None
@@ -1414,12 +1742,6 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         _not_ported("multi-tile frames", "item 17 (parallel)")
     if bit_depth != 8:
         _not_ported("bit depth above 8", "item 12 (bd=10)")
-    for x, what in ((b64_map, "64x64 blocks"),
-                    (split16, "16->8 split blocks"),
-                    (None if choice is None else np.asarray(choice) == 3,
-                     "intra-in-inter blocks")):
-        if x is not None and np.asarray(x).any():
-            _not_ported(what, "item 8 (speed 6: the speed-6 P tools)")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq = Sequence(width=w, height=h, enable_cdef=cdef is not None,
@@ -1442,6 +1764,11 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     nbx = w // 32
+    intra_map = None if choice is None else np.asarray(choice) == 3
+    if b64_map is not None and not np.asarray(b64_map).any():
+        b64_map = None
+    if split16 is not None and not np.asarray(split16).any():
+        split16 = None
     ec_times: dict = {}
     tw = TileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
                     encoder=functools.partial(RecordingEncoder, dev,
@@ -1464,11 +1791,52 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     for b in range(mv8.shape[0]):
         by, bx = (b // nbx) * 32, (b % nbx) * 32
         r, c = by >> 2, bx >> 2
+        if b64_map is not None and b64_map[by // 64, bx // 64]:
+            if by % 64 or bx % 64:
+                continue              # coded by the SB's TL block
+            partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.NONE
+            lv64 = np.zeros((64, 64), np.int64)
+            lv64[:32, :32] = lv_y[b]
+            cu = np.zeros((32, 32), np.int64)
+            cv = np.zeros((32, 32), np.int64)
+            for q, (dr, dc) in enumerate(((0, 0), (0, 16), (16, 0),
+                                          (16, 16))):
+                child = b + (q >> 1) * nbx + (q & 1)
+                cu[dr: dr + 16, dc: dc + 16] = lv_u[child]
+                cv[dr: dr + 16, dc: dc + 16] = lv_v[child]
+            blocks[(r, c)] = inter_block(mv8[b], skip[b], lv64, cu, cv)
+            continue
         partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.SPLIT
+        if intra_map is not None and intra_map[b]:
+            d = BlockDecision(y_mode=PredictionMode.DC_PRED,
+                              uv_mode=PredictionMode.DC_PRED,
+                              skip=bool(skip[b]), ref=0)
+            if not d.skip:
+                d.coeffs = {0: lv_y[b], 1: lv_u[b], 2: lv_v[b]}
+            partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
+            blocks[(r, c)] = d
+            continue
         if split is not None and split[b]:
             partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.SPLIT
             for q, (dr, dc) in enumerate(((0, 0), (0, 4), (4, 0), (4, 4))):
                 py, px, cy, cx = dr * 4, dc * 4, dr * 2, dc * 2
+                if split16 is not None and split16[b, q]:
+                    # four 8x8 children on the quad's MV
+                    partitions[(r + dr, c + dc, int(BlockSize.B16X16))] = \
+                        PartitionType.SPLIT
+                    for s, (sr, sc) in enumerate(((0, 0), (0, 2), (2, 0),
+                                                  (2, 2))):
+                        sy, sx = py + sr * 4, px + sc * 4
+                        scy, scx = cy + sr * 2, cx + sc * 2
+                        partitions[(r + dr + sr, c + dc + sc,
+                                    int(BlockSize.B8X8))] = \
+                            PartitionType.NONE
+                        blocks[(r + dr + sr, c + dc + sc)] = inter_block(
+                            mv16[b, q], skip8[b, q, s],
+                            lv_y[b][sy: sy + 8, sx: sx + 8],
+                            lv_u[b][scy: scy + 4, scx: scx + 4],
+                            lv_v[b][scy: scy + 4, scx: scx + 4])
+                    continue
                 partitions[(r + dr, c + dc, int(BlockSize.B16X16))] = \
                     PartitionType.NONE
                 blocks[(r + dr, c + dc)] = inter_block(
@@ -1529,12 +1897,13 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     of 32, 4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed.
 
     The defaults are the reference's: split RDO with the per-16 subpel
-    refinement (refine16), a 16-px search, subpel. The speed-7 toolset is
-    refine16=False, search=8; speed 8 adds use_split=False, and speeds
-    9-10 take subpel=False. SATD, the 64x64 merge, intra-in-inter and the
-    16->8 split raise NotImplementedError naming their ROADMAP item, as
-    does use_native (the reference's C++ packer, which writes the same
-    bytes as the Python writer; item 9).
+    refinement (refine16), a 16-px search, subpel. The speed-6 tools are
+    use_satd, intra_rdo, b64_rdo (with use_split) and use_split8; the
+    speed-7 toolset is refine16=False, search=8; speed 8 adds
+    use_split=False, and speeds 9-10 take subpel=False. use_native (the
+    reference's C++ packer, which writes the same bytes as the Python
+    writer; item 9), lr, bit depths above 8 and tile_grid raise
+    NotImplementedError naming their ROADMAP item.
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
@@ -1547,6 +1916,10 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
         _not_ported("loop restoration", "item 13 (LRF)")
     if use_native:
         _not_ported("the C++ packer", "item 9 (the C++ packer)")
+    if tile_grid is not None:
+        _not_ported("multi-tile frames", "item 17 (parallel)")
+    if bit_depth != 8:
+        _not_ported("bit depth above 8", "item 12 (bd=10)")
     y, u, v = planes
     h, w = y.shape[0], y.shape[1]
     assert h % 32 == 0 and w % 32 == 0
@@ -1571,7 +1944,8 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                 ds, stages.mark)
     rec_dev = outs[4:7]
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
-     cdef_map, _, _, _, _, _) = _fetch_packed(outs, gdense, nby, nbx)
+     cdef_map, choice, _, b64_map, split16, skip8) = _fetch_packed(
+        outs, gdense, nby, nbx)
     rec = [r.cpu().numpy().astype(np.int32) for r in rec_dev]
     stages.mark("fetch_unpack")
     pkt = _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u,
@@ -1581,8 +1955,12 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                        render_size=render_size, lf_level=lf_lvl,
                        split=split, mv16=mv16, skip16=skip16,
                        refresh_flags=refresh_flags, ref_slot=ref_slot,
-                       show_frame=show_frame, bit_depth=bit_depth,
-                       device=dev, timings=timings)
+                       show_frame=show_frame,
+                       choice=choice if intra_rdo else None,
+                       b64_map=b64_map if b64_rdo else None,
+                       split16=split16 if use_split8 else None,
+                       skip8=skip8 if use_split8 else None,
+                       bit_depth=bit_depth, device=dev, timings=timings)
     if return_device:
         return pkt, rec, rec_dev
     return pkt, rec
@@ -1600,9 +1978,11 @@ def _cdef_prm(cdef):
 def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                    cdef: tuple | None = None, device=None,
                    timings: list | None = None):
-    """KEY + P chain on the device, at speeds 7-10 (below 7 the P
-    frames' tools raise, ROADMAP.md item 8; a keyframe alone runs at any
-    speed); 4:2:0 8-bit frames with dims multiples of 32. Runs on
+    """KEY + P chain on the device, at speeds 3-10 (speed 6 is the preset
+    the reference's bench times; speeds 3-4 add refine16; speeds 0-2,
+    whose P frames search 24 px, raise naming ROADMAP.md item 8c; a
+    keyframe alone runs at any speed); 4:2:0 8-bit frames with dims
+    multiples of 32. Runs on
     `cuda` unless device="cpu" is passed. cdef (None, or (y_pri, y_sec,
     uv_pri, uv_sec, damping)) runs the per-SB CDEF search on every
     frame, with damping cdef[4]; each P frame then references the
@@ -1624,10 +2004,10 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                                                     pack_keyframe)
     _check_options(cdef, False, False, False, frames[0], None)
     ss = SpeedSettings.from_preset(speed)
-    if len(frames) > 1:
-        # the P frames' tools raise before the keyframe is encoded
-        _check_p_options(None, False, ss.intra_in_inter, ss.b64_merge,
-                         ss.partition_split8, 8)
+    if len(frames) > 1 and ss.search_px > SEARCH:
+        # raised before the keyframe is encoded
+        _not_ported(f"the {ss.search_px}-px P search of speed {speed}",
+                    "item 8c (the speed-6 P tools off their presets)")
     dev = resolve_device(device)
 
     def frame_times():
@@ -1671,12 +2051,17 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones, stages.mark)
         ref_dev = o[4:7]
         (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
-         cdef_map, _, _, _, _, _) = _fetch_packed(o, gdense, nby, nbx)
+         cdef_map, choice, _, b64m, split16, skip8) = _fetch_packed(
+            o, gdense, nby, nbx)
         stages.mark("fetch_unpack")
+        s8 = ss.partition_split8
         pkts.append(_pack_pframe(
             h, w, qindex, i, mv8, skip, lv_y, lv_u, lv_v,
             cdef=None if cdef is None else (cdef_prm, cdef_map),
             lf_level=lf_lvl, split=split, mv16=mv16, skip16=skip16,
+            choice=choice if speed <= 6 else None,
+            b64_map=b64m if speed <= 6 else None,
+            split16=split16 if s8 else None, skip8=skip8 if s8 else None,
             device=dev, timings=t_p))
         recs.append([o[4], o[5], o[6]])
     return pkts, recs

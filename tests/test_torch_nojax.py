@@ -32,6 +32,9 @@ assert pkts[0] == pkt and len(pkts) == 2
 assert [tuple(r.shape) for r in recs[1]] == [(64, 64), (32, 32), (32, 32)]
 pkt6, _ = encode_keyframe_tpu(planes, device="cpu")     # speed 6
 assert len(pkt6) > 100
+pkts6, _ = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=6,
+                          cdef=(0, 0, 0, 0, 3), device="cpu")
+assert len(pkts6) == 2 and len(pkts6[1]) > 0
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "rav1e_tpu"))]
 assert not bad, bad
@@ -42,8 +45,8 @@ print("ok", len(pkt))
 def test_port_runs_with_jax_and_reference_blocked():
     """In a subprocess where importing jax or rav1e_tpu fails, the port
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
-    KEY + P GOP on the CPU, at speed 7 with CDEF, and the default
-    (speed-6) keyframe."""
+    KEY + P GOP on the CPU, at speed 7 with CDEF, the default (speed-6)
+    keyframe and a speed-6 KEY + P GOP with CDEF."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
