@@ -25,15 +25,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      by pack_ir_plain with identical bytes, and the ec kernels' device
      time (CUDA events) at L = 256, 512, 1024, 2048 with identical bytes
      at each, and per pass at the default L = 512;
-  6. the three CDEF kernels (cdef_dirs, cdef_ladder_sse, cdef_apply)
-     against their plain versions on phase 5's deblocked recon with its
-     skip map (the sampled branch) and on it cut to 1920x1056 (the full
-     branch): dir, var, the SSE tables and the applied planes (ladder
-     winners and a uniform strength) exactly equal; kernel and plain
-     device ms (mean of 3) and the bound; then noise at q 255 (256x192
-     sampled, 160x96 full), where a cell's SSE passes 2^24 and the f32
-     order decides: the tables of kernel and plain version, and the
-     search's index and planes on cuda and on cpu, exactly equal;
+  6. the three CDEF kernels (cdef_dirs, cdef_ladder_sse, cdef_apply;
+     the last two one launch a frame for the three planes) against their
+     plain versions on phase 5's deblocked recon with its skip map (the
+     sampled branch) and on it cut to 1920x1056 (the full branch), as
+     contiguous uint8 planes: dir, var, the SSE tables and the applied
+     planes (ladder winners, every entry and a uniform strength) exactly
+     equal; the blocks on each path (the table's exact-integer and
+     ordered paths, the apply's filtered and copied (SB, plane) pairs);
+     kernel and plain device ms (mean of 3) and the bound; then noise at
+     q 255 (256x192 sampled, 160x96 full), where a cell's SSE passes
+     2^24 and the f32 order decides: the tables of kernel (blocks on
+     the ordered path) and plain version, and the search's index and
+     planes on cuda and on cpu, exactly equal;
   7. the port on cuda vs the port on cpu, keyframe at 256x192, speed 10:
      level differences (|d| = 1 at < 1e-4 of the coefficients allowed,
      from the f32 forward transform) and identical recon wherever no
@@ -76,7 +80,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   15. the main path: encode_gop_tpu(frames, 100, speed=6, cdef=(0, 0, 0,
      0, 3)), the preset the reference's bench times, KEY + 2 P at
      1920x1088 on synth(1920, 1088, n=3) (the keyframe is phase 5's
-     frame), checked as phases 12-13; the packets must be the JAX
+     frame), checked as phases 12-13 (each frame with CDEF launches
+     cdef_ladder_sse and cdef_apply once); the packets must be the JAX
      package's [86204, 13929, 5602] bytes (their SHA-256 printed); each
      P frame's shares of split, 16->8, merged and intra blocks; the
      gather at P = 71, 39 (the merge) and 23 (the 4-tap chroma)
@@ -87,7 +92,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phase 15.
 
 Prints a kernels JSON line (launches: phases 15, 13 and 16 together,
-and each path's own count, every count set to 0 just before its path),
+and each path's own count, every count set to 0 just before its path;
+the CDEF kernels' launches per frame of those paths and their ms per
+1080p frame),
 then,
 as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
@@ -105,9 +112,12 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # non-tensor float32 peak (no int32 entry)
-# int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
-# white paper, H100 SXM)
-H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer instructions a second at most: 132 SMs x 4 schedulers x 32
+# lanes x 1.98 GHz boost, one warp instruction a scheduler a clock (the
+# float32 peak above counts each of these FMA lanes as 2 operations).
+# Integer work issues on the INT32 pipe (64 lanes a SM) and on the FMA
+# pipe (IMAD and its forms) together, so 64 lanes a SM is no ceiling.
+H100_INT_OPS_PER_S = H100_F32_OPS_PER_S / 2
 # the JAX package's speed-6 KEY + 2 P GOP of synth(1920, 1088, n=3) at
 # q 100 with cdef (0, 0, 0, 0, 3), on the CPU (ROADMAP.md, Recent)
 GOP6_BYTES = [86204, 13929, 5602]
@@ -380,71 +390,106 @@ def pass_times(torch, ec, ir_d, reps: int = 3) -> dict:
             for i, name in enumerate(ec.PASSES)}
 
 
+# How the CDEF bounds count: one operation is one integer instruction a
+# pixel; an add fused with a min or a max (VIADDMNMX), a three-input min,
+# max (VIMNMX3) or add (IADD3) and a multiply-add (IMAD) count one each.
+# A tap outside the frame is -2^14 in a tile, so it constrains to 0 and
+# leaves the clamp window with no test. Per tap: its difference d, |d|
+# and sign(d) times its weight (3, shared by every strength that reads
+# the tap); per tap and strength S: |d| >> shift, S minus that fused
+# with the max against 0, the min with |d|, the multiply-add into the
+# sum (4). Per filtered pixel: the clamp window over the pixel and its 4
+# primary taps (two VIMNMX3 each way, 4), 8 more with the secondary taps;
+# the round and clip, y = min(max(x + ((8 + s + (s >> 31)) >> 4), lo),
+# hi) (5), and one more add where both a primary and a secondary sum
+# enter s. Loads are not counted: they are bytes.
+
+
 def _pri_adj(torch, cd, var, pri, chroma: bool):
-    """The primary strength per pixel after luma's variance adjustment
-    (var: the per-8x8 grid; pri: the unadjusted strength, per pixel or
-    an int)."""
+    """The primary strength per 8x8 unit (var: the per-unit grid) after
+    luma's variance adjustment (pri: the unadjusted strength, an int or
+    a grid)."""
     if chroma:
-        return pri
-    v = cd._upsample(var, 8).long()
+        return torch.full_like(var, pri) if isinstance(pri, int) else pri
+    v = var.long()
     vs = torch.where((v >> 6) > 0,
                      torch.clamp(cd._msb(v >> 6).long(), max=12), 0)
     return torch.where(v > 0, (pri * (4 + vs) + 8) >> 4, 0)
 
 
-def _cdef_ops(torch, cd, dirs, var, skip8, chroma: bool, entries):
-    """Integer operations of one CDEF pass (cdef_apply) on these inputs:
-    an inactive pixel (skipped unit, or both strengths 0) is kept as it
-    is; an active one constrains its 4 primary taps, and its 8 secondary
-    taps when the secondary strength is > 0, at 11 ops a tap
-    (difference, |.|, shift, limit, min, sign, weight, add, in-frame
-    test, max, min), plus 8 to round and clip; luma's variance
-    adjustment adds 6 per active 8x8 unit. entries: the ladder index per
-    pixel."""
-    sk = cd._upsample(skip8, 4 if chroma else 8)
-    lad = torch.tensor(cd.CDEF_LADDER, dtype=torch.int64, device=sk.device)
+def _distinct(torch, vals, keep):
+    """Per unit, how many distinct values vals [K, ...] takes where keep."""
+    v = torch.where(keep, vals, -1).sort(0).values
+    new = torch.ones_like(keep)
+    new[1:] = v[1:] != v[:-1]
+    return (new & (v >= 0)).sum(0)
+
+
+def _unit_px(torch, mask, units, n):
+    """Pixels of each n x n unit that mask covers (all if None)."""
+    if mask is None:
+        return torch.full(units, n * n, dtype=torch.int64)
+    return mask.reshape(units[0], n, units[1], n).sum((1, 3)).long().cpu()
+
+
+def _cdef_ops(torch, cd, var, skip8, chroma: bool, entries):
+    """Integer operations of one CDEF pass (cdef_apply) on these inputs,
+    counted as set out above: a pixel of a skipped unit, or of a unit
+    whose pair is (0, 0) after luma's adjustment, is copied (bytes only);
+    a filtered pixel takes its primary taps where the adjusted primary
+    strength is > 0 and its secondary taps where the secondary strength
+    is > 0 (7 a tap: 3 + 4), its window and its round and clip; luma's
+    adjustment adds 6 a filtered unit. entries: the ladder index per 8x8
+    luma unit."""
+    lad = torch.tensor(cd.CDEF_LADDER, dtype=torch.int64, device=var.device)
     k = entries.long()
-    pri = lad[k, 2 if chroma else 0]
+    pa = _pri_adj(torch, cd, var, lad[k, 2 if chroma else 0], chroma)
     sec = lad[k, 3 if chroma else 1]
-    pa = _pri_adj(torch, cd, var, pri, chroma)
-    active = (~sk) & ((pa > 0) | (sec > 0))
-    per = 4 * 11 + (sec > 0).long() * 8 * 11 + 8
-    ops = int(torch.sum(torch.where(active, per, 0)))
-    return ops if chroma else ops + int(active.sum()) // 64 * 6
+    act = (~skip8.bool()) & ((pa > 0) | (sec > 0))
+    per = (4 + 8 * (sec > 0) + 28 * (pa > 0) + 56 * (sec > 0) + 5
+           + ((pa > 0) & (sec > 0)).long())
+    ops = int(torch.where(act, per, 0).sum()) * (16 if chroma else 64)
+    return ops if chroma else ops + 6 * int(act.sum())
 
 
-def _cdef_ladder_ops(torch, cd, dirs, var, skip8, chroma: bool, mask):
+def _cdef_ladder_ops(torch, cd, var, skip8, chroma: bool, mask):
     """Integer operations of the 8-entry ladder SSE (cdef_ladder_sse) on
-    these inputs, counting once what the entries share. Per pixel that
-    some entry filters, each tap's difference, |.|, in-frame test and
-    its clamp window's max and min (5 ops; the secondary taps only where
-    an entry with a secondary strength filters it: the window of the
-    entries with secondary taps extends the primary one); the error of
-    the unfiltered pixel against the source (3, every pixel). Per pixel
-    and entry that filters it: each tap's shift, limit, min, sign,
-    weight and add (6), 8 to round and clip, 3 for the squared error and
-    its sum; luma's variance adjustment, 6 per 8x8 unit and entry.
+    these inputs: the least work the function needs, counted as set out
+    above, with each piece of work that entries share done once. Per
+    pixel of a unit where some entry filters: the shared tap work of the
+    primary taps (where an entry's adjusted primary strength is > 0) and
+    of the secondary taps (where one has a secondary strength), the
+    window (4, and 8 more with secondary taps); each distinct adjusted
+    primary strength's sum over the 4 primary taps (16) and each distinct
+    secondary strength's over the 8 secondary taps (32); each distinct
+    pair's round and clip and its error against the source (1); one
+    multiply-add into each filtering entry's squared-error total. Every
+    pixel: the unfiltered error and its multiply-add (2). Luma's
+    adjustment: 4 a unit that is not skipped and 2 a unit and entry.
     mask: the pixels the table covers (all if None)."""
     n = 4 if chroma else 8
-    sk = cd._upsample(skip8, n)
-    if mask is not None:
-        sk = sk | ~mask
-    act_any = torch.zeros_like(sk)
-    sec_any = torch.zeros_like(sk)
-    per_entry = 0
-    for pri, sec in (e[2:] if chroma else e[:2] for e in cd.CDEF_LADDER):
-        act = (~sk) & ((_pri_adj(torch, cd, var, pri, chroma) > 0)
-                       | (sec > 0))
-        na = int(act.sum())
-        act_any |= act
-        if sec > 0:
-            sec_any |= act
-        per_entry += na * (4 * 6 + (8 * 6 if sec > 0 else 0) + 8 + 3)
-        if not chroma:
-            per_entry += na // 64 * 6
-    npx = sk.numel() if mask is None else int(mask.sum())
-    return (int(act_any.sum()) * 4 * 5 + int(sec_any.sum()) * 8 * 5
-            + 3 * npx + per_entry)
+    units = tuple(skip8.shape)
+    lad = cd.CDEF_LADDER
+    keep = ~skip8.bool()
+    pa = torch.stack([_pri_adj(torch, cd, var, e[2 if chroma else 0], chroma)
+                      for e in lad]).long()
+    sec = torch.tensor([e[3 if chroma else 1] for e in lad],
+                       device=var.device)[:, None, None].expand_as(pa)
+    act = keep & ((pa > 0) | (sec > 0))
+    pri_on = act & (pa > 0)
+    sec_on = act & (sec > 0)
+    pairs = _distinct(torch, pa * 8 + sec, act)
+    both = _distinct(torch, pa * 8 + sec, pri_on & sec_on)
+    per_px = (12 * pri_on.any(0) + (24 + 8) * sec_on.any(0)
+              + 4 * act.any(0)
+              + 16 * _distinct(torch, pa, pri_on)
+              + 32 * _distinct(torch, sec, sec_on)
+              + 6 * pairs + both + act.sum(0) + 2)
+    px = _unit_px(torch, mask, units, n)
+    ops = int((per_px.long().cpu() * px).sum())
+    if not chroma:
+        ops += int(((px > 0) & keep.cpu()).sum()) * (4 + 2 * len(lad))
+    return ops
 
 
 def _sampled_mask(torch, h, w, b, dev):
@@ -454,12 +499,23 @@ def _sampled_mask(torch, h, w, b, dev):
     return r[:, None] == c[None, :]
 
 
+def _paths(torch, cd, fn):
+    """fn()'s blocks by path on the card (cd.PATHS), counted from 0."""
+    pc = cd.path_counts("cuda")
+    pc.zero_()
+    out = fn()
+    return out, dict(zip(cd.PATHS, pc.tolist()))
+
+
 def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
-    """Phase 6 on one frame: every CDEF kernel against its plain version
-    on the same inputs (dir, var, the SSE tables and the applied planes
-    exactly equal), device ms (CUDA events, mean of 3) of kernel and
-    plain, and the bound (cdef_apply's on the map of every entry). Returns {kernel: (ms, plain_ms, bound_ms,
-    bound_by)} summed over the planes of one frame."""
+    """Phase 6 on one frame (contiguous uint8 planes, as cdef_search_persb
+    gives them): every CDEF kernel against its plain version on the same
+    inputs (dir, var, the SSE tables and the applied planes exactly
+    equal; one launch a frame for the table and for the apply, the plain
+    version per plane), the blocks on each path, device ms (CUDA events,
+    mean of 3) of kernel and plain, and the bound (cdef_apply's on the
+    map of every entry), which no kernel may beat. Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)} for one frame's three planes."""
     h, w = planes_d[0].shape
     sampled = h % 64 == 0 and w % 64 == 0
     dirs, var = cd.cdef_dirs(planes_d[0])
@@ -469,75 +525,74 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
     res = {}
     nb = dirs.numel()
     t_b = (h * w + 5 * nb) / H100_BYTES_PER_S * 1e3
-    t_o = 864 * nb / H100_INT32_OPS_PER_S * 1e3
+    t_o = 864 * nb / H100_INT_OPS_PER_S * 1e3
     res["cdef_dirs"] = [
         time_cuda(torch, lambda: cd.cdef_dirs(planes_d[0]), 3),
         time_cuda(torch, lambda: cd.cdef_dirs_plain(planes_d[0]), 3),
         max(t_b, t_o), "bytes" if t_b >= t_o else "operations"]
-    sses = []
-    for k in ("cdef_ladder_sse", "cdef_apply"):
-        res[k] = [0.0, 0.0, 0.0, 0.0]
-    for i, (p, s) in enumerate(zip(planes_d, srcs_d)):
-        chroma = i > 0
-        args = (p, s, dirs, var, skip8, CDEF_SPEED8[4], chroma, sampled)
-        got = cd.cdef_ladder_sse(*args)
-        want = cd.cdef_ladder_sse_plain(*args)
-        if not torch.equal(got, want):
+    damping = CDEF_SPEED8[4]
+    largs = (planes_d, srcs_d, dirs, var, skip8, damping, sampled)
+    sses, lpaths = _paths(torch, cd, lambda: cd.cdef_ladder_sse(*largs))
+
+    def ladder_plain():
+        return [cd.cdef_ladder_sse_plain(p, s, dirs, var, skip8, damping,
+                                         i > 0, sampled)
+                for i, (p, s) in enumerate(zip(planes_d, srcs_d))]
+
+    for i, want in enumerate(ladder_plain()):
+        if not torch.equal(sses[i], want):
             fail(f"{w}x{h} plane {i}: cdef_ladder_sse kernel and plain "
                  f"version differ (max |err| "
-                 f"{float((got - want).abs().max())})")
-        sses.append(got)
+                 f"{float((sses[i] - want).abs().max())})")
+    t_o = t_b = 0.0
+    for i, p in enumerate(planes_d):
+        chroma = i > 0
         ph, pw = p.shape
         mask = (_sampled_mask(torch, ph, pw, 16 if chroma else 32, p.device)
                 if sampled else None)
-        t_o = _cdef_ladder_ops(torch, cd, dirs, var, skip8, chroma,
-                               mask) / H100_INT32_OPS_PER_S * 1e3
-        t_b = (2 * ph * pw + 32 * got[0].numel()) / H100_BYTES_PER_S * 1e3
-        r = res["cdef_ladder_sse"]
-        r[0] += time_cuda(torch, lambda: cd.cdef_ladder_sse(*args), 3)
-        r[1] += time_cuda(torch, lambda: cd.cdef_ladder_sse_plain(*args), 3)
-        r[2] += max(t_b, t_o)
-        r[3] += t_o - t_b
+        t_o += _cdef_ladder_ops(torch, cd, var, skip8, chroma,
+                                mask) / H100_INT_OPS_PER_S * 1e3
+        t_b += (2 * ph * pw + 32 * sses[i][0].numel()) / H100_BYTES_PER_S * 1e3
+    res["cdef_ladder_sse"] = [
+        time_cuda(torch, lambda: cd.cdef_ladder_sse(*largs), 3),
+        time_cuda(torch, ladder_plain, 3), max(t_b, t_o),
+        "operations" if t_o >= t_b else "bytes"]
     nby, nbx = h // 32, w // 32
     nr, nc = (nby + 1) // 2, (nbx + 1) // 2
     idx = cd._choose(cd._sse_sb(sses, sampled, nr, nc),
                      torch.tensor(60.0, device=dirs.device))
     every = (torch.arange(nr * nc, device=dirs.device) % 8).reshape(nr, nc)
-    winners_ms = 0.0
+    aargs = (planes_d, dirs, var, skip8, damping)
+
+    def apply_plain(**kw):
+        st = kw.get("strengths", (0, 0, 0, 0))
+        return [cd.cdef_apply_plain(p, dirs, var, skip8, damping, i > 0,
+                                    kw.get("idx"), *(st[2:] if i else st[:2]))
+                for i, p in enumerate(planes_d)]
+
+    # the winners, every entry, and the uniform mode with chroma's primary
+    # strength 0 (direction 0)
+    apaths = {}
+    for name, kw in (("winners", {"idx": idx}), ("every", {"idx": every}),
+                     ("uniform", {"strengths": (3, 1, 0, 2)})):
+        got, apaths[name] = _paths(torch, cd, lambda: cd.cdef_apply(*aargs,
+                                                                    **kw))
+        if not all(torch.equal(a, b) for a, b in zip(got, apply_plain(**kw))):
+            fail(f"{w}x{h}: cdef_apply kernel and plain version differ on "
+                 f"the {name} map")
+    # timed and bounded on `every` (7 of 8 SBs filtered, at every entry);
+    # the winners' map of this frame may filter nothing
+    t_o = t_b = 0.0
+    ent = cd._upsample(every, 8)[:h // 8, :w // 8]   # per 8x8 luma unit
     for i, p in enumerate(planes_d):
-        chroma = i > 0
-        args = (p, dirs, var, skip8, CDEF_SPEED8[4], chroma)
-        for ix in (idx, every):
-            got = cd.cdef_apply(*args, idx=ix)
-            want = cd.cdef_apply_plain(*args, idx=ix)
-            if not torch.equal(got, want):
-                fail(f"{w}x{h} plane {i}: cdef_apply kernel and plain "
-                     "version differ")
-        # the uniform mode, chroma with no primary strength (direction 0)
-        pri, sec = (0, 2) if chroma else (3, 1)
-        got = cd.cdef_apply(*args, pri=pri, sec=sec)
-        want = cd.cdef_apply_plain(*args, pri=pri, sec=sec)
-        if not torch.equal(got, want):
-            fail(f"{w}x{h} plane {i}: uniform-strength cdef_apply kernel "
-                 "and plain version differ")
-        # timed and bounded on `every` (7 of 8 SBs filtered, at every
-        # entry); the winners' map of this frame may filter nothing
-        sbs = 32 if chroma else 64
-        ph, pw = p.shape
-        ent = cd._upsample(every, sbs)[:ph, :pw]
-        t_o = _cdef_ops(torch, cd, dirs, var, skip8, chroma,
-                        ent) / H100_INT32_OPS_PER_S * 1e3
-        t_b = 2 * ph * pw / H100_BYTES_PER_S * 1e3
-        r = res["cdef_apply"]
-        r[0] += time_cuda(torch, lambda: cd.cdef_apply(*args, idx=every), 3)
-        r[1] += time_cuda(torch,
-                          lambda: cd.cdef_apply_plain(*args, idx=every), 3)
-        r[2] += max(t_b, t_o)
-        r[3] += t_o - t_b
-        winners_ms += time_cuda(torch,
-                                lambda: cd.cdef_apply(*args, idx=idx), 3)
-    for k in ("cdef_ladder_sse", "cdef_apply"):
-        res[k][3] = "operations" if res[k][3] >= 0 else "bytes"
+        t_o += _cdef_ops(torch, cd, var, skip8, i > 0,
+                         ent) / H100_INT_OPS_PER_S * 1e3
+        t_b += 2 * p.numel() / H100_BYTES_PER_S * 1e3
+    res["cdef_apply"] = [
+        time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=every), 3),
+        time_cuda(torch, lambda: apply_plain(idx=every), 3), max(t_b, t_o),
+        "operations" if t_o >= t_b else "bytes"]
+    winners_ms = time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=idx), 3)
     print(f"# CDEF kernels vs plain at {w}x{h} ("
           f"{'sampled' if sampled else 'full'} branch, idx used "
           f"{sorted(set(idx.flatten().tolist()))}): dir, var, SSE tables "
@@ -549,6 +604,15 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
                             for v in r] for k, r in res.items()})
           + f"; cdef_apply on the winners' map {winners_ms:.5f} ms",
           flush=True)
+    print(f"# CDEF paths at {w}x{h}: cdef_ladder_sse blocks "
+          f"{json.dumps({k: v for k, v in lpaths.items() if 'ladder' in k})}"
+          "; cdef_apply (SB, plane) pairs by map "
+          + json.dumps({m: {k: v for k, v in c.items() if 'apply' in k}
+                        for m, c in apaths.items()}), flush=True)
+    beaten = [k for k, r in res.items() if r[0] < r[2]]
+    if beaten:
+        fail(f"{w}x{h}: {beaten} ran in less than its bound: the count "
+             "is no floor")
     return res
 
 
@@ -570,9 +634,10 @@ def noise_at_q255(w, h, seed, scale=1):
 def cdef_past_2_24(torch, cd):
     """Phase 6, past 2^24: on noise at q 255, 256x192 (sampled branch)
     and 160x96 with a heavier error (full branch), the SSE tables of the
-    kernel and of the plain version on the card, and the search's index
-    and filtered planes on cuda and on cpu, exactly equal; a luma cell
-    passes 2^24, where the order of the f32 sum decides."""
+    kernel (the blocks past 2^24 on its ordered path) and of the plain
+    version on the card, and the search's index and filtered planes on
+    cuda and on cpu, exactly equal; a luma cell passes 2^24, where the
+    order of the f32 sum decides."""
     for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
         rec, src, skip8 = noise_at_q255(w, h, seed, scale)
         sampled = h % 64 == 0 and w % 64 == 0
@@ -581,16 +646,18 @@ def cdef_past_2_24(torch, cd):
                    torch.from_numpy(skip8).to(d)) for d in ("cuda", "cpu")}
         rd, sd, kd = dev["cuda"]
         dirs, var = cd.cdef_dirs(rd[0])
-        top = 0.0
+        got, paths = _paths(torch, cd, lambda: cd.cdef_ladder_sse(
+            rd, sd, dirs, var, kd, 3, sampled))
         for i in range(3):
-            args = (rd[i], sd[i], dirs, var, kd, 3, i > 0, sampled)
-            got = cd.cdef_ladder_sse(*args)
-            if not torch.equal(got, cd.cdef_ladder_sse_plain(*args)):
+            if not torch.equal(got[i], cd.cdef_ladder_sse_plain(
+                    rd[i], sd[i], dirs, var, kd, 3, i > 0, sampled)):
                 fail(f"{w}x{h} noise plane {i}: cdef_ladder_sse kernel and "
                      "plain version differ")
-            top = max(top, float(got.max()))
+        top = float(got.max())
         if top < 2 ** 24:
             fail(f"{w}x{h} noise: no cell passes 2^24 ({top})")
+        if paths["ladder_ordered"] < 1:
+            fail(f"{w}x{h} noise: no block took the ordered path ({paths})")
         same = []
         for lam in (None, 60.0, 2000.0):
             out = {d: cd.cdef_search_persb(
@@ -601,9 +668,10 @@ def cdef_past_2_24(torch, cd):
                                 zip(out["cuda"][1], out["cpu"][1])))
         print(f"# CDEF past 2^24 at {w}x{h} (noise at q 255, "
               f"{'sampled' if sampled else 'full'} branch, largest cell "
-              f"SSE {top:.0f}): kernel and plain tables identical; index "
-              f"and planes cuda = cpu at lam None, 60, 2000: {same}",
-              flush=True)
+              f"SSE {top:.0f}): kernel and plain tables identical, blocks "
+              f"exact / ordered {paths['ladder_exact']} / "
+              f"{paths['ladder_ordered']}; index and planes cuda = cpu at "
+              f"lam None, 60, 2000: {same}", flush=True)
         if not all(same):
             fail(f"{w}x{h} noise: cdef_search_persb differs on cuda and cpu")
 
@@ -1056,6 +1124,11 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
         if bad:
             fail(f"frame {i} did not launch {bad} (device half {step}, "
                  f"pack {after['ec_pack'] - before['ec_pack']})")
+        # the CDEF table and filter: one launch a frame for three planes
+        many = [k for k in ("cdef_ladder_sse", "cdef_apply")
+                if k in step and step[k] != 1]
+        if many:
+            fail(f"frame {i} launched {many} other than once ({step})")
         prev = after
     if len(captured) != len(frames):
         fail(f"{len(captured)} tiles coded, {len(frames)} expected")
@@ -1226,6 +1299,9 @@ def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool):
     idle = [k for k, n in launches.items() if n < 1]
     if idle:
         fail(f"the {what} speed-6 keyframe did not launch {idle}")
+    if launches["cdef_ladder_sse"] != 1 or launches["cdef_apply"] != 1:
+        fail(f"the {what} speed-6 keyframe launched the CDEF table or "
+             f"filter other than once ({launches})")
     if split8 and not n8:
         fail(f"the {what} speed-6 keyframe split no quad 16->8")
     if [r.shape for r in rec] != [p.shape for p in planes] or any(
@@ -1277,13 +1353,15 @@ def main() -> int:
     # (sampled branch) and on it cut to 1920x1056 (full branch)
     h, w = planes[0].shape
     rp = kd.rec_packed
-    rec_d = [rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]]
+    # contiguous uint8 planes, as cdef_search_persb hands them on
+    rec_d = cd._as_u8([rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]])
     src_d = [torch.from_numpy(p).cuda() for p in planes]
     skip8 = ti._kf_skip8(kd.state)
     cdef_ms = cdef_phase(torch, cd, rec_d, src_d, skip8)
-    cut = [rec_d[0][:1056], rec_d[1][:528], rec_d[2][:528]]
-    cdef_phase(torch, cd, cut, [src_d[0][:1056], src_d[1][:528],
-                                src_d[2][:528]], skip8[:132])
+    cdef_phase(torch, cd, cd._as_u8([rec_d[0][:1056], rec_d[1][:528],
+                                     rec_d[2][:528]]),
+               cd._as_u8([src_d[0][:1056], src_d[1][:528], src_d[2][:528]]),
+               skip8[:132])
     cdef_past_2_24(torch, cd)
     gpu_vs_cpu(torch, ti)
     gop_gpu_vs_cpu(torch, ti, tp, 512, 384, 10)
@@ -1305,8 +1383,8 @@ def main() -> int:
     # the speed-10 and speed-7 GOPs, their depth cut to 544 rows to keep
     # the run short
     gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10, h=544)
-    gop7_launches, _, _, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
-                                       CDEF_SPEED8, h=544)
+    gop7_launches, _, n_p7, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
+                                          CDEF_SPEED8, h=544)
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
     launches, sizes, n_p, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 6,
@@ -1367,10 +1445,12 @@ def main() -> int:
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
+    frames = (n_p + 1) + (n_p7 + 1) + 1       # the three paths' frames
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],
          "launches": launches[k], "launches_by_path": paths(k),
+         "launches_per_frame": launches[k] / frames,
          "max_abs_err": 0, "ms": r[0],
          "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
          "library_ms": None} for k, r in cdef_ms.items()]

@@ -1,6 +1,7 @@
 // CDEF on the card: direction search, ladder SSE table and filter (CUDA,
-// sm_90a). Three kernels, each launched once per plane (dirs once per
-// frame) by rav1e_tpu_torch/ops/cdef.py.
+// sm_90a). Three kernels, each launched once a frame by
+// rav1e_tpu_torch/ops/cdef.py; the SSE table and the filter take the
+// frame's three planes (4:2:0) in that one launch.
 //
 // What they replace. The JAX package computes CDEF with jnp in plane
 // space (rav1e_tpu/ops/tpu/cdef.py): `cdef_directions_jax` (:58) and
@@ -11,10 +12,8 @@
 // (:281) and once more to apply the winners. Its Pallas kernel
 // (cdef_pallas.py::cdef_candidates_pallas, deleted in a011a69) built the
 // direction taps of an 8-row slab once in fast memory and ran all 8
-// candidates on them. XLA fuses the jnp form on the TPU; eager PyTorch
-// fuses nothing, so on the card the jnp form is ~100 MB of tap planes for
-// 1080p luma and thousands of launches per frame. These kernels keep the
-// taps in registers and shared memory instead.
+// candidates on them. These kernels keep the taps in shared memory and
+// registers instead.
 //
 // The arithmetic is the reference's, integer for integer:
 //   constrain(d, S, D) = sign(d) * min(|d|, max(0, S - (|d| >> max(0, D -
@@ -24,56 +23,91 @@
 //   min(msb(var >> 6), 12));
 //   y = x + ((8 + s - (s < 0)) >> 4), clipped to the min/max of x and the
 //   taps that are in the frame, kept as x when the 8x8 unit is skipped or
-//   both strengths are 0. Out-of-frame taps (LARGE in the reference's
-//   padded plane) drop out of the sum and of the clamp window. Every
-//   shift of a value that may be negative is `>>` on int (arithmetic),
-//   never `/`.
+//   both strengths are 0. Every shift of a value that may be negative is
+//   `>>` on int (arithmetic), never `/`.
+// Taps outside the frame (LARGE in the reference's padded plane) are
+// OUT = -2^14 in the tiles here. For them |d| >= 2^14, so |d| >> D > 14
+// >= S for any damping D <= 10 (AV1 allows 3..6) and constrain gives 0
+// with no test; a signed max and an unsigned min leave them out of the
+// clamp window (-2^14 is the largest unsigned value), again with no test.
+// Each tile is a region and a 2-pixel halo as int16, filled one aligned
+// 4-byte word of the plane a load.
 //
 // (a) cdef_dirs: one thread per 8x8 luma block. The eight direction
 //     costs are sums of squared partial sums (at most 2^34), kept in
 //     int64 where the reference uses two int32 limbs; the first maximum
 //     wins ties; var = (cost[best] - cost[best ^ 4]) >> 10. Bound: the
 //     operations (about 1,100 integer ops a block), 2 MB read at 1080p.
-// (b) cdef_ladder_sse: one thread block per sampled superblock (the TL
-//     and BR 32x32 luma / 16x16 chroma quadrants of a 64x64 SB) or per
-//     32-block (the full branch). The region and a 2-pixel halo go to
-//     shared memory, LARGE outside the frame; each thread selects a
-//     pixel's 4 primary and 8 secondary taps once by its block's
-//     direction and runs the 8 ladder entries on them in registers; each
-//     entry's squared error against the source goes to shared memory.
-//     The block then sums each cell in f32 in the order XLA:CPU sums the
-//     reference's `d.sum(...)` (ops/cdef.py, _xla_rows_sum): the cell's
-//     rows in order, each row over 8 lanes, the running total entering
-//     lane 0, the lanes folded in halves. One thread per (entry, row)
-//     forms the row's exact integer terms; one thread per entry adds
-//     them to its total, so the table is the reference's f32 table also
-//     where a cell passes 2^24, and runs are deterministic.
-//     Bound: the operations, not the 3 MB it reads: the 8 entries need
-//     about 600 integer ops per filtered luma pixel (550 chroma) when
-//     the tap work they share (difference, |.|, in-frame test, clamp
-//     window) is done once (chip_smoke.py, _cdef_ladder_ops). This
-//     kernel redoes that shared work in every entry (about 950 ops a
-//     pixel); hoisting it out of the entry loop is later work.
-// (c) cdef_apply: one thread per output pixel, taps read through L1 from
-//     the uint8 plane, strengths per SB from the winning ladder index, or
-//     one uniform pair (the fixed-strength filter, where the direction is
-//     0 when the plane's primary strength is 0). Bound: the operations.
-// A simple form, right first; faster ones (one launch for the three
-// planes, the apply fused into the SSE pass for the winners) are later
-// work.
+// (b) cdef_ladder_sse: the table of each ladder entry's squared error
+//     against the source, per cell: per superblock over its TL and BR
+//     32x32 luma / 16x16 chroma quadrants (the sampled branch), or per
+//     32-block (the full branch). One block of 128 threads per cell takes
+//     the cell's luma and both chroma planes, so one launch serves the
+//     frame: 510 blocks at 1080p sampled, all resident at once (4 a SM,
+//     at most 128 registers a thread). Bound: the operations, not the
+//     3 MB it reads (chip_smoke.py, _cdef_ladder_ops). What the design
+//     does about them:
+//     - the tap work the entries share is done once a pixel: the 12 tap
+//       differences, |.|, their signs (times the secondary weight) and
+//       the two clamp windows (primary taps, and primary + secondary);
+//       the secondary taps' constrained sum depends on the entry only
+//       through its secondary strength, so it is formed once for each
+//       of 1, 2 and 4 and shared by the entries that have it; chroma
+//       entries 1 and 2 are one pair, (1, 0), and filter once. Each
+//       entry then does only its primary taps, the round and the clip;
+//     - each thread takes runs of 8 (luma) or 4 (chroma) pixels of one
+//       unit row, two rows of one unit in the sampled branch, so the
+//       unit's direction, skip flag and per-entry strengths, damping
+//       shifts and tap weights are read and formed once for the run;
+//     - the exact-integer table: every squared error is an integer <=
+//       255^2, so a cell whose integer total is <= 2^24 has every
+//       partial sum exact in f32, and the reference's f32 sum is that
+//       total in any order. Each thread sums its errors in int32, each
+//       warp reduces them (REDUX), and the block writes the totals as
+//       f32. Only when some total of the block passes 2^24 (decided by
+//       __syncthreads_or) does the block run the reference's order:
+//       region by region (the TL quadrant, then the BR one) the errors
+//       go to shared memory, one thread per (entry, row) forms the row's
+//       exact terms, and one thread per entry adds them to its f32
+//       running total in XLA:CPU's order (ops/cdef.py, _xla_rows_sum:
+//       the rows in order, each row over 8 lanes, the running total
+//       entering lane 0, the lanes folded in halves). Real content stays
+//       far below 2^24; noise at q 255 passes it.
+// (c) cdef_apply: the frame filtered with each SB's winning ladder entry,
+//     or with one uniform pair per plane kind (the fixed-strength filter,
+//     where the direction is 0 when the plane's primary strength is 0).
+//     One block of 256 threads per 64x64 luma SB takes its luma and its
+//     two 32x32 chroma SBs: one launch a frame. The block reads the SB's
+//     entry once from idx on the device. A plane whose pair is (0, 0), or
+//     an SB whose units are all skipped, is copied with 8-byte (luma) and
+//     4-byte (chroma) loads and stores; otherwise the SB and its 2-pixel
+//     halo go to shared memory and each thread filters runs of 8 (luma)
+//     or 4 (chroma) pixels of one unit row, two rows of one unit, with
+//     the unit's direction, skip flag and strengths formed once, and
+//     stores each run as one word. Skipped units and units with no
+//     strength are copied from the tile. SBs cut by the frame edge are
+//     masked. No integer division per pixel. Bound: the operations
+//     (chip_smoke.py, _cdef_ops: 7 a tap that the pair's strengths
+//     read, the clamp window, 5 or 6 to round and clip).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int LARGE = 1 << 14;
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;         // cdef_dirs, cdef_apply
+constexpr int LADDER_THREADS = 128;  // cdef_ladder_sse
+constexpr uint32_t OUT2 = 0xC000C000u;   // two int16 OUT = -2^14
+constexpr int EXACT = 1 << 24;       // f32 sums of integers are exact up to here
 
-// CDEF_LADDER: (y_pri, y_sec, uv_pri, uv_sec) per entry.
-__constant__ int c_ladder[8][4] = {
-    {0, 0, 0, 0}, {1, 0, 1, 0}, {2, 1, 1, 0}, {3, 1, 2, 1},
-    {5, 2, 4, 1}, {7, 2, 5, 2}, {10, 2, 8, 2}, {14, 4, 12, 4}};
+// CDEF_LADDER[k][col]: (y_pri, y_sec, uv_pri, uv_sec) of entry k.
+__host__ __device__ constexpr int ladder(int k, int col) {
+  return col == 0   ? (k < 4 ? k : k == 4 ? 5 : k == 5 ? 7 : k == 6 ? 10 : 14)
+         : col == 1 ? (k < 2 ? 0 : k < 4 ? 1 : k < 7 ? 2 : 4)
+         : col == 2 ? (k < 3 ? (k > 0) : k == 3 ? 2 : k == 4 ? 4
+                       : k == 5 ? 5 : k == 6 ? 8 : 12)
+                    : (k < 3 ? 0 : k < 5 ? 1 : k < 7 ? 2 : 4);
+}
 
 // Tap offsets (dy, dx) per direction: primary (k0,+), (k0,-), (k1,+),
 // (k1,-); secondary ((d+2,k0),+-), ((d-2,k0),+-), then k1 (the
@@ -121,12 +155,14 @@ __host__ __device__ constexpr int dir_bin(int d, int i, int j) {
 
 __device__ __forceinline__ int msb(int x) { return 31 - __clz(max(x, 1)); }
 
-__device__ __forceinline__ int constrain(int diff, int strength, int damp) {
-  if (strength <= 0) return 0;
-  const int adj = max(0, damp - msb(strength));
-  const int a = abs(diff);
-  const int m = min(a, max(0, strength - (a >> adj)));
-  return diff < 0 ? -m : m;
+__device__ __forceinline__ int umin(int a, int b) {
+  return static_cast<int>(min(static_cast<unsigned>(a),
+                              static_cast<unsigned>(b)));
+}
+
+// min(a, max(0, s - (a >> sh))) for a = |d| >= 0: constrain's magnitude.
+__device__ __forceinline__ int lim(int a, int s, int sh) {
+  return max(0, min(a, s - (a >> sh)));
 }
 
 // The luma primary strength after the variance adjustment.
@@ -137,39 +173,38 @@ __device__ __forceinline__ int luma_pri_adj(int pri, int var) {
   return (pri * (4 + vs) + 8) >> 4;
 }
 
-// One pixel: x, its 4 primary and 8 secondary taps (LARGE outside the
-// frame), the plane's strengths and damping. Returns the filtered value,
-// or x where the unit is skipped or both strengths are 0.
-__device__ __forceinline__ int cdef_px(int x, const int (&pt)[4],
-                                       const int (&st)[8], int pri_adj,
-                                       int sec, int pdamp, bool skip) {
-  if (skip || (pri_adj <= 0 && sec <= 0)) return x;
-  const bool odd = pri_adj & 1;
-  const int ta = odd ? 3 : 4;
-  const int tb = odd ? 3 : 2;
-  int s = 0, mx = x, mn = x;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int p = pt[t];
-    if (p != LARGE) {
-      s += (t < 2 ? ta : tb) * constrain(p - x, pri_adj, pdamp);
-      mx = max(mx, p);
-      mn = min(mn, p);
+// Rows r0 - 2 .. r0 + RH + 1 and columns c0 - 4 .. c0 + RW + 3 of an
+// 8-bit plane into `tile` ([RH + 4][RW + 8] int16), OUT outside the
+// frame, one aligned 4-byte word a load (c0 and W are multiples of 4).
+template <int RH, int RW, int NT>
+__device__ __forceinline__ void load_tile(int16_t* tile,
+                                          const uint8_t* __restrict__ plane,
+                                          int H, int W, int r0, int c0) {
+  constexpr int WPR = (RW + 8) / 4;
+  for (int i = threadIdx.x; i < (RH + 4) * WPR; i += NT) {
+    const int ty = i / WPR;
+    const int tw = i - ty * WPR;
+    const int yy = r0 - 2 + ty;
+    const int xx = c0 - 4 + 4 * tw;
+    uint2 v = make_uint2(OUT2, OUT2);
+    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+      const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(
+          plane + static_cast<int64_t>(yy) * W + xx));
+      v = make_uint2(__byte_perm(w, 0, 0x4140), __byte_perm(w, 0, 0x4342));
     }
+    reinterpret_cast<uint2*>(tile)[i] = v;
   }
-  if (sec > 0) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int p = st[t];
-      if (p != LARGE) {
-        s += (t < 4 ? 2 : 1) * constrain(p - x, sec, pdamp);
-        mx = max(mx, p);
-        mn = min(mn, p);
-      }
-    }
+}
+
+// Each direction's 12 tap offsets in a tile of COLS columns, into shared
+// memory (a thread's unit reads its row with one dynamic index).
+template <int COLS>
+__device__ __forceinline__ void fill_offsets(int (*off)[12]) {
+  for (int i = threadIdx.x; i < 96; i += 32) {
+    const int d = i / 12, t = i - d * 12;
+    off[d][t] = t < 4 ? c_pri[d][t][0] * COLS + c_pri[d][t][1]
+                      : c_sec[d][t - 4][0] * COLS + c_sec[d][t - 4][1];
   }
-  const int y = x + ((8 + s - (s < 0 ? 1 : 0)) >> 4);
-  return min(max(y, mn), mx);
 }
 
 // (a) direction and variance, one thread per 8x8 luma block.
@@ -219,154 +254,489 @@ cdef_dirs_kernel(const uint8_t* __restrict__ y, int H, int W,
   var_out[b] = static_cast<int>((cb - co) >> 10);
 }
 
-// (b) the ladder's SSE table. Region side B (32 luma, 16 chroma); unit
-// side N (8 luma, 4 chroma: one direction / skip flag each). Each cell's
-// sum is the reference's f32 one (see the header): every squared error
-// is exact in f32 and so is every sum of at most 16 of them, so the
-// only roundings are the adds into the running total, which
-// `row_terms` lists in XLA:CPU's order for one row.
-template <int B, int N>
-__global__ void __launch_bounds__(THREADS)
-cdef_ladder_sse_kernel(const uint8_t* __restrict__ plane,
-                       const uint8_t* __restrict__ src, int H, int W,
-                       const int8_t* __restrict__ dirs,
-                       const int* __restrict__ var,
-                       const uint8_t* __restrict__ skip8, int damping,
-                       int sampled, int R, int C, float* __restrict__ out) {
-  constexpr int T = B + 4;
-  constexpr bool LUMA = N == 8;
-  // per row: the pixels at 0, 8, .. (lane 0 of each chunk of 8), then
-  // the lane-4, lanes-2+6 and odd-lane totals of the 8-lane fold
-  constexpr int NT = B / 8 + 3;
-  static_assert(8 * B <= THREADS, "one thread per (entry, row)");
-  __shared__ int tile[T][T + 1];
-  __shared__ uint16_t err[8][B][B + 2];   // squared errors <= 255^2
-  __shared__ int terms[8][B][NT];
-  const int br = blockIdx.x / C;
-  const int bc = blockIdx.x - br * C;
-  const int gw = W / N;
-  const int pdamp = LUMA ? damping : damping - 1;
-  float total = 0.0f;       // thread k < 8: entry k's running total
-  const int nreg = sampled ? 2 : 1;
-  for (int q = 0; q < nreg; ++q) {
-    const int r0 = (sampled ? 2 * br + q : br) * B;
-    const int c0 = (sampled ? 2 * bc + q : bc) * B;
-    __syncthreads();
-    for (int i = threadIdx.x; i < T * T; i += THREADS) {
-      const int ty = i / T;
-      const int tx = i - ty * T;
-      const int yy = r0 - 2 + ty;
-      const int xx = c0 - 2 + tx;
-      tile[ty][tx] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                         ? static_cast<int>(plane[static_cast<int64_t>(yy) * W + xx])
-                         : LARGE;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < B * B; i += THREADS) {
-      const int py = i / B;
-      const int px = i - py * B;
-      const int yy = r0 + py;
-      const int xx = c0 + px;
-      const int g = (yy / N) * gw + xx / N;
-      const int d = dirs[g];
-      const bool sk = skip8[g] != 0;
-      const int v = LUMA ? var[g] : 0;
-      const int x = tile[py + 2][px + 2];
-      int pt[4], st[8];
+// ---- (b) the ladder's SSE table ---------------------------------------
+
+// One unit's (8x8 luma, 4x4 chroma) per-entry primary strength after the
+// luma variance adjustment, its damping shift and its two tap weights.
+struct Unit {
+  int pa[8], psh[8], ta[8], tb[8];
+};
+
+template <bool LUMA>
+__device__ __forceinline__ void unit_entries(int var, int pdamp, Unit& u) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        pt[t] = tile[py + 2 + c_pri[d][t][0]][px + 2 + c_pri[d][t][1]];
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        st[t] = tile[py + 2 + c_sec[d][t][0]][px + 2 + c_sec[d][t][1]];
-      const int s0 = static_cast<int>(src[static_cast<int64_t>(yy) * W + xx]);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int pri = c_ladder[k][LUMA ? 0 : 2];
-        const int sec = c_ladder[k][LUMA ? 1 : 3];
-        const int pa = LUMA ? luma_pri_adj(pri, v) : pri;
-        const int e = cdef_px(x, pt, st, pa, sec, pdamp, sk) - s0;
-        err[k][py][px] = static_cast<uint16_t>(e * e);
-      }
-    }
-    __syncthreads();
-    // row_terms, one thread per (entry, row), exact integers
-    if (threadIdx.x < 8 * B) {
-      const int k = threadIdx.x / B;
-      const int r = threadIdx.x - k * B;
-      const uint16_t* e = err[k][r];
-      int l4 = 0, l26 = 0, lodd = 0;
-#pragma unroll
-      for (int c = 0; c < B / 8; ++c) {
-        terms[k][r][c] = e[8 * c];
-        l4 += e[8 * c + 4];
-        l26 += e[8 * c + 2] + e[8 * c + 6];
-        lodd += e[8 * c + 1] + e[8 * c + 3] + e[8 * c + 5] + e[8 * c + 7];
-      }
-      terms[k][r][B / 8] = l4;
-      terms[k][r][B / 8 + 1] = l26;
-      terms[k][r][B / 8 + 2] = lodd;
-    }
-    __syncthreads();
-    // the running total, rows in order, each term one f32 add
-    if (threadIdx.x < 8) {
-      for (int r = 0; r < B; ++r) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          total = __fadd_rn(total, static_cast<float>(terms[threadIdx.x][r][j]));
-      }
-    }
+  for (int k = 0; k < 8; ++k) {
+    const int pri = ladder(k, LUMA ? 0 : 2);
+    const int pa = LUMA ? luma_pri_adj(pri, var) : pri;
+    u.pa[k] = pa;
+    u.psh[k] = max(0, pdamp - msb(pa));
+    u.ta[k] = (pa & 1) ? 3 : 4;
+    u.tb[k] = (pa & 1) ? 3 : 2;
   }
-  if (threadIdx.x < 8)
-    out[static_cast<int64_t>(threadIdx.x) * R * C + blockIdx.x] = total;
 }
 
-// (c) the filtered plane, one thread per pixel. idx (per SB, row stride
-// nc_sb) selects the ladder entry; without idx every pixel takes the
-// uniform pair (pri, sec). SB side S: 64 luma, 32 chroma.
-template <int N, int S>
-__global__ void __launch_bounds__(THREADS)
-cdef_apply_kernel(const uint8_t* __restrict__ plane, int H, int W,
+// The 8 ladder entries' filtered values minus the source s0, for the
+// pixel at tile[i]; ssh[j]: the damping shift of secondary strength 2^j.
+template <bool LUMA>
+__device__ __forceinline__ void ladder_px(const int16_t* tile, int i,
+                                          const int* off, const Unit& u,
+                                          const int (&ssh)[3], bool skip,
+                                          int s0, int (&e)[8]) {
+  const int x = tile[i];
+  if (skip) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e[k] = x - s0;
+    return;
+  }
+  int a[12], sg[12];
+  int mxp = x, mnp = x, mxs = x, mns = x;
+#pragma unroll
+  for (int t = 0; t < 12; ++t) {
+    const int p = tile[i + off[t]];
+    const int d = p - x;
+    const int neg = d >> 31;
+    a[t] = abs(d);
+    // sign(d), times 2 for the first four secondary taps
+    sg[t] = (t >= 4 && t < 8) ? ((neg * 4) | 2) : (neg | 1);
+    if (t < 4) {
+      mxp = max(mxp, p);
+      mnp = umin(mnp, p);
+    }
+    mxs = max(mxs, p);
+    mns = umin(mns, p);
+  }
+  int ssum[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    int acc = 0;
+#pragma unroll
+    for (int t = 4; t < 12; ++t) acc += sg[t] * lim(a[t], 1 << j, ssh[j]);
+    ssum[j] = acc;
+  }
+  e[0] = x - s0;
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    if (!LUMA && k == 2) {     // chroma entries 1 and 2 are both (1, 0)
+      e[2] = e[1];
+      continue;
+    }
+    const int sec = ladder(k, LUMA ? 1 : 3);
+    const int p01 = sg[0] * lim(a[0], u.pa[k], u.psh[k])
+                    + sg[1] * lim(a[1], u.pa[k], u.psh[k]);
+    const int p23 = sg[2] * lim(a[2], u.pa[k], u.psh[k])
+                    + sg[3] * lim(a[3], u.pa[k], u.psh[k]);
+    int s = u.ta[k] * p01 + u.tb[k] * p23;
+    if (sec > 0) s += ssum[sec == 1 ? 0 : sec == 2 ? 1 : 2];
+    const int y = x + ((8 + s + (s >> 31)) >> 4);
+    e[k] = min(max(y, sec > 0 ? mns : mnp), sec > 0 ? mxs : mxp) - s0;
+  }
+}
+
+// The errors of one run of 8 (luma) or 4 (chroma) pixels of a unit row:
+// f(j, e) for pixel j. tile: the region's tile; ty, tx: the run's first
+// pixel in region coordinates; src: the source at that pixel.
+template <bool LUMA, typename F>
+__device__ __forceinline__ void ladder_run(const int16_t* tile, int ty,
+                                           int tx, const int* off,
+                                           const Unit& u, const int (&ssh)[3],
+                                           bool skip,
+                                           const uint8_t* __restrict__ src,
+                                           F&& f) {
+  constexpr int NPX = LUMA ? 8 : 4;
+  constexpr int COLS = LUMA ? 40 : 24;
+  uint32_t sw[NPX / 4];
+  if constexpr (LUMA) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
+    sw[0] = w.x;
+    sw[NPX / 4 - 1] = w.y;
+  } else {
+    sw[0] = __ldg(reinterpret_cast<const uint32_t*>(src));
+  }
+  const int i0 = (ty + 2) * COLS + tx + 4;
+#pragma unroll
+  for (int j = 0; j < NPX; ++j) {
+    int e[8];
+    ladder_px<LUMA>(tile, i0 + j, off, u, ssh, skip,
+                    static_cast<int>((sw[j >> 2] >> (8 * (j & 3))) & 255u),
+                    e);
+    f(j, e);
+  }
+}
+
+// One block per cell: R x C = the SBs (sampled: each SB's TL and BR
+// 32x32 luma / 16x16 chroma quadrants) or the 32-blocks (full). The
+// thread's runs: luma, 4 runs of 8 px across a 32-px quadrant row, the
+// rest of the thread index over (quadrant, row); chroma, 4 runs of 4 px,
+// the rest over (plane, quadrant, row). Out f32 [3, 8, R, C].
+template <bool SAMPLED>
+__global__ void __launch_bounds__(LADDER_THREADS, 4)
+cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
+                       const uint8_t* __restrict__ pu,
+                       const uint8_t* __restrict__ pv,
+                       const uint8_t* __restrict__ sy,
+                       const uint8_t* __restrict__ su,
+                       const uint8_t* __restrict__ sv, int H, int W,
+                       const int8_t* __restrict__ dirs,
+                       const int* __restrict__ var,
+                       const uint8_t* __restrict__ skip8, int damping, int R,
+                       int C, float* __restrict__ out,
+                       int* __restrict__ paths) {
+  constexpr int NREG = SAMPLED ? 2 : 1;   // regions (quadrants) a cell
+  constexpr int RPT = NREG;               // rows a thread's run covers
+  __shared__ __align__(16) int16_t tile_y[NREG][36 * 40];
+  __shared__ __align__(16) int16_t tile_c[2][NREG][20 * 24];
+  __shared__ int off_y[8][12], off_c[8][12];
+  __shared__ int wsum[2][LADDER_THREADS / 32][8];
+  // the ordered path: one region's squared errors, each row's terms
+  __shared__ uint16_t err[8][32][34];
+  __shared__ int terms[8][32][7];
+
+  const int tid = threadIdx.x;
+  const int br = blockIdx.x / C;
+  const int bc = blockIdx.x - br * C;
+  const int Hc = H >> 1, Wc = W >> 1, gw = W >> 3;
+  const int ssh_y[3] = {max(0, damping), max(0, damping - 1),
+                        max(0, damping - 2)};
+  const int ssh_c[3] = {max(0, damping - 1), max(0, damping - 2),
+                        max(0, damping - 3)};
+  // region q's first row (rc = br) or column (rc = bc); b: its side,
+  // 32 luma, 16 chroma
+  auto org = [&](int q, int b, int rc) {
+    return (SAMPLED ? 2 * rc + q : rc) * b;
+  };
+
+  if (tid < 32) {
+    fill_offsets<40>(off_y);
+    fill_offsets<24>(off_c);
+  }
+#pragma unroll
+  for (int q = 0; q < NREG; ++q) {
+    load_tile<32, 32, LADDER_THREADS>(tile_y[q], py, H, W, org(q, 32, br),
+                                      org(q, 32, bc));
+    load_tile<16, 16, LADDER_THREADS>(tile_c[0][q], pu, Hc, Wc,
+                                      org(q, 16, br), org(q, 16, bc));
+    load_tile<16, 16, LADDER_THREADS>(tile_c[1][q], pv, Hc, Wc,
+                                      org(q, 16, br), org(q, 16, bc));
+  }
+  __syncthreads();
+
+  const int u4 = tid & 3, rest = tid >> 2;
+  const int lane = tid & 31, warp = tid >> 5;
+  {
+    // luma: RPT rows of one unit
+    const int q = SAMPLED ? rest >> 4 : 0;
+    const int row0 = SAMPLED ? (rest & 15) * 2 : rest;
+    const int yy = org(q, 32, br) + row0, xx = org(q, 32, bc) + 8 * u4;
+    const int g = (yy >> 3) * gw + (xx >> 3);
+    Unit un;
+    unit_entries<true>(var[g], damping, un);
+    const int* off = off_y[dirs[g]];
+    const bool sk = skip8[g] != 0;
+    int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      ladder_run<true>(tile_y[q], row0 + r, 8 * u4, off, un, ssh_y, sk,
+                       sy + static_cast<int64_t>(yy + r) * W + xx,
+                       [&](int, const int (&e)[8]) {
+#pragma unroll
+                         for (int k = 0; k < 8; ++k) acc[k] += e[k] * e[k];
+                       });
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int s = __reduce_add_sync(0xffffffffu, acc[k]);
+      if (lane == 0) wsum[0][warp][k] = s;
+    }
+  }
+  {
+    // chroma: warps 0-1 the U plane, 2-3 the V plane; RPT rows of a unit
+    const int pl = rest >> 4, r2 = rest & 15;
+    const int q = SAMPLED ? r2 >> 3 : 0;
+    const int row0 = SAMPLED ? (r2 & 7) * 2 : r2;
+    const int yy = org(q, 16, br) + row0, xx = org(q, 16, bc) + 4 * u4;
+    const int g = (yy >> 2) * gw + (xx >> 2);
+    Unit un;
+    unit_entries<false>(0, damping - 1, un);
+    const int* off = off_c[dirs[g]];
+    const bool sk = skip8[g] != 0;
+    const uint8_t* s = pl ? sv : su;
+    int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      ladder_run<false>(tile_c[pl][q], row0 + r, 4 * u4, off, un, ssh_c, sk,
+                        s + static_cast<int64_t>(yy + r) * Wc + xx,
+                        [&](int, const int (&e)[8]) {
+#pragma unroll
+                          for (int k = 0; k < 8; ++k)
+                            if (k != 2) acc[k] += e[k] * e[k];
+                        });
+    acc[2] = acc[1];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int s2 = __reduce_add_sync(0xffffffffu, acc[k]);
+      if (lane == 0) wsum[1][warp][k] = s2;
+    }
+  }
+  __syncthreads();
+
+  // exact integer totals: thread 8 p + k holds plane p's entry k
+  const int RC = R * C;
+  int total = 0;
+  if (tid < 24) {
+    const int p = tid >> 3, k = tid & 7;
+    if (p == 0) {
+#pragma unroll
+      for (int w = 0; w < LADDER_THREADS / 32; ++w) total += wsum[0][w][k];
+    } else {
+      total = wsum[1][2 * p - 2][k] + wsum[1][2 * p - 1][k];
+    }
+  }
+  if (!__syncthreads_or(tid < 24 && total > EXACT)) {
+    if (tid < 24)
+      out[static_cast<int64_t>(tid) * RC + blockIdx.x] =
+          static_cast<float>(total);
+    if (tid == 0 && paths != nullptr) atomicAdd(paths, 1);
+    return;
+  }
+
+  // the ordered path: plane by plane, region by region, the reference's
+  // f32 running total of each entry (thread k < 8)
+  float ftotal = 0.0f;
+  for (int p = 0; p < 3; ++p) {
+    const int B = p == 0 ? 32 : 16;
+    const int nt = B / 8 + 3;   // row terms: lane 0 per chunk of 8, then
+                                // the lane-4, lanes-2+6 and odd-lane totals
+    for (int q = 0; q < NREG; ++q) {
+      __syncthreads();
+      if (p == 0) {
+        const int row = tid >> 2;
+        const int yy = org(q, 32, br) + row, xx = org(q, 32, bc) + 8 * u4;
+        const int g = (yy >> 3) * gw + (xx >> 3);
+        Unit un;
+        unit_entries<true>(var[g], damping, un);
+        ladder_run<true>(tile_y[q], row, 8 * u4, off_y[dirs[g]], un, ssh_y,
+                         skip8[g] != 0,
+                         sy + static_cast<int64_t>(yy) * W + xx,
+                         [&](int j, const int (&e)[8]) {
+#pragma unroll
+                           for (int k = 0; k < 8; ++k)
+                             err[k][row][8 * u4 + j] =
+                                 static_cast<uint16_t>(e[k] * e[k]);
+                         });
+      } else if (tid < 64) {
+        const int row = tid >> 2;
+        const int yy = org(q, 16, br) + row, xx = org(q, 16, bc) + 4 * u4;
+        const int g = (yy >> 2) * gw + (xx >> 2);
+        Unit un;
+        unit_entries<false>(0, damping - 1, un);
+        ladder_run<false>(tile_c[p - 1][q], row, 4 * u4, off_c[dirs[g]], un,
+                          ssh_c, skip8[g] != 0,
+                          (p == 1 ? su : sv) + static_cast<int64_t>(yy) * Wc
+                              + xx,
+                          [&](int j, const int (&e)[8]) {
+#pragma unroll
+                            for (int k = 0; k < 8; ++k)
+                              err[k][row][4 * u4 + j] =
+                                  static_cast<uint16_t>(e[k] * e[k]);
+                          });
+      }
+      __syncthreads();
+      for (int i = tid; i < 8 * B; i += LADDER_THREADS) {
+        const int k = i / B, r = i - k * B;
+        const uint16_t* e = err[k][r];
+        int l4 = 0, l26 = 0, lodd = 0;
+        for (int c = 0; c < B / 8; ++c) {
+          terms[k][r][c] = e[8 * c];
+          l4 += e[8 * c + 4];
+          l26 += e[8 * c + 2] + e[8 * c + 6];
+          lodd += e[8 * c + 1] + e[8 * c + 3] + e[8 * c + 5] + e[8 * c + 7];
+        }
+        terms[k][r][B / 8] = l4;
+        terms[k][r][B / 8 + 1] = l26;
+        terms[k][r][B / 8 + 2] = lodd;
+      }
+      __syncthreads();
+      if (tid < 8)
+        for (int r = 0; r < B; ++r)
+          for (int j = 0; j < nt; ++j)
+            ftotal = __fadd_rn(ftotal, static_cast<float>(terms[tid][r][j]));
+    }
+    if (tid < 8) {
+      out[static_cast<int64_t>(8 * p + tid) * RC + blockIdx.x] = ftotal;
+      ftotal = 0.0f;
+    }
+  }
+  if (tid == 0 && paths != nullptr) atomicAdd(paths + 1, 1);
+}
+
+// ---- (c) the filtered frame ---------------------------------------------
+
+// One pixel at tile[i] filtered with one strength pair: the unit's
+// adjusted primary strength pa (damping shift psh, tap weights ta, tb)
+// and the secondary strength sec (shift ssh; its taps only when sec > 0).
+__device__ __forceinline__ int apply_px(const int16_t* tile, int i,
+                                        const int* off, int pa, int psh,
+                                        int ta, int tb, int sec, int ssh) {
+  const int x = tile[i];
+  int p01 = 0, p23 = 0, s = 0, mx = x, mn = x;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int p = tile[i + off[t]];
+    const int d = p - x;
+    const int c = ((d >> 31) | 1) * lim(abs(d), pa, psh);
+    if (t < 2)
+      p01 += c;
+    else
+      p23 += c;
+    mx = max(mx, p);
+    mn = umin(mn, p);
+  }
+  if (sec > 0) {
+#pragma unroll
+    for (int t = 4; t < 12; ++t) {
+      const int p = tile[i + off[t]];
+      const int d = p - x;
+      const int neg = d >> 31;
+      s += (t < 8 ? ((neg * 4) | 2) : (neg | 1)) * lim(abs(d), sec, ssh);
+      mx = max(mx, p);
+      mn = umin(mn, p);
+    }
+  }
+  s += ta * p01 + tb * p23;
+  const int y = x + ((8 + s + (s >> 31)) >> 4);
+  return min(max(y, mn), mx);
+}
+
+// One run of NPX pixels of a unit row: filtered from the tile, or kept
+// as they are where the unit is skipped or has no strength; stored as
+// one word (NPX bytes) at dst.
+template <int NPX, int COLS>
+__device__ __forceinline__ void apply_run(const int16_t* tile, int ty, int tx,
+                                          const int* off, int pa, int sec,
+                                          int pdamp, bool keep,
+                                          uint8_t* __restrict__ dst) {
+  const int i0 = (ty + 2) * COLS + tx + 4;
+  uint32_t w[NPX / 4];
+#pragma unroll
+  for (int h = 0; h < NPX / 4; ++h) w[h] = 0;
+  const int psh = max(0, pdamp - msb(pa));
+  const int ssh = max(0, pdamp - msb(sec));
+  const int ta = (pa & 1) ? 3 : 4, tb = (pa & 1) ? 3 : 2;
+#pragma unroll
+  for (int j = 0; j < NPX; ++j) {
+    const int y = keep ? tile[i0 + j]
+                       : apply_px(tile, i0 + j, off, pa, psh, ta, tb, sec,
+                                  ssh);
+    w[j >> 2] |= static_cast<uint32_t>(y) << (8 * (j & 3));
+  }
+  if constexpr (NPX == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[NPX / 4 - 1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+}
+
+// One block per 64x64 luma SB: its luma (runs of 8 px, rows 2 rp and
+// 2 rp + 1 of unit column u8 for thread 8 rp + u8) and its two 32x32
+// chroma SBs (runs of 4 px; the rest of the thread index over (plane,
+// row pair)). idx (row stride ceil(W / 64)) selects the SB's ladder
+// entry; without idx the planes take the uniform pairs.
+__global__ void __launch_bounds__(THREADS, 4)
+cdef_apply_kernel(const uint8_t* __restrict__ py,
+                  const uint8_t* __restrict__ pu,
+                  const uint8_t* __restrict__ pv, int H, int W,
                   const int8_t* __restrict__ dirs,
                   const int* __restrict__ var,
                   const uint8_t* __restrict__ skip8,
-                  const int* __restrict__ idx, int nc_sb, int pri_u,
-                  int sec_u, int damping, uint8_t* __restrict__ out) {
-  constexpr bool LUMA = N == 8;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= static_cast<int64_t>(H) * W) return;
-  const int yy = static_cast<int>(i / W);
-  const int xx = static_cast<int>(i - static_cast<int64_t>(yy) * W);
-  int pri = pri_u, sec = sec_u;
+                  const int* __restrict__ idx, int y_pri, int y_sec,
+                  int uv_pri, int uv_sec, int damping,
+                  uint8_t* __restrict__ oy, uint8_t* __restrict__ ou,
+                  uint8_t* __restrict__ ov, int* __restrict__ paths) {
+  __shared__ __align__(16) int16_t tile_y[68 * 72];
+  __shared__ __align__(16) int16_t tile_c[2][36 * 40];
+  __shared__ int off_y[8][12], off_c[8][12];
+  const int tid = threadIdx.x;
+  const int nc = (W + 63) >> 6;
+  const int sbr = blockIdx.x / nc;
+  const int sbc = blockIdx.x - sbr * nc;
+  const int Hc = H >> 1, Wc = W >> 1, gw = W >> 3;
+  int lp = y_pri, ls = y_sec, cp = uv_pri, cs = uv_sec;
   if (idx != nullptr) {
-    const int k = idx[(yy / S) * nc_sb + xx / S];
-    pri = c_ladder[k][LUMA ? 0 : 2];
-    sec = c_ladder[k][LUMA ? 1 : 3];
+    const int k = idx[blockIdx.x];
+    lp = ladder(k, 0);
+    ls = ladder(k, 1);
+    cp = ladder(k, 2);
+    cs = ladder(k, 3);
   }
-  const int g = (yy / N) * (W / N) + xx / N;
-  const int d = pri > 0 ? dirs[g] : 0;
-  const int x = plane[i];
-  int pt[4], st[8];
+  bool sk = true;
+  if (tid < 64) {
+    const int uy = 8 * sbr + (tid >> 3), ux = 8 * sbc + (tid & 7);
+    if (uy < (H >> 3) && ux < gw) sk = skip8[uy * gw + ux] != 0;
+  }
+  const bool all_skip = __syncthreads_and(sk);
+  const bool copy_y = all_skip || (lp == 0 && ls == 0);
+  const bool copy_c = all_skip || (cp == 0 && cs == 0);
+  if (tid < 32) {
+    fill_offsets<72>(off_y);
+    fill_offsets<40>(off_c);
+  }
+  if (!copy_y)
+    load_tile<64, 64, THREADS>(tile_y, py, H, W, 64 * sbr, 64 * sbc);
+  if (!copy_c) {
+    load_tile<32, 32, THREADS>(tile_c[0], pu, Hc, Wc, 32 * sbr, 32 * sbc);
+    load_tile<32, 32, THREADS>(tile_c[1], pv, Hc, Wc, 32 * sbr, 32 * sbc);
+  }
+  __syncthreads();
+  const int u8 = tid & 7, rest = tid >> 3;
+  {
+    const int row0 = 2 * rest;
+    const int xx = 64 * sbc + 8 * u8;
+    const int yy = 64 * sbr + row0;
+    if (xx < W && yy < H) {
+      const int64_t o = static_cast<int64_t>(yy) * W + xx;
+      if (copy_y) {
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int ry = yy + c_pri[d][t][0];
-    const int rx = xx + c_pri[d][t][1];
-    pt[t] = (ry >= 0 && ry < H && rx >= 0 && rx < W)
-                ? static_cast<int>(__ldg(plane + static_cast<int64_t>(ry) * W + rx))
-                : LARGE;
-  }
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint2*>(oy + o + r * W) =
+              __ldg(reinterpret_cast<const uint2*>(py + o + r * W));
+      } else {
+        const int g = (yy >> 3) * gw + (xx >> 3);
+        const int pa = luma_pri_adj(lp, var[g]);
+        const bool keep = skip8[g] != 0 || (pa == 0 && ls == 0);
+        const int* off = off_y[lp > 0 ? dirs[g] : 0];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int ry = yy + c_sec[d][t][0];
-    const int rx = xx + c_sec[d][t][1];
-    st[t] = (ry >= 0 && ry < H && rx >= 0 && rx < W)
-                ? static_cast<int>(__ldg(plane + static_cast<int64_t>(ry) * W + rx))
-                : LARGE;
+        for (int r = 0; r < 2; ++r)
+          apply_run<8, 72>(tile_y, row0 + r, 8 * u8, off, pa, ls, damping,
+                           keep, oy + o + r * W);
+      }
+    }
   }
-  const int pa = LUMA ? luma_pri_adj(pri, var[g]) : pri;
-  const int pdamp = LUMA ? damping : damping - 1;
-  out[i] = static_cast<uint8_t>(cdef_px(x, pt, st, pa, sec, pdamp,
-                                        skip8[g] != 0));
+  {
+    const int pl = rest >> 4;
+    const int row0 = 2 * (rest & 15);
+    const int xx = 32 * sbc + 4 * u8;
+    const int yy = 32 * sbr + row0;
+    if (xx < Wc && yy < Hc) {
+      const int64_t o = static_cast<int64_t>(yy) * Wc + xx;
+      uint8_t* dst = pl ? ov : ou;
+      if (copy_c) {
+        const uint8_t* src = pl ? pv : pu;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(dst + o + r * Wc) =
+              __ldg(reinterpret_cast<const uint32_t*>(src + o + r * Wc));
+      } else {
+        const int g = (yy >> 2) * gw + (xx >> 2);
+        const int* off = off_c[cp > 0 ? dirs[g] : 0];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          apply_run<4, 40>(tile_c[pl], row0 + r, 4 * u8, off, cp, cs,
+                           damping - 1, skip8[g] != 0, dst + o + r * Wc);
+      }
+    }
+  }
+  if (tid == 0 && paths != nullptr) {
+    atomicAdd(paths + (copy_y ? 1 : 0), 1);
+    atomicAdd(paths + (copy_c ? 1 : 0), 2);
+  }
 }
 
 }  // namespace
@@ -383,54 +753,51 @@ extern "C" int cdef_dirs_launch(const void* y, int H, int W, void* dir_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out f32 [8, R, C]: R x C = the SBs (sampled) or the 32-blocks (full).
-extern "C" int cdef_ladder_sse_launch(const void* plane, const void* src,
-                                      int H, int W, const void* dirs,
+// out f32 [3, 8, R, C]: R x C = the SBs (sampled) or the 32-blocks (full);
+// paths int32 [2]: blocks that took the exact-integer and the ordered path.
+extern "C" int cdef_ladder_sse_launch(const void* y, const void* u,
+                                      const void* v, const void* sy,
+                                      const void* su, const void* sv, int H,
+                                      int W, const void* dirs,
                                       const void* var, const void* skip8,
-                                      int damping, int chroma, int sampled,
-                                      int R, int C, void* out,
-                                      void* stream) {
+                                      int damping, int sampled, int R, int C,
+                                      void* out, void* paths, void* stream) {
   if (R * C > 0) {
     auto s = static_cast<cudaStream_t>(stream);
-    auto p = static_cast<const uint8_t*>(plane);
-    auto q = static_cast<const uint8_t*>(src);
+    auto b = [](const void* p) { return static_cast<const uint8_t*>(p); };
     auto d = static_cast<const int8_t*>(dirs);
-    auto v = static_cast<const int*>(var);
-    auto k = static_cast<const uint8_t*>(skip8);
+    auto vr = static_cast<const int*>(var);
     auto o = static_cast<float*>(out);
-    if (chroma) {
-      cdef_ladder_sse_kernel<16, 4><<<R * C, THREADS, 0, s>>>(
-          p, q, H, W, d, v, k, damping, sampled, R, C, o);
-    } else {
-      cdef_ladder_sse_kernel<32, 8><<<R * C, THREADS, 0, s>>>(
-          p, q, H, W, d, v, k, damping, sampled, R, C, o);
-    }
+    auto pc = static_cast<int*>(paths);
+    if (sampled)
+      cdef_ladder_sse_kernel<true><<<R * C, LADDER_THREADS, 0, s>>>(
+          b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
+          damping, R, C, o, pc);
+    else
+      cdef_ladder_sse_kernel<false><<<R * C, LADDER_THREADS, 0, s>>>(
+          b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
+          damping, R, C, o, pc);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cdef_apply_launch(const void* plane, int H, int W,
-                                 const void* dirs, const void* var,
-                                 const void* skip8, const void* idx,
-                                 int nc_sb, int pri, int sec, int damping,
-                                 int chroma, void* out, void* stream) {
-  const int64_t n = static_cast<int64_t>(H) * W;
-  if (n > 0) {
-    const int grid = static_cast<int>((n + THREADS - 1) / THREADS);
-    auto s = static_cast<cudaStream_t>(stream);
-    auto p = static_cast<const uint8_t*>(plane);
-    auto d = static_cast<const int8_t*>(dirs);
-    auto v = static_cast<const int*>(var);
-    auto k = static_cast<const uint8_t*>(skip8);
-    auto ix = static_cast<const int*>(idx);
-    auto o = static_cast<uint8_t*>(out);
-    if (chroma) {
-      cdef_apply_kernel<4, 32><<<grid, THREADS, 0, s>>>(
-          p, H, W, d, v, k, ix, nc_sb, pri, sec, damping, o);
-    } else {
-      cdef_apply_kernel<8, 64><<<grid, THREADS, 0, s>>>(
-          p, H, W, d, v, k, ix, nc_sb, pri, sec, damping, o);
-    }
+// paths int32 [2]: (SB, plane) pairs filtered and copied (chroma counts 2).
+extern "C" int cdef_apply_launch(const void* y, const void* u, const void* v,
+                                 int H, int W, const void* dirs,
+                                 const void* var, const void* skip8,
+                                 const void* idx, int y_pri, int y_sec,
+                                 int uv_pri, int uv_sec, int damping,
+                                 void* oy, void* ou, void* ov, void* paths,
+                                 void* stream) {
+  const int nsb = ((H + 63) >> 6) * ((W + 63) >> 6);
+  if (nsb > 0) {
+    auto b = [](const void* p) { return static_cast<const uint8_t*>(p); };
+    auto ob = [](void* p) { return static_cast<uint8_t*>(p); };
+    cdef_apply_kernel<<<nsb, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        b(y), b(u), b(v), H, W, static_cast<const int8_t*>(dirs),
+        static_cast<const int*>(var), b(skip8), static_cast<const int*>(idx),
+        y_pri, y_sec, uv_pri, uv_sec, damping, ob(oy), ob(ou), ob(ov),
+        static_cast<int*>(paths));
   }
   return static_cast<int>(cudaGetLastError());
 }

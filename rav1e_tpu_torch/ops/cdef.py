@@ -1,32 +1,40 @@
 """CDEF: the per-8x8 direction search, the per-SB strength search over the
 8-entry ladder and the filter (port of rav1e_tpu/ops/tpu/cdef.py).
 
-Three stages, each a CUDA kernel of csrc/cdef.cu on the card and a plain
-PyTorch version here:
+Three stages, each a CUDA kernel of csrc/cdef.cu on the card (launched
+once a frame) and a plain PyTorch version here (per plane):
 
 - `cdef_dirs`: direction and variance of every 8x8 luma block
   (`cdef_directions_jax` + `_dirs_var` of the reference);
 - `cdef_ladder_sse`: each ladder entry's squared error against the
-  source, per sampled superblock or per 32-block, for one plane
-  (`_prep_plane` + 8 x `_filter_from_prep` + the sums of
-  `cdef_search_persb_jax`), f32 summed in the reference's order;
-- `cdef_apply`: one plane filtered with each SB's winning entry, or with
-  one uniform strength pair (`cdef_filter_frame_jax`).
+  source, per sampled superblock or per 32-block, for the frame's three
+  planes in one launch (`_prep_plane` + 8 x `_filter_from_prep` + the
+  sums of `cdef_search_persb_jax`), f32 in the reference's order; the
+  plain version `cdef_ladder_sse_plain` takes one plane;
+- `cdef_apply`: the frame's three planes filtered in one launch with
+  each SB's winning entry, or with one uniform strength pair per plane
+  kind (`cdef_filter_frame_jax`); `cdef_apply_plain` takes one plane.
 
 Between them, shared by both routes: the per-SB SSE from the three
 planes' tables, the nb_strengths subset RD over the 107 masks (its sum
 over the SBs in XLA:CPU's order, `_subset_sum`) and the argmin.
 `cdef_search_persb` and `cdef_filter_frame` are the reference's entry
-points. Each wrapper takes a CPU tensor to its plain version and a CUDA
-tensor to its kernel (counted in `<wrapper>.launches`); there is no
-fallback, and the kernels take 8-bit content only (bd > 8 raises,
-ROADMAP.md item 12).
+points; they convert the planes to contiguous uint8 once a frame and
+the kernels read the bool skip map's bytes as they are. Each wrapper
+takes a CPU tensor to its plain version and a CUDA tensor to its kernel
+(counted in `<wrapper>.launches`; `path_counts` counts the kernels'
+blocks by path on the card); there is no fallback, and the kernels take
+8-bit content only (bd > 8 raises, ROADMAP.md item 12).
 
 The reference's SSEs are f32 sums, and the order of the sum decides
-once a cell reaches 2^24 (an RMS error of 64 a pixel, noise at q 255):
-the kernel and the plain version both sum in XLA:CPU's order
-(`_xla_rows_sum`; tests/test_torch_speed6.py holds the table to the
-reference's bit for bit past 2^24).
+once a cell passes 2^24 (an RMS error of 64 a pixel, noise at q 255).
+The plain version sums in XLA:CPU's order (`_xla_rows_sum`;
+tests/test_torch_speed6.py holds the table to the reference's bit for
+bit past 2^24). The kernel sums each cell's squared errors exactly in
+int32 and writes the total as f32, which is the ordered sum wherever
+the total is at most 2^24 (every partial sum is then an exact f32
+integer); a block with a total past 2^24 sums in the reference's order
+instead (csrc/cdef.cu, tests/test_torch_cdef_fast.py).
 """
 
 from __future__ import annotations
@@ -366,10 +374,10 @@ def cdef_apply_plain(plane, dirs, var, skip8, damping: int, chroma: bool,
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cdef_dirs_launch.argtypes = [p, i, i, p, p, p]
-    lib.cdef_ladder_sse_launch.argtypes = [p, p, i, i, p, p, p, i, i, i, i,
-                                           i, p, p]
-    lib.cdef_apply_launch.argtypes = [p, i, i, p, p, p, p, i, i, i, i, i, p,
-                                      p]
+    lib.cdef_ladder_sse_launch.argtypes = [p] * 6 + [i, i, p, p, p, i, i, i,
+                                                     i, p, p, p]
+    lib.cdef_apply_launch.argtypes = [p, p, p, i, i, p, p, p, p, i, i, i, i,
+                                      i, p, p, p, p, p]
     for f in (lib.cdef_dirs_launch, lib.cdef_ladder_sse_launch,
               lib.cdef_apply_launch):
         f.restype = ctypes.c_int
@@ -390,10 +398,6 @@ def _on_card(t: torch.Tensor, what: str, bd: int) -> bool:
     return True
 
 
-def _u8(t):
-    return t.to(torch.uint8).contiguous()
-
-
 def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
@@ -407,23 +411,59 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _check_grids(plane, dirs, var, skip8, n: int):
-    h, w = plane.shape
-    if h % 8 or w % 8 or (n == 4 and (h % 4 or w % 4)):
-        raise ValueError(f"plane {tuple(plane.shape)} is not a whole number "
-                         "of CDEF units")
-    g = (h // n, w // n)
-    for a, what in ((dirs, "dirs"), (skip8, "skip8")) + (
-            ((var, "var"),) if n == 8 else ()):
-        if tuple(a.shape) != g or a.device != plane.device:
+def _check_frame(planes, dirs, var, skip8, damping: int):
+    """(h, w) of a 4:2:0 frame [y, u, v] in 8x8 luma units whose grids
+    (h/8 x w/8, on the frame's device) fit it, with AV1's damping (the
+    range the kernels' out-of-frame taps need)."""
+    if not 3 <= damping <= 6:
+        raise ValueError(f"CDEF damping is 3..6 (AV1), got {damping}")
+    if len(planes) != 3:
+        raise ValueError(f"a frame is [y, u, v], got {len(planes)} planes")
+    y = planes[0]
+    h, w = y.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"luma plane {(h, w)} is not a whole number of "
+                         "CDEF units")
+    for c in planes[1:]:
+        if tuple(c.shape) != (h // 2, w // 2) or c.device != y.device:
+            raise ValueError(f"chroma plane {tuple(c.shape)} is not the 4:2:0 "
+                             f"half of luma {(h, w)} on its device")
+    g = (h // 8, w // 8)
+    # the kernels read dirs as int8, var as int32 and skip8's bytes; both
+    # routes check
+    for a, what, dts in ((dirs, "dirs", (torch.int8,)),
+                         (var, "var", (torch.int32,)),
+                         (skip8, "skip8", (torch.bool, torch.uint8))):
+        if tuple(a.shape) != g or a.device != y.device:
             raise ValueError(f"{what} must be a {g} grid on the plane's "
                              f"device, got {tuple(a.shape)} on {a.device}")
-    # the kernels read dirs as int8 and var as int32; both routes check
-    for a, what, dt in ((dirs, "dirs", torch.int8),) + (
-            ((var, "var", torch.int32),) if n == 8 else ()):
-        if a.dtype != dt:
-            raise ValueError(f"{what} must be {dt} (as cdef_dirs gives "
-                             f"it), got {a.dtype}")
+        if a.dtype not in dts:
+            raise ValueError(f"{what} must be {' or '.join(map(str, dts))}"
+                             f", got {a.dtype}")
+    return h, w
+
+
+def _aligned(planes):
+    """The planes from a 16-byte aligned base, as the kernels' vector
+    loads read them (a copy only where one is not)."""
+    return [p if p.data_ptr() % 16 == 0 else p.clone() for p in planes]
+
+
+# Blocks that took each path, counted on the card by the kernels: the
+# ladder's exact-integer and ordered paths, the apply's filtered and
+# copied (SB, plane) pairs. Zero it, run, read it (chip_smoke.py, tests).
+PATHS = ("ladder_exact", "ladder_ordered", "apply_filtered", "apply_copied")
+_PATH_COUNTS: dict = {}
+
+
+def path_counts(device) -> torch.Tensor:
+    """The int32 [4] path counters of a CUDA device (see PATHS)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _PATH_COUNTS:
+        _PATH_COUNTS[dev] = torch.zeros(4, dtype=torch.int32, device=dev)
+    return _PATH_COUNTS[dev]
 
 
 def cdef_dirs(y, bd: int = 8):
@@ -437,7 +477,7 @@ def cdef_dirs(y, bd: int = 8):
         return cdef_dirs_plain(y, bd)
     lib = nvcc.load(SRC, _bind)
     H, W = y.shape
-    y8 = _u8(y)
+    y8 = y.to(torch.uint8).contiguous()
     with torch.cuda.device(y.device):
         dirs = torch.empty((H // 8, W // 8), dtype=torch.int8,
                            device=y.device)
@@ -452,32 +492,36 @@ def cdef_dirs(y, bd: int = 8):
 cdef_dirs.launches = 0
 
 
-def cdef_ladder_sse(plane, src, dirs, var, skip8, damping: int, chroma: bool,
+def cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping: int,
                     sampled: bool, bd: int = 8):
-    """f32 [8, R, C] (see cdef_ladder_sse_plain). CUDA: the
-    cdef_ladder_sse kernel; CPU: the plain version."""
-    n, b = (4, 16) if chroma else (8, 32)
-    _check_grids(plane, dirs, var, skip8, n)
-    h, w = plane.shape
-    if tuple(src.shape) != (h, w) or h % b or w % b:
-        raise ValueError(f"plane {tuple(plane.shape)} and source "
-                         f"{tuple(src.shape)} must match in {b}-blocks")
-    if sampled and (h % (2 * b) or w % (2 * b)):
+    """f32 [3, 8, R, C]: the SSE tables of a 4:2:0 frame's planes
+    [y, u, v] against srcs, each cdef_ladder_sse_plain of its plane (R x C
+    = the SBs sampled, the 32-blocks full). CUDA: one cdef_ladder_sse
+    launch for the three planes; CPU: the plain version per plane."""
+    h, w = _check_frame(planes, dirs, var, skip8, damping)
+    if [tuple(s.shape) for s in srcs] != [tuple(p.shape) for p in planes] \
+            or h % 32 or w % 32:
+        raise ValueError(f"planes {[tuple(p.shape) for p in planes]} and "
+                         f"sources {[tuple(s.shape) for s in srcs]} must "
+                         "match in 32-blocks")
+    if sampled and (h % 64 or w % 64):
         raise ValueError("the sampled branch needs whole superblocks")
-    if not _on_card(plane, "cdef_ladder_sse", bd):
-        return cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping,
-                                     chroma, sampled, bd)
+    if not _on_card(planes[0], "cdef_ladder_sse", bd):
+        return torch.stack([
+            cdef_ladder_sse_plain(p, s, dirs, var, skip8, damping, i > 0,
+                                  sampled, bd)
+            for i, (p, s) in enumerate(zip(planes, srcs))])
     lib = nvcc.load(SRC, _bind)
-    R, C = (h // (2 * b), w // (2 * b)) if sampled else (h // b, w // b)
-    p8, s8 = _u8(plane), _u8(src)
-    with torch.cuda.device(plane.device):
-        out = torch.empty((8, R, C), dtype=torch.float32,
-                          device=plane.device)
+    R, C = (h // 64, w // 64) if sampled else (h // 32, w // 32)
+    ps, ss = _aligned(_as_u8(planes)), _aligned(_as_u8(srcs))
+    dev = planes[0].device
+    with torch.cuda.device(dev):
+        out = torch.empty((3, 8, R, C), dtype=torch.float32, device=dev)
         _raise_on(lib.cdef_ladder_sse_launch(
-            _ptr(p8), _ptr(s8), h, w, _ptr(dirs.contiguous()),
-            _ptr(None if chroma else var.contiguous()),
-            _ptr(_u8(skip8)), int(damping), int(chroma), int(sampled), R, C,
-            _ptr(out), _stream()), "cdef_ladder_sse")
+            *map(_ptr, ps), *map(_ptr, ss), h, w, _ptr(dirs.contiguous()),
+            _ptr(var.contiguous()), _ptr(skip8.contiguous()), int(damping),
+            int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)),
+            _stream()), "cdef_ladder_sse")
     cdef_ladder_sse.launches += 1
     return out
 
@@ -485,31 +529,36 @@ def cdef_ladder_sse(plane, src, dirs, var, skip8, damping: int, chroma: bool,
 cdef_ladder_sse.launches = 0
 
 
-def cdef_apply(plane, dirs, var, skip8, damping: int, chroma: bool,
-               idx=None, pri: int = 0, sec: int = 0, bd: int = 8):
-    """The filtered plane (see cdef_apply_plain). CUDA: the cdef_apply
-    kernel, uint8 out; CPU: the plain version, the plane's dtype."""
-    n, sb = (4, 32) if chroma else (8, 64)
-    _check_grids(plane, dirs, var, skip8, n)
-    h, w = plane.shape
-    if idx is not None and tuple(idx.shape) != (-(-h // sb), -(-w // sb)):
-        raise ValueError(f"idx must be the {sb}-px SB grid of the plane, "
-                         f"got {tuple(idx.shape)}")
-    if not _on_card(plane, "cdef_apply", bd):
-        return cdef_apply_plain(plane, dirs, var, skip8, damping, chroma,
-                                idx, pri, sec, bd)
+def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
+               strengths=(0, 0, 0, 0), bd: int = 8):
+    """A 4:2:0 frame's planes [y, u, v] filtered, each cdef_apply_plain of
+    its plane: with each SB's ladder entry idx [ceil(h/64), ceil(w/64)],
+    or with the uniform strengths (y_pri, y_sec, uv_pri, uv_sec) when idx
+    is None. CUDA: one cdef_apply launch for the three planes, uint8 out;
+    CPU: the plain version per plane, the planes' dtype."""
+    h, w = _check_frame(planes, dirs, var, skip8, damping)
+    if idx is not None and tuple(idx.shape) != (-(-h // 64), -(-w // 64)):
+        raise ValueError(f"idx must be the 64-px SB grid of the frame, got "
+                         f"{tuple(idx.shape)}")
+    y_pri, y_sec, uv_pri, uv_sec = (int(s) for s in strengths)
+    if not _on_card(planes[0], "cdef_apply", bd):
+        return [cdef_apply_plain(p, dirs, var, skip8, damping, i > 0, idx,
+                                 *((uv_pri, uv_sec) if i else (y_pri, y_sec)),
+                                 bd)
+                for i, p in enumerate(planes)]
     lib = nvcc.load(SRC, _bind)
-    p8 = _u8(plane)
+    ps = _aligned(_as_u8(planes))
     ix = None if idx is None else idx.to(torch.int32).contiguous()
-    with torch.cuda.device(plane.device):
-        out = torch.empty((h, w), dtype=torch.uint8, device=plane.device)
+    dev = planes[0].device
+    with torch.cuda.device(dev):
+        outs = [torch.empty_like(p) for p in ps]
         _raise_on(lib.cdef_apply_launch(
-            _ptr(p8), h, w, _ptr(dirs.contiguous()),
-            _ptr(None if chroma else var.contiguous()), _ptr(_u8(skip8)),
-            _ptr(ix), 0 if ix is None else ix.shape[1], int(pri), int(sec),
-            int(damping), int(chroma), _ptr(out), _stream()), "cdef_apply")
+            *map(_ptr, ps), h, w, _ptr(dirs.contiguous()),
+            _ptr(var.contiguous()), _ptr(skip8.contiguous()), _ptr(ix),
+            y_pri, y_sec, uv_pri, uv_sec, int(damping), *map(_ptr, outs),
+            _ptr(path_counts(dev)[2:]), _stream()), "cdef_apply")
     cdef_apply.launches += 1
-    return out
+    return outs
 
 
 cdef_apply.launches = 0
@@ -633,19 +682,16 @@ def cdef_search_persb(planes, srcs, skip8, damping: int, lam=None,
     filtered planes: uint8 at bd 8, else the input dtype)."""
     if bd == 8:
         planes, srcs = _as_u8(planes), _as_u8(srcs)
-    y = planes[0]
-    h, w = y.shape
+    h, w = planes[0].shape
     damping = int(damping)
-    dirs, var = cdef_dirs(y, bd)
-    sampled = h % 64 == 0 and w % 64 == 0 and planes[1].shape[0] * 2 == h
-    sses = [cdef_ladder_sse(p, s, dirs, var, skip8, damping, i > 0, sampled,
-                            bd)
-            for i, (p, s) in enumerate(zip(planes, srcs))]
+    dirs, var = cdef_dirs(planes[0], bd)
+    sampled = h % 64 == 0 and w % 64 == 0
+    sses = cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping, sampled,
+                           bd)
     nby, nbx = h // 32, w // 32
     idx = _choose(_sse_sb(sses, sampled, (nby + 1) // 2, (nbx + 1) // 2),
                   lam)
-    return idx, [cdef_apply(p, dirs, var, skip8, damping, i > 0, idx=idx,
-                            bd=bd) for i, p in enumerate(planes)]
+    return idx, cdef_apply(planes, dirs, var, skip8, damping, idx=idx, bd=bd)
 
 
 def cdef_filter_frame(planes, skip8, y_pri: int, y_sec: int, uv_pri: int,
@@ -654,9 +700,5 @@ def cdef_filter_frame(planes, skip8, y_pri: int, y_sec: int, uv_pri: int,
     (the reference's cdef_filter_frame_jax). Returns uint8 planes."""
     planes = _as_u8(planes)
     dirs, var = cdef_dirs(planes[0])
-    return [cdef_apply(planes[0], dirs, var, skip8, int(damping), False,
-                       pri=int(y_pri), sec=int(y_sec)),
-            cdef_apply(planes[1], dirs, var, skip8, int(damping), True,
-                       pri=int(uv_pri), sec=int(uv_sec)),
-            cdef_apply(planes[2], dirs, var, skip8, int(damping), True,
-                       pri=int(uv_pri), sec=int(uv_sec))]
+    return cdef_apply(planes, dirs, var, skip8, int(damping),
+                      strengths=(y_pri, y_sec, uv_pri, uv_sec))

@@ -172,9 +172,10 @@ def test_content_sse_below_2_24(w, h):
     rec, src, skip8 = content(w, h)
     dirs, var = tc.cdef_dirs(_t(rec[0]))
     sampled = h % 64 == 0 and w % 64 == 0
+    tables = tc.cdef_ladder_sse([_t(p) for p in rec], [_t(p) for p in src],
+                                dirs, var, _t(skip8), 3, sampled)
     for i in range(3):
-        t = tc.cdef_ladder_sse(_t(rec[i]), _t(src[i]), dirs, var, _t(skip8),
-                               3, i > 0, sampled).numpy().astype(np.int64)
+        t = tables[i].numpy().astype(np.int64)
         if not sampled:
             K, nby, nbx = t.shape
             t = np.pad(t, ((0, 0), (0, nby % 2), (0, nbx % 2)))

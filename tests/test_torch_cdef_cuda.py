@@ -41,39 +41,115 @@ def content(w, h, seed=1):
     return [y[1], u[1], v[1]], [y[0], u[0], v[0]], skip8
 
 
+def noise_at_q255(w, h, seed, scale=1):
+    """Binary noise (0 / 255) as the source and, as its recon, the 8x8
+    block means with mild noise, divided by `scale`: a cell's SSE passes
+    2^24 (tests/test_torch_speed6.py's content)."""
+    rng = np.random.default_rng(seed)
+    rec, src = [], []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        s = np.where(rng.random((ph, pw)) < 0.5, 0, 255).astype(np.int32)
+        m = s.reshape(ph // 8, 8, pw // 8, 8).mean((1, 3))
+        r = np.kron(m, np.ones((8, 8))) + rng.normal(0, 12, (ph, pw))
+        rec.append(np.clip(r.clip(0, 255).astype(np.int32) // scale, 0, 255))
+        src.append(s)
+    return rec, src, rng.random((h // 8, w // 8)) < 0.1
+
+
+def _on_card(rec, src, skip8):
+    return ([_t(p.astype(np.uint8)).cuda() for p in rec],
+            [_t(p.astype(np.uint8)).cuda() for p in src], _t(skip8).cuda())
+
+
+def _tables_equal_plain(recd, srcd, sk, dirs, var, damping, sampled):
+    """One cdef_ladder_sse launch against the plain version per plane;
+    returns the tables and the blocks' (exact, ordered) path counts."""
+    paths = tc.path_counts("cuda")
+    paths.zero_()
+    got = tc.cdef_ladder_sse(recd, srcd, dirs, var, sk, damping, sampled)
+    counts = paths[:2].tolist()
+    for i in range(3):
+        want = tc.cdef_ladder_sse_plain(recd[i], srcd[i], dirs, var, sk,
+                                        damping, i > 0, sampled)
+        assert torch.equal(got[i], want), (i, sampled)
+    assert sum(counts) == got[0, 0].numel()
+    return got, counts
+
+
+def _apply_equal_plain(recd, dirs, var, sk, damping, **kw):
+    """One cdef_apply launch against the plain version per plane; returns
+    the (filtered, copied) counts of (SB, plane) pairs."""
+    paths = tc.path_counts("cuda")
+    paths.zero_()
+    got = tc.cdef_apply(recd, dirs, var, sk, damping, **kw)
+    counts = paths[2:].tolist()
+    st = kw.get("strengths", (0, 0, 0, 0))
+    for i in range(3):
+        want = tc.cdef_apply_plain(recd[i], dirs, var, sk, damping, i > 0,
+                                   kw.get("idx"), *(st[2:] if i else st[:2]))
+        assert torch.equal(got[i], want), (i, kw)
+    return counts
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,h", [(1920, 1088), (1920, 1056)])
+@pytest.mark.parametrize("w,h", [(1920, 1088), (1920, 1056), (320, 224)])
 def test_kernels_equal_plain_on_card(w, h):
-    """On the card: cdef_dirs, cdef_ladder_sse and cdef_apply (ladder
-    winners, every entry, a uniform strength) equal their plain versions
-    exactly, on both branches."""
+    """On the card: cdef_dirs, cdef_ladder_sse (both branches where the
+    frame is 64-aligned) and cdef_apply (ladder winners, every entry,
+    entry 0 everywhere, uniform strengths with chroma's primary 0 and
+    with every strength 0) equal their plain versions exactly, one
+    launch a frame each; 1920x1056 and 320x224 cut SBs at the frame's
+    edge, and 320x224 has all-skipped SBs. Entry 0, the (0, 0) pair and
+    the skipped SBs take the copy path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rec, src, skip8 = content(w, h, seed=4)
-    recd = [_t(p.astype(np.uint8)).cuda() for p in rec]
-    srcd = [_t(p.astype(np.uint8)).cuda() for p in src]
-    sk = _t(skip8).cuda()
+    skip8[:8, :16] = True                       # two all-skipped SBs
+    recd, srcd, sk = _on_card(rec, src, skip8)
     dirs, var = tc.cdef_dirs(recd[0])
     dp, vp = tc.cdef_dirs_plain(recd[0])
     assert torch.equal(dirs, dp) and torch.equal(var, vp)
-    sampled = h % 64 == 0
-    sses = []
-    for i in range(3):
-        args = (recd[i], srcd[i], dirs, var, sk, 4, i > 0, sampled)
-        got = tc.cdef_ladder_sse(*args)
-        assert torch.equal(got, tc.cdef_ladder_sse_plain(*args)), i
-        sses.append(got)
-    nr, nc = (h // 32 + 1) // 2, (w // 32 + 1) // 2
+    sampled = h % 64 == 0 and w % 64 == 0
+    for branch in (False, True) if sampled else (False,):
+        sses, counts = _tables_equal_plain(recd, srcd, sk, dirs, var, 4,
+                                           branch)
+        assert counts[1] == 0                   # real content: exact path
+    nr, nc = -(-h // 64), -(-w // 64)
+    nsb = nr * nc
     idx = tc._choose(tc._sse_sb(sses, sampled, nr, nc), None)
-    every = (torch.arange(nr * nc, device="cuda") % 8).reshape(nr, nc)
-    for i in range(3):
-        args = (recd[i], dirs, var, sk, 4, i > 0)
-        for ix in (idx, every):
-            got = tc.cdef_apply(*args, idx=ix)
-            assert torch.equal(got, tc.cdef_apply_plain(*args, idx=ix)), i
-        got = tc.cdef_apply(*args, pri=0 if i else 3, sec=2)
-        assert torch.equal(got, tc.cdef_apply_plain(*args, pri=0 if i else 3,
-                                                    sec=2)), i
+    every = (torch.arange(nsb, device="cuda") % 8).reshape(nr, nc)
+    for ix in (idx, every):
+        filt, copied = _apply_equal_plain(recd, dirs, var, sk, 4, idx=ix)
+        assert copied >= 3 * 2                  # the two skipped SBs
+    assert _apply_equal_plain(recd, dirs, var, sk, 4,
+                              idx=torch.zeros_like(every)) == [0, 3 * nsb]
+    _apply_equal_plain(recd, dirs, var, sk, 4, strengths=(3, 2, 0, 2))
+    assert _apply_equal_plain(recd, dirs, var, sk, 4,
+                              strengths=(0, 0, 0, 0)) == [0, 3 * nsb]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,seed,scale", [(256, 192, 19, 1),
+                                            (160, 96, 11, 4)])
+def test_kernels_past_2_24_on_card(w, h, seed, scale):
+    """On the card, on noise at q 255 where a cell's SSE passes 2^24 and
+    the f32 order decides: the tables equal the plain version's bit for
+    bit, the blocks past 2^24 taking the ordered path (both branches at
+    256x192, the full one at 160x96), and the winners' planes too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rec, src, skip8 = noise_at_q255(w, h, seed, scale)
+    recd, srcd, sk = _on_card(rec, src, skip8)
+    dirs, var = tc.cdef_dirs(recd[0])
+    sampled = h % 64 == 0 and w % 64 == 0
+    for branch in (False, True) if sampled else (False,):
+        sses, counts = _tables_equal_plain(recd, srcd, sk, dirs, var, 3,
+                                           branch)
+        assert float(sses.max()) >= 2 ** 24 and counts[1] > 0, branch
+    nby, nbx = h // 32, w // 32
+    idx = tc._choose(tc._sse_sb(sses, sampled, (nby + 1) // 2,
+                                (nbx + 1) // 2), None)
+    _apply_equal_plain(recd, dirs, var, sk, 3, idx=idx)
 
 
 @pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
@@ -86,16 +162,16 @@ def test_grids_of_another_dtype_raise(dev, what):
     if dev == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rec, src, skip8 = content(64, 64, seed=2)
-    p = _t(rec[0]).to(dev)
-    s = _t(src[0]).to(dev)
+    p = [_t(r).to(dev) for r in rec]
+    s = [_t(r).to(dev) for r in src]
     sk = _t(skip8).to(dev)
-    dirs, var = tc.cdef_dirs(p.to(torch.uint8))
+    dirs, var = tc.cdef_dirs(p[0].to(torch.uint8))
     if what == "dirs":
         dirs = dirs.to(torch.int32)
     else:
         var = var.to(torch.int64)
     with pytest.raises(ValueError, match=f"{what} must be"):
-        tc.cdef_ladder_sse(p, s, dirs, var, sk, 4, False, True)
+        tc.cdef_ladder_sse(p, s, dirs, var, sk, 4, True)
     with pytest.raises(ValueError, match=f"{what} must be"):
-        tc.cdef_apply(p, dirs, var, sk, 4, False, idx=torch.zeros(
+        tc.cdef_apply(p, dirs, var, sk, 4, idx=torch.zeros(
             (1, 1), dtype=torch.int32, device=dev))

@@ -495,11 +495,13 @@ def test_ladder_sse_f32_order(w, h):
                                jnp.asarray(skip8), 3)
     sampled = h % 64 == 0 and w % 64 == 0
     dirs, var = tc.cdef_dirs(_t(rec[0]))
+    tables = tc.cdef_ladder_sse([_t(p) for p in rec], [_t(p) for p in src],
+                                dirs, var, _t(skip8), 3, sampled)
     for i in range(3):
         args = (_t(rec[i]), _t(src[i]), dirs, var, _t(skip8), 3, i > 0,
                 sampled)
         exact = _exact_table(*args)
-        got = tc.cdef_ladder_sse(*args)
+        got = tables[i]
         np.testing.assert_array_equal(got.numpy(), np.asarray(want[i]))
         if i == 0:
             assert int(exact.max()) >= 2 ** 24
@@ -512,18 +514,24 @@ def test_ladder_sse_f32_order(w, h):
 def test_ladder_sse_kernel_past_2_24_on_card(w, h):
     """On the card: the cdef_ladder_sse kernel's f32 tables equal the
     plain version's bit for bit where a cell passes 2^24 (the content of
-    test_ladder_sse_f32_order), and the search's index and planes equal
-    the CPU's."""
+    test_ladder_sse_f32_order), every block taking the ordered path, and
+    the search's index and planes equal the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rec, src, skip8 = noise_at_q255(w, h, 11)
     rec = [np.clip(r // 4, 0, 255) for r in rec]
     sampled = h % 64 == 0 and w % 64 == 0
     dirs, var = tc.cdef_dirs(_t(rec[0]).cuda())
+    paths = tc.path_counts("cuda")
+    paths.zero_()
+    tables = tc.cdef_ladder_sse([_t(p).cuda() for p in rec],
+                                [_t(p).cuda() for p in src], dirs, var,
+                                _t(skip8).cuda(), 3, sampled)
+    assert paths[:2].tolist() == [0, tables[0, 0].numel()]
     for i in range(3):
         args = (_t(rec[i]).cuda(), _t(src[i]).cuda(), dirs, var,
                 _t(skip8).cuda(), 3, i > 0, sampled)
-        got = tc.cdef_ladder_sse(*args)
+        got = tables[i]
         assert torch.equal(got, tc.cdef_ladder_sse_plain(*args)), i
         if i == 0:
             assert float(got.max()) >= 2 ** 24
