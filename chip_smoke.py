@@ -14,12 +14,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      equal to chunk_starts, finished bytes equal to pack_ir_plain +
      finish and to the port's ECEncoder; and a stream whose carry runs
      back through some 10,000 0xFF bytes;
-  4. the patch-gather kernel against its plain version at the 1080p P
-     frame's shapes (B = 2040; P = 43, 39 from the padded luma plane,
-     P = 23 from a padded chroma plane; the 64x64 merge's B = 510, P = 71
-     luma and P = 39 chroma; and refine16's B = 8160 per-16 patches,
-     P = 27 luma and P = 15 chroma), starts out of range included: max
-     |err| 0; kernel, plain and indexing-call times;
+  4. the empty kernel's time (the fixed cost of a launch, printed beside
+     the bounds); the patch-gather kernel against its plain version at
+     the 1080p P frame's shapes (B = 2040; P = 43, 39 from the padded
+     luma plane, P = 23 from a padded chroma plane; the 64x64 merge's
+     B = 510, P = 71 luma and P = 39 chroma; and refine16's B = 8160
+     per-16 patches, P = 27 luma and P = 15 chroma), starts out of range
+     included, through gather_patches and through gather_patches_many
+     (every shape in one mixed group): max |err| 0; kernel, plain and
+     indexing-call times; then a speed-6 1080p P frame's gathers
+     replayed as the main path groups them (SPEED6_P_GROUPS, one launch
+     a group) on random planes of the frame's shapes: equal to the plain
+     version; kernel, plain and indexing ms, and the byte bound summed
+     over the launches (each launch reads a plane's covered elements
+     once);
   5. the speed-10 keyframe at 1920x1088 on cuda, once to warm and once
      timed: stage times, the ec_pack launches, the tile's IR coded again
      by pack_ir_plain with identical bytes, and the ec kernels' device
@@ -33,11 +41,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      planes (ladder winners, every entry and a uniform strength) exactly
      equal; the blocks on each path (the table's exact-integer and
      ordered paths, the apply's filtered and copied (SB, plane) pairs);
-     kernel and plain device ms (mean of 3) and the bound; then noise at
+     kernel and plain device ms (mean of 3; cdef_dirs' kernel 20) and
+     the bound; then noise at
      q 255 (256x192 sampled, 160x96 full), where a cell's SSE passes
      2^24 and the f32 order decides: the tables of kernel (blocks on
      the ordered path) and plain version, and the search's index and
-     planes on cuda and on cpu, exactly equal;
+     planes on cuda and on cpu, exactly equal; cdef_dirs on extreme
+     blocks (all 0: every cost at the int32 bound; all 255; a ramp and
+     stripes along each direction), from a misaligned base, and at
+     1928x1088 (8 px past a multiple of 64), equal to its plain version;
   7. the port on cuda vs the port on cpu, keyframe at 256x192, speed 10:
      level differences (|d| = 1 at < 1e-4 of the coefficients allowed,
      from the f32 forward transform) and identical recon wherever no
@@ -83,9 +95,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      frame), checked as phases 12-13 (each frame with CDEF launches
      cdef_ladder_sse and cdef_apply once); the packets must be the JAX
      package's [86204, 13929, 5602] bytes (their SHA-256 printed); each
-     P frame's shares of split, 16->8, merged and intra blocks; the
-     gather at P = 71, 39 (the merge) and 23 (the 4-tap chroma)
-     launched;
+     P frame's shares of split, 16->8, merged and intra blocks; each P
+     frame launched exactly phase 4's replayed gather groups, fewer than
+     13 launches (the count when each gather was its own launch);
   16. a speed-6 keyframe on a 1920x128 frame with phase 14's
      checkerboard every 256 px (the split8 gate on, quads split 16->8 at
      full width; the depth cut to keep the run short), counted as
@@ -93,8 +105,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 Prints a kernels JSON line (launches: phases 15, 13 and 16 together,
 and each path's own count, every count set to 0 just before its path;
-the CDEF kernels' launches per frame of those paths and their ms per
-1080p frame),
+the gather's ms, bound and plain and indexing ms are phase 4's replayed
+speed-6 P frame, with its launches a P frame; the CDEF kernels'
+launches per frame of those paths and their ms per 1080p frame),
 then,
 as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
@@ -278,7 +291,7 @@ def time_cuda(torch, fn, reps: int, hold: bool = True) -> float:
     return a.elapsed_time(b) / reps
 
 
-def slice_1080p(torch, ec, ti):
+def slice_1080p(torch, ec, ti, floor_ms):
     """Phase 5. Returns (the kernels-line entry of the od_ec kernel, the
     timed run's KeyframeDevice, the planes)."""
     planes = synth(1920, 1088)[0]
@@ -362,8 +375,8 @@ def slice_1080p(torch, ec, ti):
           f"bytes, {kms:.4f} ms at L = {ec.CHUNK_ROWS} ({n / kms * 1e3:.4g} "
           f"symbols/s); by L: {json.dumps({L: round(t, 4) for L, t in ms.items()})}"
           f"; passes (ms): {json.dumps(passes)}; plain {plain_ms:.1f} ms, "
-          f"bound {max(t_bytes, t_ops):.5f} ms, launches {launches}",
-          flush=True)
+          f"bound {max(t_bytes, t_ops):.5f} ms (the empty launch "
+          f"{floor_ms:.5f} ms), launches {launches}", flush=True)
     return {"name": "ec_pack", "route": "cuda",
             "source": "rav1e_tpu_torch/csrc/ec_pack.cu",
             "replaces": "rav1e_tpu/entropy/ec_pallas.py:82",
@@ -507,14 +520,43 @@ def _paths(torch, cd, fn):
     return out, dict(zip(cd.PATHS, pc.tolist()))
 
 
-def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
+def _tests_content():
+    """tests/_torch_content.py (the direction bins and extreme blocks the
+    CDEF tests share), loaded by its path: an installed package may also
+    be named `tests`."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "tests" / \
+        "_torch_content.py"
+    spec = importlib.util.spec_from_file_location("_torch_content", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dirs_ops():
+    """cdef_dirs' least work an 8x8 block, one op an instruction: each
+    bin's sum of x - 128 as __dp4a words (4 pixels of one bin a word, the
+    -128 n in the first word's accumulator), a square and a multiply-add
+    by 840 / n a bin, the argmax of the 8 costs (a compare and two
+    selects a step) and var (a subtract and a shift)."""
+    words = bins = 0
+    for b in _tests_content().DIR_BINS:
+        n = np.bincount(b.ravel())
+        words += int(((n + 3) // 4).sum())
+        bins += len(n)
+    return words + 2 * bins + 3 * 7 + 2
+
+
+def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
     """Phase 6 on one frame (contiguous uint8 planes, as cdef_search_persb
     gives them): every CDEF kernel against its plain version on the same
     inputs (dir, var, the SSE tables and the applied planes exactly
     equal; one launch a frame for the table and for the apply, the plain
     version per plane), the blocks on each path, device ms (CUDA events,
     mean of 3) of kernel and plain, and the bound (cdef_apply's on the
-    map of every entry), which no kernel may beat. Returns {kernel: (ms, plain_ms, bound_ms,
+    map of every entry), which no kernel may beat, and the empty launch
+    (floor_ms) beside it. Returns {kernel: (ms, plain_ms, bound_ms,
     bound_by)} for one frame's three planes."""
     h, w = planes_d[0].shape
     sampled = h % 64 == 0 and w % 64 == 0
@@ -525,9 +567,10 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
     res = {}
     nb = dirs.numel()
     t_b = (h * w + 5 * nb) / H100_BYTES_PER_S * 1e3
-    t_o = 864 * nb / H100_INT_OPS_PER_S * 1e3
+    t_o = _dirs_ops() * nb / H100_INT_OPS_PER_S * 1e3
+    # a launch of a few us: the mean of 20 (3 add about 1 us a launch)
     res["cdef_dirs"] = [
-        time_cuda(torch, lambda: cd.cdef_dirs(planes_d[0]), 3),
+        time_cuda(torch, lambda: cd.cdef_dirs(planes_d[0]), 20),
         time_cuda(torch, lambda: cd.cdef_dirs_plain(planes_d[0]), 3),
         max(t_b, t_o), "bytes" if t_b >= t_o else "operations"]
     damping = CDEF_SPEED8[4]
@@ -602,8 +645,8 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
           "every entry): "
           + json.dumps({k: [round(v, 5) if isinstance(v, float) else v
                             for v in r] for k, r in res.items()})
-          + f"; cdef_apply on the winners' map {winners_ms:.5f} ms",
-          flush=True)
+          + f"; cdef_apply on the winners' map {winners_ms:.5f} ms; the "
+          f"empty launch {floor_ms:.5f} ms", flush=True)
     print(f"# CDEF paths at {w}x{h}: cdef_ladder_sse blocks "
           f"{json.dumps({k: v for k, v in lpaths.items() if 'ladder' in k})}"
           "; cdef_apply (SB, plane) pairs by map "
@@ -614,6 +657,37 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8):
         fail(f"{w}x{h}: {beaten} ran in less than its bound: the count "
              "is no floor")
     return res
+
+
+def dirs_extremes(torch, cd):
+    """Phase 6, cdef_dirs at its extremes: dir_extremes' blocks, on an
+    8-byte-aligned and a misaligned base (the wrapper copies it), and a
+    1928x1088 frame (width 8 past a multiple of 64, the last thread block
+    of each row partly outside it): kernel and plain version equal; the
+    all-black block gives dir 0, var 0."""
+    y = torch.from_numpy(np.tile(_tests_content().dir_extremes(),
+                                 (2, 1))).cuda()
+    flat = torch.empty(y.numel() + 1, dtype=torch.uint8, device="cuda")
+    odd = flat[1:].view(y.shape)
+    odd.copy_(y)
+    rng = np.random.default_rng(29)
+    wide = torch.from_numpy(synth(1928, 1088)[0][0]).cuda()
+    noisy = torch.from_numpy(
+        rng.integers(0, 256, (1088, 1928)).astype(np.uint8)).cuda()
+    for what, p in (("extreme blocks", y), ("a misaligned base", odd),
+                    ("1928x1088 synth", wide), ("1928x1088 noise", noisy)):
+        d, v = cd.cdef_dirs(p)
+        dp, vp = cd.cdef_dirs_plain(p)
+        if not (torch.equal(d, dp) and torch.equal(v, vp)):
+            fail(f"cdef_dirs on {what}: kernel and plain version differ")
+    d, v = cd.cdef_dirs(y)
+    if int(d[0, 0]) != 0 or int(v[0, 0]) != 0:
+        fail(f"cdef_dirs on the all-black block: dir {int(d[0, 0])}, var "
+             f"{int(v[0, 0])}, expected 0, 0")
+    print(f"# cdef_dirs at its extremes (all 0, all 255, a ramp and "
+          f"stripes along each direction, random; a misaligned base; "
+          f"1928x1088 synth and noise): kernel = plain; dirs of the "
+          f"extreme blocks {d[0, :18].tolist()}", flush=True)
 
 
 def noise_at_q255(w, h, seed, scale=1):
@@ -724,54 +798,161 @@ GATHER_SHAPES = ((43, 1152, 1984, 32, 2040, 60),
                  (39, 576, 992, 32, 510, 30),
                  (27, 1152, 1984, 16, 8160, 120),
                  (15, 576, 992, 8, 8160, 120))
+# a speed-6 1080p P frame's gathers, one group a launch, each item (P, B,
+# plane H, W): the descent patch; the re-judge's three candidate MCs; the
+# final U/V windows (8- and 4-tap chroma); the merge's two 64x64 luma
+# MCs; its U/V MCs (mv64 follows the luma costs: a second launch). Phase
+# 15 must launch exactly these on each P frame.
+_Y, _C = (1152, 1984), (576, 992)
+SPEED6_P_GROUPS = (((43, 2040) + _Y,),
+                   ((39, 2040) + _Y,) * 3,
+                   ((23, 2040) + _C,) * 2,
+                   ((71, 510) + _Y,) * 2,
+                   ((39, 510) + _C,) * 2)
 
 
-def gather_phase(torch, gp):
-    """Phase 4. Per patch size and count (P, B): max |err|, kernel /
-    plain / indexing ms (device time by CUDA events, mean of 20 launches)
-    and the byte bound."""
+def _gather_starts(torch, rng, P, H, W, blk, B, ncol):
+    """Starts in the main path's layout (a raster block grid with
+    per-block drift), plus starts below 0 and past H-P / W-P."""
+    gy, gx = np.divmod(np.arange(B), ncol)
+    r0 = gy * blk + rng.integers(0, 2 * blk - 8, B)
+    c0 = gx * blk + rng.integers(0, 2 * blk - 8, B)
+    r0[:4] = [-1, -2 * P, H - P + 3, H + 40]
+    c0[:4] = [W, -5, W - P + 1, -3 * W]
+    return tuple(torch.from_numpy(x.astype(np.int32)).cuda()
+                 for x in (r0, c0))
+
+
+def _gather_bound(torch, gp, items):
+    """A gather launch's byte bound (ms) on its items [(plane, r0, c0,
+    P), ...]: the patches written, the starts, and each distinct plane's
+    elements that the windows cover (clamped as the kernel clamps them),
+    read once however many windows of the launch overlap them."""
+    nbytes = 0
+    covered = {}
+    for plane, r0, c0, P in items:
+        H, W = plane.shape
+        B = r0.numel()
+        nbytes += 4 * B * P * P + 8 * B
+        key = (plane.data_ptr(), H, W)
+        if key not in covered:
+            covered[key] = torch.zeros((H, W), dtype=torch.bool,
+                                       device=plane.device)
+        ar = torch.arange(P, device=plane.device)
+        rr = gp._starts(r0, H, P)[:, None, None] + ar[None, :, None]
+        cc = gp._starts(c0, W, P)[:, None, None] + ar[None, None, :]
+        covered[key][rr, cc] = True
+    nbytes += 4 * sum(int(m.sum()) for m in covered.values())
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def _indexing(torch, gp, plane, r0, c0, P):
+    """The PyTorch call that computes one gather: plane[rr, cc]."""
+    H, W = plane.shape
+    ar = torch.arange(P, device="cuda")
+    rr = gp._starts(r0, H, P)[:, None, None] + ar[None, :, None]
+    cc = gp._starts(c0, W, P)[:, None, None] + ar[None, None, :]
+    return lambda: plane[rr, cc]
+
+
+def gather_phase(torch, gp, floor_ms):
+    """Phase 4. Per patch size and count (P, B): gather_patches and
+    gather_patches_many (every shape in one mixed group) against the plain
+    version, max |err|, kernel / plain / indexing ms (device time by CUDA
+    events, mean of 20 launches) and the byte bound. Then the speed-6 P
+    frame's gathers (SPEED6_P_GROUPS) replayed as the main path groups
+    them, on random planes of the frame's shapes. Returns ({(P, B):
+    numbers}, the frame's numbers)."""
     rng = np.random.default_rng(5)
     out = {}
+    planes = {}
+    starts = {}
     for P, H, W, blk, B, ncol in GATHER_SHAPES:
-        plane = torch.from_numpy(
+        planes.setdefault((H, W), [torch.from_numpy(
             rng.integers(0, 256, (H, W)).astype(np.int32)).cuda()
-        # the main path's layout: a raster block grid with per-block
-        # drift, plus starts below 0 and past H-P / W-P
-        gy, gx = np.divmod(np.arange(B), ncol)
-        r0 = gy * blk + rng.integers(0, 2 * blk - 8, B)
-        c0 = gx * blk + rng.integers(0, 2 * blk - 8, B)
-        r0[:4] = [-1, -2 * P, H - P + 3, H + 40]
-        c0[:4] = [W, -5, W - P + 1, -3 * W]
-        r0_t, c0_t = (torch.from_numpy(x.astype(np.int32)).cuda()
-                      for x in (r0, c0))
+            for _ in range(2)])
+        starts[(P, B)] = _gather_starts(torch, rng, P, H, W, blk, B, ncol)
+    items = [(planes[(H, W)][0], *starts[(P, B)], P)
+             for P, H, W, _, B, _ in GATHER_SHAPES]
+    n0 = gp.gather_patches_many.launches
+    group = gp.gather_patches_many(items)
+    if gp.gather_patches_many.launches != n0 + 1:
+        fail("the mixed group of every gather shape took other than one "
+             "launch")
+    for (P, H, W, blk, B, ncol), it, got_g in zip(GATHER_SHAPES, items,
+                                                   group):
+        plane, r0_t, c0_t, _ = it
         got = gp.gather_patches(plane, r0_t, c0_t, P)
         want = gp.gather_patches_plain(plane, r0_t, c0_t, P)
         torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            fail(f"gather P={P}: kernel and plain version differ "
-                 f"(max |err| {err})")
-        ar = torch.arange(P, device="cuda")
-        rr = gp._starts(r0_t, H, P)[:, None, None] + ar[None, :, None]
-        cc = gp._starts(c0_t, W, P)[:, None, None] + ar[None, None, :]
+        err = max(int((got - want).abs().max()),
+                  int((got_g - want).abs().max()))
+        if err != 0 or not (torch.equal(got, want)
+                            and torch.equal(got_g, want)):
+            fail(f"gather P={P} B={B}: kernel (gather_patches or the mixed "
+                 f"group) and plain version differ (max |err| {err})")
         ms = time_cuda(torch, lambda: gp.gather_patches(plane, r0_t, c0_t,
                                                          P), 20)
         plain_ms = time_cuda(torch, lambda: gp.gather_patches_plain(
             plane, r0_t, c0_t, P), 20)
-        lib_ms = time_cuda(torch, lambda: plane[rr, cc], 20)
+        lib_ms = time_cuda(torch, _indexing(torch, gp, *it), 20)
         paced = time_cuda(torch, lambda: gp.gather_patches(
             plane, r0_t, c0_t, P), 20, hold=False)
-        written = 4 * B * P * P
-        nbytes = written + min(4 * H * W, written) + 8 * B
-        bound = nbytes / H100_BYTES_PER_S * 1e3
+        bound = _gather_bound(torch, gp, [it])
         print(f"# gather P={P} B={B} from [{H}, {W}]: kernel {ms:.5f} ms, "
               f"plain {plain_ms:.5f} ms, indexing call {lib_ms:.5f} ms, "
-              f"bound {bound:.5f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s), "
-              f"max |err| {err}; launches as the host paces them "
+              f"bound {bound:.5f} ms ({100 * bound / ms:.0f}% of it; the "
+              f"empty launch {floor_ms:.5f} ms), max |err| {err} (both "
+              f"entry points); launches as the host paces them "
               f"{paced:.5f} ms each", flush=True)
         out[(P, B)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound, "err": err}
-    return out
+    # the speed-6 P frame's gathers, grouped as the main path launches them
+    shape = {(P, B, H, W): (blk, ncol)
+             for P, H, W, blk, B, ncol in GATHER_SHAPES}
+    groups = []
+    for g in SPEED6_P_GROUPS:
+        items = []
+        for i, (P, B, H, W) in enumerate(g):
+            # one luma reference; a chroma group's items are U and V
+            plane = planes[(H, W)][0 if (H, W) == _Y else i]
+            blk, ncol = shape[(P, B, H, W)]
+            items.append((plane, *_gather_starts(torch, rng, P, H, W, blk, B,
+                                                 ncol), P))
+        groups.append(items)
+
+    def frame():
+        return [gp.gather_patches_many(g) for g in groups]
+
+    def frame_plain():
+        return [gp.gather_patches_many_plain(g) for g in groups]
+
+    n0 = gp.gather_patches_many.launches
+    got = frame()
+    if gp.gather_patches_many.launches - n0 != len(groups):
+        fail("the replayed frame took other than one launch a group")
+    err = 0
+    for gg, gw in zip(got, frame_plain()):
+        for a, b in zip(gg, gw):
+            err = max(err, int((a - b).abs().max()))
+            if not torch.equal(a, b):
+                fail("the replayed speed-6 P frame's gathers differ from "
+                     f"the plain version (max |err| {err})")
+    calls = [_indexing(torch, gp, *it) for g in groups for it in g]
+    fr = {"ms": time_cuda(torch, frame, 20),
+          "plain_ms": time_cuda(torch, frame_plain, 20),
+          "library_ms": time_cuda(torch, lambda: [c() for c in calls], 20),
+          "bound_ms": sum(_gather_bound(torch, gp, g) for g in groups),
+          "launches": len(groups), "err": err}
+    print(f"# gather, a speed-6 1080p P frame replayed ({len(groups)} "
+          f"launches, {sum(map(len, groups))} gathers, groups "
+          f"{[[it[:2] for it in g] for g in SPEED6_P_GROUPS]}): kernel "
+          f"{fr['ms']:.5f} ms, plain {fr['plain_ms']:.5f} ms, indexing "
+          f"calls {fr['library_ms']:.5f} ms, summed byte bound "
+          f"{fr['bound_ms']:.5f} ms ({100 * fr['bound_ms'] / fr['ms']:.1f}% "
+          f"of it; {len(groups)} empty launches "
+          f"{len(groups) * floor_ms:.5f} ms), max |err| {err}", flush=True)
+    return out, fr
 
 
 def _level_diffs(a_list, b_list):
@@ -959,26 +1140,27 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
     """Phase 11: encode_pframe_tpu(planes, ref) with the reference's
     defaults (split RDO with refine16, 16-px search, subpel) on cuda and
     on cpu; every MV field, split map, skip, level, the recon and the
-    packet must agree. Returns the cuda run's gather launches by patch
-    size."""
+    packet must agree. Returns the cuda run's gathers by patch size."""
     frames = panning(w, h)
     sizes: dict = {}
-    orig_g = tp.gather_patches
+    orig_g = tp.gather_patches_many
 
-    def counting_gather(plane, r0, c0, P):
-        if plane.is_cuda:
-            sizes[P] = sizes.get(P, 0) + 1
-        return orig_g(plane, r0, c0, P)
+    def counting_gather(items):
+        items = list(items)
+        for it in items:
+            if it[0].is_cuda:
+                sizes[it[3]] = sizes.get(it[3], 0) + 1
+        return orig_g(items)
 
     res = {}
     for d in ("cuda", "cpu"):
         got, restore = _recording_fetch(tp)
-        tp.gather_patches = counting_gather
+        tp.gather_patches_many = counting_gather
         try:
             pkt, rec = tp.encode_pframe_tpu(frames[1], frames[0], device=d)
         finally:
             restore()
-            tp.gather_patches = orig_g
+            tp.gather_patches_many = orig_g
         res[d] = (pkt, rec, got[0])
     (pk_g, rc_g, g), (pk_c, rc_c, c) = res["cuda"], res["cpu"]
     bad = [k for k, a, b in zip(FETCHED, g, c) if not np.array_equal(a, b)]
@@ -989,8 +1171,8 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
           f"cuda vs cpu: differing {bad or 'nothing'}; packets identical: "
           f"{pk_g == pk_c} ({len(pk_c)} bytes); split 32-blocks "
           f"{int(split.sum())} of {split.size}, fractional per-16 MVs "
-          f"{int((mv16[split] % 8 != 0).sum())}; cuda gather launches by "
-          f"patch size {sizes}", flush=True)
+          f"{int((mv16[split] % 8 != 0).sum())}; cuda gathers by patch "
+          f"size {sizes}", flush=True)
     if bad or pk_g != pk_c:
         fail(f"the default P frame differs between cuda and cpu: {bad}")
     if not split.any():
@@ -1006,8 +1188,8 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
     keyframe: ec_pack, and the three CDEF kernels with cdef; each P
     frame: also gather_patches), and with `expect` that the packets have
     those sizes (printing each packet's SHA-256). Returns ({kernel:
-    launches}, gather launches per (patch size, count), P frames, stage
-    times)."""
+    launches}, {gather group: launches}, with a group a tuple of its
+    items' (P, B, plane H, W), P frames, stage times)."""
     frames = synth(1920, h, n=n)
     w = 1920
     nsb = ((h // 32 + 1) // 2) * ((w // 32 + 1) // 2)
@@ -1020,12 +1202,14 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
 
     sizes: dict = {}
 
-    def counting_gather(plane, r0, c0, P):
-        key = (P, int(r0.shape[0]))
+    def counting_gather(items):
+        items = list(items)
+        key = tuple((P, int(r0.shape[0])) + tuple(plane.shape)
+                    for plane, r0, _, P in items)
         sizes[key] = sizes.get(key, 0) + 1
-        return gp.gather_patches(plane, r0, c0, P)
+        return gp.gather_patches_many(items)
 
-    kern = {"gather_patches": gp.gather_patches, "ec_pack": ec.pack_ir}
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir}
     if cdef is not None:
         kern.update(cdef_dirs=cd.cdef_dirs,
                     cdef_ladder_sse=cd.cdef_ladder_sse,
@@ -1066,9 +1250,10 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
             return r
         return wrapped
 
-    saved = (ti.RecordingEncoder, tp.RecordingEncoder, tp.gather_patches)
+    saved = (ti.RecordingEncoder, tp.RecordingEncoder,
+             tp.gather_patches_many)
     ti.RecordingEncoder = tp.RecordingEncoder = Capture
-    tp.gather_patches = counting_gather
+    tp.gather_patches_many = counting_gather
     tp._pack_pframe = marking(orig_pack)
     ti.pack_keyframe = marking(orig_kpack)
     timings: list = []
@@ -1081,12 +1266,14 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in kern.items()}
     finally:
-        ti.RecordingEncoder, tp.RecordingEncoder, tp.gather_patches = saved
+        (ti.RecordingEncoder, tp.RecordingEncoder,
+         tp.gather_patches_many) = saved
         tp._pack_pframe, ti.pack_keyframe = orig_pack, orig_kpack
     n_p = len(frames) - 1
     print(f"# {w}x{h} GOP (KEY + {n_p} P, speed {speed}, cdef {cdef}, q 100, "
           f"cuda): {wall:.3f} s; packets {[len(p) for p in pkts]} bytes; "
-          f"launches {json.dumps(launches)}, gather by patch size {sizes}",
+          f"launches {json.dumps(launches)}, gather groups (P, B, plane) "
+          f"and their launches {sizes}",
           flush=True)
     for i, t in enumerate(timings):
         print(f"# frame {i} stages (s): "
@@ -1346,9 +1533,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"# {lib.name}: {line.strip()}", flush=True)
 
+    floor_ms = time_cuda(torch, gp.empty_launch, 20)
+    print(f"# the empty kernel (csrc/gather_patches.cu, queued behind a "
+          f"spin kernel, mean of 20): {floor_ms:.5f} ms a launch, the part "
+          "of a small launch's time that no kernel design closes",
+          flush=True)
     kernel_vs_plain(torch, ec)
-    gather = gather_phase(torch, gp)
-    ec_entry, kd, planes = slice_1080p(torch, ec, ti)
+    gather, gframe = gather_phase(torch, gp, floor_ms)
+    ec_entry, kd, planes = slice_1080p(torch, ec, ti, floor_ms)
     # phase 6: the CDEF kernels on the deblocked 1080p keyframe recon
     # (sampled branch) and on it cut to 1920x1056 (full branch)
     h, w = planes[0].shape
@@ -1357,11 +1549,12 @@ def main() -> int:
     rec_d = cd._as_u8([rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]])
     src_d = [torch.from_numpy(p).cuda() for p in planes]
     skip8 = ti._kf_skip8(kd.state)
-    cdef_ms = cdef_phase(torch, cd, rec_d, src_d, skip8)
+    cdef_ms = cdef_phase(torch, cd, rec_d, src_d, skip8, floor_ms)
     cdef_phase(torch, cd, cd._as_u8([rec_d[0][:1056], rec_d[1][:528],
                                      rec_d[2][:528]]),
                cd._as_u8([src_d[0][:1056], src_d[1][:528], src_d[2][:528]]),
-               skip8[:132])
+               skip8[:132], floor_ms)
+    dirs_extremes(torch, cd)
     cdef_past_2_24(torch, cd)
     gpu_vs_cpu(torch, ti)
     gop_gpu_vs_cpu(torch, ti, tp, 512, 384, 10)
@@ -1370,7 +1563,7 @@ def main() -> int:
     r16_sizes = default_pframe_gpu_vs_cpu(tp, 256, 192)
     for P in (27, 15):
         g = gather[(P, 8160)]
-        print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} launches in "
+        print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} gathers in "
               f"the 256x192 default P frame; at 1080p (B = 8160) kernel "
               f"{g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, indexing "
               f"call {g['library_ms']:.5f} ms, bound {g['bound_ms']:.5f} ms",
@@ -1387,45 +1580,52 @@ def main() -> int:
                                           CDEF_SPEED8, h=544)
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
-    launches, sizes, n_p, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 6,
-                                        CDEF_SPEED8, expect=GOP6_BYTES)
+    launches, groups, n_p, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 6,
+                                         CDEF_SPEED8, expect=GOP6_BYTES)
     # a full-width speed-6 keyframe whose quads split 16->8
     kf6s_launches, _ = speed6_keyframe(torch, ec, cd, ti,
                                        checker_tiled(synth(1920, 128)[0]),
                                        "1920x128 split8", True)
 
-    # the gather entry: one P frame's launches at the measured sizes
-    per_frame = {k: n / n_p for k, n in sizes.items()}
-    if set(per_frame) - set(gather):
-        fail(f"the GOP gathered (patch size, count) {sorted(per_frame)}, "
-             f"phase 4 measured {sorted(gather)}")
+    # the gather entry: phase 4's replay of the groups each P frame
+    # launched
+    want = {g: n_p for g in SPEED6_P_GROUPS}
+    if groups != want:
+        fail(f"the speed-6 P frames launched the gather groups {groups}, "
+             f"phase 4 replayed {want}")
+    per_frame = launches["gather_patches"] / n_p
+    print(f"# gather launches a speed-6 1080p P frame: {per_frame:g} "
+          f"(each gather its own launch: 13)", flush=True)
+    if per_frame >= 13:
+        fail(f"the speed-6 P frame launched {per_frame} gathers, not fewer "
+             "than 13")
+    items: dict = {}
+    for g in SPEED6_P_GROUPS:
+        for P, B, _, _ in g:
+            items[(P, B)] = items.get((P, B), 0) + 1
     for k in ((71, 510), (39, 510), (23, 2040)):
         g = gather[k]
         print(f"# gather P={k[0]} B={k[1]} on the speed-6 main path: "
-              f"{per_frame.get(k, 0)} launches a P frame; kernel "
+              f"{items.get(k, 0)} gathers a P frame; alone, kernel "
               f"{g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, indexing "
               f"call {g['library_ms']:.5f} ms, bound {g['bound_ms']:.5f} ms "
               f"({100 * g['bound_ms'] / g['ms']:.0f}% of it)", flush=True)
-        if per_frame.get(k, 0) < 1:
-            fail(f"the speed-6 P frames launched no gather at P = {k[0]}, "
-                 f"B = {k[1]}")
-
-    def frame_sum(key):
-        return sum(k * gather[P][key] for P, k in per_frame.items())
-
-    bound = frame_sum("bound_ms")
     gather_entry = {
         "name": "gather_patches", "route": "cuda",
         "source": "rav1e_tpu_torch/csrc/gather_patches.cu",
         "replaces": "tools/bench_gather.py:65",
         "launches": launches["gather_patches"],
-        "max_abs_err": max(g["err"] for g in gather.values()),
-        "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
-        "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": frame_sum("library_ms")}
-    print(f"# gather per speed-6 P frame ({per_frame} launches by (patch "
-          f"size, count)): kernel {gather_entry['ms']:.5f} ms, bound "
-          f"{bound:.5f} ms", flush=True)
+        "max_abs_err": max([gframe["err"]]
+                           + [g["err"] for g in gather.values()]),
+        "ms": gframe["ms"], "plain_ms": gframe["plain_ms"],
+        "bound_ms": gframe["bound_ms"], "bound_by": "bytes",
+        "library_ms": gframe["library_ms"],
+        "launches_per_p_frame": per_frame}
+    print(f"# gather per speed-6 P frame ({per_frame:g} launches): kernel "
+          f"{gframe['ms']:.5f} ms, summed byte bound "
+          f"{gframe['bound_ms']:.5f} ms "
+          f"({100 * gframe['bound_ms'] / gframe['ms']:.1f}%), empty "
+          f"launches {per_frame * floor_ms:.5f} ms", flush=True)
     # launches on the main paths, each counted from 0 in its own run:
     # phase 15's speed-6 GOP, phase 13's speed-7 GOP and phase 16's
     # split8 keyframe
@@ -1454,8 +1654,10 @@ def main() -> int:
          "max_abs_err": 0, "ms": r[0],
          "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
          "library_ms": None} for k, r in cdef_ms.items()]
-    print(json.dumps({"kernels": [ec_entry, gather_entry]
-                      + cdef_entries}), flush=True)
+    entries = [ec_entry, gather_entry] + cdef_entries
+    for e in entries:
+        e["empty_launch_ms"] = floor_ms
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

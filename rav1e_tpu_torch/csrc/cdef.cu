@@ -33,11 +33,28 @@
 // Each tile is a region and a 2-pixel halo as int16, filled one aligned
 // 4-byte word of the plane a load.
 //
-// (a) cdef_dirs: one thread per 8x8 luma block. The eight direction
-//     costs are sums of squared partial sums (at most 2^34), kept in
-//     int64 where the reference uses two int32 limbs; the first maximum
-//     wins ties; var = (cost[best] - cost[best ^ 4]) >> 10. Bound: the
-//     operations (about 1,100 integer ops a block), 2 MB read at 1080p.
+// (a) cdef_dirs: eight threads per 8x8 luma block, one per direction.
+//     A direction's cost is a sum over its bins of partial^2 * 840 / n,
+//     with n the bin's pixels and |partial| <= 128 n at 8 bits, so it is
+//     at most 128^2 * 840 * 64 = 880,803,840 < 2^31 - 1 and int32 holds
+//     it exactly (the reference uses two int32 limbs; an all-black block
+//     reaches the bound in every direction). The first maximum wins
+//     ties; var = (cost[best] - cost[best ^ 4]) >> 10. A block of 256
+//     threads takes 32 8x8 blocks of one block row. Warps 0 and 1 load
+//     four rows each of the 32 (one 8-byte word a lane, 256 contiguous
+//     bytes a row; W % 8 == 0 and an 8-byte-aligned base, which the
+//     wrapper ensures), store them as x - 128 in int8, and store the
+//     transposed blocks' rows four bytes at a time (byte permutes); then
+//     warp d forms direction d's bins for its 32 blocks with __dp4a on 4
+//     pixels a word, the byte masks and bin weights folded at compile
+//     time, directions 5, 6, 7 as the kinds of 3, 2, 1 on the transposed
+//     block (rows for 6, pair sums for 5 and 7), so no warp diverges.
+//     One warp then takes each block's argmax. 1080p: 261,120 threads
+//     in 1,088 blocks. Bound: the 2 MB read at 1080p; the least work, 351
+//     operations a block (chip_smoke.py, _dirs_ops), takes less. Measured
+//     against other forms (PERF.md): one row a thread for all 8 warps, two
+//     block rows a block, and the bins' sums as int8 tensor-core products
+//     with a one-hot table were each slower.
 // (b) cdef_ladder_sse: the table of each ladder entry's squared error
 //     against the source, per cell: per superblock over its TL and BR
 //     32x32 luma / 16x16 chroma quadrants (the sampled branch), or per
@@ -131,17 +148,6 @@ __constant__ int c_sec[8][8][2] = {
     {{-1, 1}, {1, -1}, {1, 1}, {-1, -1}, {-2, 2}, {2, -2}, {2, 2}, {-2, -2}},
     {{0, 1}, {0, -1}, {1, 0}, {-1, 0}, {-1, 2}, {1, -2}, {2, 1}, {-2, -1}}};
 
-// 840 / (pixels in bin b of direction d): DIV_TABLE by bin count.
-__constant__ int c_div[8][15] = {
-    {840, 420, 280, 210, 168, 140, 120, 105, 120, 140, 168, 210, 280, 420, 840},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
-    {105, 105, 105, 105, 105, 105, 105, 105, 0, 0, 0, 0, 0, 0, 0},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
-    {840, 420, 280, 210, 168, 140, 120, 105, 120, 140, 168, 210, 280, 420, 840},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
-    {105, 105, 105, 105, 105, 105, 105, 105, 0, 0, 0, 0, 0, 0, 0},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0}};
-
 __host__ __device__ constexpr int dir_bin(int d, int i, int j) {
   return d == 0   ? i + j
          : d == 1 ? i + (j >> 1)
@@ -207,51 +213,125 @@ __device__ __forceinline__ void fill_offsets(int (*off)[12]) {
   }
 }
 
-// (a) direction and variance, one thread per 8x8 luma block.
+// (a) direction and variance: a block of 256 threads takes a row of 32
+// 8x8 luma blocks (DIR_BLOCKS, one a lane), warp d their direction d.
+
+constexpr int DIR_BLOCKS = 32;
+
+// The bytes of the 4-byte word h of row i that direction d's bin k holds,
+// as a __dp4a mask (1 in each byte that the bin takes).
+__host__ __device__ constexpr int bin_mask(int d, int i, int h, int k) {
+  return (dir_bin(d, i, 4 * h) == k ? 0x1 : 0)
+         | (dir_bin(d, i, 4 * h + 1) == k ? 0x100 : 0)
+         | (dir_bin(d, i, 4 * h + 2) == k ? 0x10000 : 0)
+         | (dir_bin(d, i, 4 * h + 3) == k ? 0x1000000 : 0);
+}
+
+// 840 / (pixels in bin k) for the directions of the row kind (d = 2:
+// rows), the diagonal kind (d = 0: i + j) and the half-diagonal kind
+// (d = 1: i + (j >> 1)), 0 past the last bin.
+__host__ __device__ constexpr int bin_weight(int d, int k) {
+  return d == 2 ? (k < 8 ? 105 : 0)
+         : d == 0 ? (k < 15 ? 840 / (k < 8 ? k + 1 : 15 - k) : 0)
+                  : (k < 11 ? 840 / (2 * (k < 3 ? k + 1 : k > 7 ? 11 - k
+                                                                 : 4))
+                            : 0);
+}
+
+// Direction d's cost from the block's rows (x - 128 as int8 in 8 bytes),
+// in int32. d is 0..4, or the kind of direction 5, 6, 7 (3, 2, 1) read
+// on the transposed block. A bin of n pixels has |sum| <= 128 n and
+// weight 840 / n, so the cost is at most 128^2 * 840 * 64 = 880,803,840
+// < 2^31 - 1 (an all-black block reaches it in every direction).
+template <int D>
+__device__ __forceinline__ int dir_cost(const uint2* __restrict__ rows) {
+  int part[15];
+#pragma unroll
+  for (int k = 0; k < 15; ++k) part[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint2 r = rows[i * DIR_BLOCKS];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < 15; ++k)
+        if (bin_mask(D, i, h, k) != 0)
+          part[k] = __dp4a(static_cast<int>(h ? r.y : r.x),
+                           bin_mask(D, i, h, k), part[k]);
+  }
+  constexpr int KIND = D == 3 ? 1 : D == 4 ? 0 : D;
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < 15; ++k)
+    if (bin_weight(KIND, k) != 0) c += part[k] * part[k] * bin_weight(KIND, k);
+  return c;
+}
+
 __global__ void __launch_bounds__(THREADS)
 cdef_dirs_kernel(const uint8_t* __restrict__ y, int H, int W,
                  int8_t* __restrict__ dir_out, int* __restrict__ var_out) {
+  // rows[i][b]: row i of block b; cols[j][b]: column j of block b (the
+  // transposed block's row j); both x - 128 as int8
+  __shared__ uint2 rows[8][DIR_BLOCKS];
+  __shared__ uint2 cols[8][DIR_BLOCKS];
+  __shared__ int cost[8][DIR_BLOCKS];
   const int nbx = W >> 3;
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= (H >> 3) * nbx) return;
-  const uint8_t* src = y + static_cast<int64_t>(b / nbx) * 8 * W
-                       + (b % nbx) * 8;
-  int x[8][8];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bx = blockIdx.x * DIR_BLOCKS + lane;
+  const int by = blockIdx.y;
+  // warps 0 and 1 load rows 4w .. 4w + 3 of the 32 blocks (runs of 256
+  // contiguous bytes) and store the transposed blocks' rows 4 bytes at
+  // a time
+  if (warp < 2) {
+    const int r0 = 4 * warp;
+    uint2 r[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      x[i][j] = static_cast<int>(__ldg(src + i * W + j)) - 128;
-  long long cost[8];
-#pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    int part[15];
-#pragma unroll
-    for (int k = 0; k < 15; ++k) part[k] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[dir_bin(d, i, j)] += x[i][j];
-    long long c = 0;
-#pragma unroll
-    for (int k = 0; k < 15; ++k)
-      c += static_cast<long long>(part[k] * part[k]) * c_div[d][k];
-    cost[d] = c;
-  }
-  int best = 0;
-  long long cb = cost[0];
-#pragma unroll
-  for (int d = 1; d < 8; ++d)
-    if (cost[d] > cb) {
-      cb = cost[d];
-      best = d;
+    for (int q = 0; q < 4; ++q) {
+      r[q] = make_uint2(0x80808080u, 0x80808080u);
+      if (bx < nbx)
+        r[q] = __ldg(reinterpret_cast<const uint2*>(
+            y + static_cast<int64_t>(8 * by + r0 + q) * W + 8 * bx));
+      r[q].x ^= 0x80808080u;
+      r[q].y ^= 0x80808080u;
+      rows[r0 + q][lane] = r[q];
     }
-  long long co = cost[0];
 #pragma unroll
-  for (int d = 1; d < 8; ++d)
-    if (d == ((best + 4) & 7)) co = cost[d];
-  dir_out[b] = static_cast<int8_t>(best);
-  var_out[b] = static_cast<int>((cb - co) >> 10);
+    for (int j = 0; j < 8; ++j) {
+      // byte j of the 4 rows: column j of the block at those rows
+      const int t = j & 3, sel = t | (4 + t) << 4;
+      auto w = [&](int q) { return j < 4 ? r[q].x : r[q].y; };
+      reinterpret_cast<uint32_t*>(&cols[j][lane])[warp] =
+          __byte_perm(__byte_perm(w(0), w(1), sel),
+                      __byte_perm(w(2), w(3), sel), 0x5410);
+    }
+  }
+  __syncthreads();
+  int c;
+  switch (warp) {
+    case 0: c = dir_cost<0>(&rows[0][lane]); break;
+    case 1: c = dir_cost<1>(&rows[0][lane]); break;
+    case 2: c = dir_cost<2>(&rows[0][lane]); break;
+    case 3: c = dir_cost<3>(&rows[0][lane]); break;
+    case 4: c = dir_cost<4>(&rows[0][lane]); break;
+    case 5: c = dir_cost<3>(&cols[0][lane]); break;
+    case 6: c = dir_cost<2>(&cols[0][lane]); break;
+    default: c = dir_cost<1>(&cols[0][lane]); break;
+  }
+  cost[warp][lane] = c;
+  __syncthreads();
+  if (warp == 0 && bx < nbx) {
+    int best = 0, cbest = cost[0][lane];
+#pragma unroll
+    for (int d = 1; d < 8; ++d)
+      if (cost[d][lane] > cbest) {
+        cbest = cost[d][lane];
+        best = d;
+      }
+    const int64_t o = static_cast<int64_t>(by) * nbx + bx;
+    dir_out[o] = static_cast<int8_t>(best);
+    var_out[o] = (cbest - cost[(best + 4) & 7][lane]) >> 10;
+  }
 }
 
 // ---- (b) the ladder's SSE table ---------------------------------------
@@ -743,9 +823,9 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
 
 extern "C" int cdef_dirs_launch(const void* y, int H, int W, void* dir_out,
                                 void* var_out, void* stream) {
-  const int n = (H >> 3) * (W >> 3);
-  if (n > 0) {
-    cdef_dirs_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+  if (H >= 8 && W >= 8) {
+    const dim3 grid(((W >> 3) + DIR_BLOCKS - 1) / DIR_BLOCKS, H >> 3);
+    cdef_dirs_kernel<<<grid, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(y), H, W, static_cast<int8_t*>(dir_out),
         static_cast<int*>(var_out));

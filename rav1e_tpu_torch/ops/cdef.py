@@ -477,7 +477,8 @@ def cdef_dirs(y, bd: int = 8):
         return cdef_dirs_plain(y, bd)
     lib = nvcc.load(SRC, _bind)
     H, W = y.shape
-    y8 = y.to(torch.uint8).contiguous()
+    # the kernel reads each 8x8 block's row as one 8-byte word
+    y8 = _aligned([y.to(torch.uint8).contiguous()])[0]
     with torch.cuda.device(y.device):
         dirs = torch.empty((H // 8, W // 8), dtype=torch.int8,
                            device=y.device)

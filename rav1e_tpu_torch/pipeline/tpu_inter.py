@@ -13,8 +13,9 @@ frame batches:
 - a fixed-trip descent from one gathered patch per block: quarter-pel
   at speeds 7-8 (subpel), a single full-pel step after ds2 at speeds
   9-10;
-- spec 8-tap MC in int32 from patches that `ops.gather.gather_patches`
-  (a CUDA kernel on the card) copies out of the padded reference;
+- spec 8-tap MC in int32 from patches that `ops.gather.gather_patches_many`
+  (a CUDA kernel on the card) copies out of the padded reference, the
+  independent gathers of a stage in one launch;
 - DCT + quantize + bit-exact inverse over the [B, 32, 32] batch, skip
   RD, the deblock level search, CDEF's per-SB ladder search (ops/cdef,
   CUDA kernels on the card), and one packed int8 decision buffer;
@@ -65,7 +66,7 @@ from rav1e_tpu_torch.entropy.obu import (
 )
 from rav1e_tpu_torch.entropy.tile import BlockDecision, TileWriter
 from rav1e_tpu_torch.ops import transforms as T
-from rav1e_tpu_torch.ops.gather import gather_patches
+from rav1e_tpu_torch.ops.gather import gather_patches_many
 from rav1e_tpu_torch.ops.ref.mc import SUBPEL_FILTERS
 from rav1e_tpu_torch.ops.ref.quant import ac_q as ac_q_lut
 from rav1e_tpu_torch.ops.ref.quant import chroma_dq
@@ -233,28 +234,51 @@ def _taps(fil, patch, n: int, axis: int):
     return out
 
 
-def _mc_batch(ref_pad, pos_r, pos_c, mv8, n, ss, interm=False,
-              four_tap=False, bd: int = 8):
-    """Batched sub-pel prediction. ref_pad int32 padded by PAD>>ss with
-    edge replication; pos_r/pos_c int32 [B] plane-scale block origins;
-    mv8 int32 [B, 2] luma-scale 1/8-pel MVs; n = block size. Returns
-    [B, n, n] int32. Each block's (n+7)^2 window is one gather_patches
-    call for the whole batch. four_tap takes the spec's 4-tap bank (blocks
-    of w/h <= 4: the 4x4 chroma of 16->8 children, predicted here as one
-    region that shares the MV)."""
-    if interm:
-        _not_ported("compound-precision MC (interm)",
-                    "item 11 (other P/B routes)")
+def _mc_window(ref_pad, pos_r, pos_c, mv8, n, ss):
+    """The gather half of batched sub-pel prediction (the reference's
+    _mc_batch). ref_pad int32 padded by PAD>>ss with edge replication;
+    pos_r/pos_c int32 [B] plane-scale block origins; mv8 int32 [B, 2]
+    luma-scale 1/8-pel MVs; n = block size. Returns each block's
+    (n+7)^2 window as a gather_patches_many item (ref_pad, r0, c0, n + 7),
+    and the blocks' sub-pel phases (fr, fc)."""
     p = PAD >> ss
     p16r = (pos_r << 4) + mv8[:, 0] * (2 >> ss)
     p16c = (pos_c << 4) + mv8[:, 1] * (2 >> ss)
     ir, fr = p16r >> 4, p16r & 15
     ic, fc = p16c >> 4, p16c & 15
-    patch = gather_patches(ref_pad, ir + (p - 3), ic + (p - 3), n + 7)
-    bank = _filt(ref_pad.device, four_tap)
+    return (ref_pad, ir + (p - 3), ic + (p - 3), n + 7), fr, fc
+
+
+def _mc_filter(patch, fr, fc, n, four_tap=False, bd: int = 8):
+    """The filter half of batched sub-pel prediction: the separable 8-tap
+    filter (four_tap: the spec's 4-tap bank, for blocks of w/h <= 4: the
+    4x4 chroma of 16->8 children, predicted here as one region that
+    shares the MV) of each block's window at its phases, in int32.
+    Returns [B, n, n]."""
+    bank = _filt(patch.device, four_tap)
     intm = _round2(_taps(bank[fc.long()], patch, n, -1), 3)
     out = _taps(bank[fr.long()], intm, n, -2)
     return torch.clamp(_round2(out, 11), 0, (1 << bd) - 1)
+
+
+def _mc_windows(specs):
+    """The windows of several predictions [(ref_pad, pos_r, pos_c, mv8, n,
+    ss), ...] gathered in one launch: [(patch, fr, fc), ...] for
+    _mc_filter."""
+    wins = [_mc_window(*s) for s in specs]
+    patches = gather_patches_many([w[0] for w in wins])
+    return [(pt, fr, fc) for pt, (_, fr, fc) in zip(patches, wins)]
+
+
+def _patch_window(ref_pad, pos_r, pos_c, mv8c, n, ss, M):
+    """The gather item of _gather_patch: (ref_pad, r0, c0, n+7+2M), ir0,
+    ic0."""
+    p = PAD >> ss
+    p16r = (pos_r << 4) + mv8c[:, 0] * (2 >> ss)
+    p16c = (pos_c << 4) + mv8c[:, 1] * (2 >> ss)
+    ir0, ic0 = p16r >> 4, p16c >> 4
+    return ((ref_pad, ir0 + (p - 3 - M), ic0 + (p - 3 - M), n + 7 + 2 * M),
+            ir0, ic0)
 
 
 def _gather_patch(ref_pad, pos_r, pos_c, mv8c, n, ss, M):
@@ -262,19 +286,14 @@ def _gather_patch(ref_pad, pos_r, pos_c, mv8c, n, ss, M):
     from which every descent candidate within ±M px evaluates.
     Returns (patch [B, n+7+2M, n+7+2M], ir0, ic0) with patch[b, 0, 0]
     = ref row (ir0 - 3 - M), col (ic0 - 3 - M)."""
-    p = PAD >> ss
-    p16r = (pos_r << 4) + mv8c[:, 0] * (2 >> ss)
-    p16c = (pos_c << 4) + mv8c[:, 1] * (2 >> ss)
-    ir0, ic0 = p16r >> 4, p16c >> 4
-    patch = gather_patches(ref_pad, ir0 + (p - 3 - M), ic0 + (p - 3 - M),
-                           n + 7 + 2 * M)
-    return patch, ir0, ic0
+    item, ir0, ic0 = _patch_window(ref_pad, pos_r, pos_c, mv8c, n, ss, M)
+    return gather_patches_many([item])[0], ir0, ic0
 
 
 def _mc_patch(patch, ir0, ic0, pos_r, pos_c, mv8, n, ss, M,
               interm=False, bd: int = 8):
     """Subpel prediction from pre-gathered patches (bit-exact twin of
-    _mc_batch): the whole-pixel drift vs the patch centre (<= M) folds
+    _mc_window + _mc_filter): the whole-pixel drift vs the patch centre (<= M) folds
     into an extended (8+2M)-tap filter with the 8 spec taps placed at
     the drift offset. Accepts extra leading batch dims shared across
     the array arguments (mv8 [..., 2], pos/ir0 broadcastable)."""
@@ -672,17 +691,25 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     lam = rd["lam"]
     i32 = torch.int32
 
-    def exact_sse(ref_pad):
-        def f(mv):
-            p = _mc_batch(ref_pad, by, bx, mv, 32, 0, bd=bd)
-            return torch.sum((p - blks).to(torch.float32) ** 2, dim=(1, 2))
-        return f
+    def exact_sse(mvs):
+        """The exact SSE of each candidate MV field, the candidates'
+        windows gathered in one launch, and their predictions."""
+        preds = [_mc_filter(*w, 32, bd=bd) for w in _mc_windows(
+            [(ryp, by, bx, mv, 32, 0) for mv in mvs])]
+        return [torch.sum((p - blks).to(torch.float32) ** 2, dim=(1, 2))
+                for p in preds], preds
+
+    def grid_sse(mvs):
+        return [gridf0(mv) for mv in mvs], None
 
     def cand_pass(mv8, sse_fn, extra=None, grid_fn=None):
         """Left / above / zero / median MV candidates priced with
         NEIGHBOUR-RELATIVE rates (NEAREST alias when the MV matches the
         stack predictor); grid_fn preselects one alternative on the
-        SSD surface so sse_fn runs on {own, best-alt, extra} only."""
+        SSD surface so sse_fn (a list of MV fields -> their SSEs and
+        their predictions, or None) runs on {own, best-alt, extra} only.
+        Returns (MVs, rates, the chosen candidates' predictions or
+        None)."""
         mvg = mv8.reshape(nby, nbx, 2)
         mvl = torch.cat([mvg[:, :1], mvg[:, :-1]], 1).reshape(B, 2)
         mva = torch.cat([mvg[:1], mvg[:-1]], 0).reshape(B, 2)
@@ -726,24 +753,29 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
             cands.append(extra)
             rates.append(rate_rel(extra, mvl))
         cand_r = torch.stack(rates, 0)                    # [C,B]
-        cc = (ds32[None] * torch.stack([sse_fn(c) for c in cands], 0)
-              + lam * cand_r)
+        sses, preds = sse_fn(cands)
+        cc = ds32[None] * torch.stack(sses, 0) + lam * cand_r
         k = torch.argmin(cc, dim=0)                       # own wins ties
         out = mv8
+        pred = None if preds is None else preds[0]
         for i in range(1, len(cands)):
             out = torch.where(k[:, None] == i, cands[i], out)
-        return out, torch.gather(cand_r, 0, k[None])[0]
+            if preds is not None:
+                pred = torch.where(k[:, None, None] == i, preds[i], pred)
+        return out, torch.gather(cand_r, 0, k[None])[0], pred
 
     # blob erosion on the SSD surface, then the long-range rescue and
     # one exact re-judge
     for _ in range(8):
-        mv8, _ = cand_pass(mv8, gridf0)
+        mv8, _, _ = cand_pass(mv8, grid_sse)
     mv_coarse = _coarse_mv(y, ryp, B, search)
-    mv8, rate32 = cand_pass(mv8, exact_sse(ryp), extra=mv_coarse,
-                            grid_fn=gridf0)
-    pred_y = _mc_batch(ryp, by, bx, mv8, 32, 0, bd=bd)
-    pred_u = _mc_batch(rup, by // 2, bx // 2, mv8, 16, 1, bd=bd)
-    pred_v = _mc_batch(rvp, by // 2, bx // 2, mv8, 16, 1, bd=bd)
+    mv8, rate32, pred_y = cand_pass(mv8, exact_sse, extra=mv_coarse,
+                                    grid_fn=gridf0)
+    # the chroma windows also serve the 4-tap chroma of the 16->8 split
+    win_u, win_v = _mc_windows([(rup, by // 2, bx // 2, mv8, 16, 1),
+                                (rvp, by // 2, bx // 2, mv8, 16, 1)])
+    pred_u = _mc_filter(*win_u, 16, bd=bd)
+    pred_v = _mc_filter(*win_v, 16, bd=bd)
     choice = torch.zeros((B,), dtype=i32, device=dev)
     mvb8 = torch.zeros_like(mv8)
     mark("cand")
@@ -831,12 +863,13 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         return ds16f * sse(pred, blks16) + lam * mv_bits(mv)
 
     if refine16:
-        # two patch gathers (parent- and zero-centred), then the whole
-        # per-16 descent runs in-patch: drift <= 8+4+2+2 eighth-pel = 2 px
-        patch_p, pir_p, pic_p = _gather_patch(ryp, by16, bx16, mv_par, 16,
-                                              0, 2)
-        patch_z, pir_z, pic_z = _gather_patch(ryp, by16, bx16, mv_zero, 16,
-                                              0, 2)
+        # two patch gathers (parent- and zero-centred) in one launch, then
+        # the whole per-16 descent runs in-patch: drift <= 8+4+2+2
+        # eighth-pel = 2 px
+        (item_p, pir_p, pic_p), (item_z, pir_z, pic_z) = (
+            _patch_window(ryp, by16, bx16, m, 16, 0, 2)
+            for m in (mv_par, mv_zero))
+        patch_p, patch_z = gather_patches_many([item_p, item_z])
 
         def pred16(patch, ir0, ic0, mv):
             return _mc_patch(patch, ir0, ic0, by16, bx16, mv, 16, 0, 2,
@@ -865,15 +898,16 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
             mv16 = torch.where(better[:, None], cmv, mv16)
             best16 = torch.where(better, cbest, best16)
         pred_y16 = pred16(patch16, pir16, pic16, mv16)
-        pred_u8 = _mc_batch(rup, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
-        pred_v8 = _mc_batch(rvp, by16 // 2, bx16 // 2, mv16, 8, 1, bd=bd)
+        win_u8, win_v8 = _mc_windows([
+            (rup, by16 // 2, bx16 // 2, mv16, 8, 1),
+            (rvp, by16 // 2, bx16 // 2, mv16, 8, 1)])
+        pred_u8 = _mc_filter(*win_u8, 8, bd=bd)
+        pred_v8 = _mc_filter(*win_v8, 8, bd=bd)
         if use_split8:
             # the 16->8 children's 4x4 chroma: the 4-tap bank over the
-            # 8x8 region, which shares the quad's MV
-            pred_u8_4t = _mc_batch(rup, by16 // 2, bx16 // 2, mv16, 8, 1,
-                                   four_tap=True, bd=bd)
-            pred_v8_4t = _mc_batch(rvp, by16 // 2, bx16 // 2, mv16, 8, 1,
-                                   four_tap=True, bd=bd)
+            # 8x8 region, which shares the quad's MV and its windows
+            pred_u8_4t = _mc_filter(*win_u8, 8, four_tap=True, bd=bd)
+            pred_v8_4t = _mc_filter(*win_v8, 8, four_tap=True, bd=bd)
     else:
         # per-16 MV in {parent, zero}: parent = the quadrant of the
         # 32-block's prediction, zero = the co-located reference block
@@ -891,13 +925,13 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         pred_u8 = torch.where(z3, pz_u, _quads(pred_u, 8))
         pred_v8 = torch.where(z3, pz_v, _quads(pred_v, 8))
         if use_split8:
-            # the parent 32-block's chroma through the 4-tap bank,
-            # quartered; the zero MV is an integer phase, the same in
-            # both banks
-            pred_u8_4t = torch.where(z3, pz_u, _quads(_mc_batch(
-                rup, by // 2, bx // 2, mv8, 16, 1, four_tap=True, bd=bd), 8))
-            pred_v8_4t = torch.where(z3, pz_v, _quads(_mc_batch(
-                rvp, by // 2, bx // 2, mv8, 16, 1, four_tap=True, bd=bd), 8))
+            # the parent 32-block's chroma (its windows) through the 4-tap
+            # bank, quartered; the zero MV is an integer phase, the same
+            # in both banks
+            pred_u8_4t = torch.where(z3, pz_u, _quads(_mc_filter(
+                *win_u, 16, four_tap=True, bd=bd), 8))
+            pred_v8_4t = torch.where(z3, pz_v, _quads(_mc_filter(
+                *win_v, 16, four_tap=True, bd=bd), 8))
     (lv_y16, lv_u8, lv_v8), (rec_y16, rec_u8, rec_v8), skip16, c16 = \
         code_skip((pred_y16, pred_u8, pred_v8), (blks16, ub8, vb8),
                   (TxSize.TX_16X16, TxSize.TX_8X8, TxSize.TX_8X8),
@@ -1018,15 +1052,18 @@ def _merge64_pass(y, u, v, ryp, rup, rvp, rd, code, nby, nbx, mv8, rec_y,
         r = torch.where(same, rd["nearest"], r)
         return torch.where(z, rd["globalmv"], r)
 
-    preds = [_mc_batch(ryp, by64, bx64, m, 64, 0, bd=bd) for m in (mv_tl,
-                                                                   zero)]
+    preds = [_mc_filter(*w, 64, bd=bd) for w in _mc_windows(
+        [(ryp, by64, bx64, m, 64, 0) for m in (mv_tl, zero)])]
     costs = torch.stack([_sse64_xla(p, blks64) + lam * mvr64(m)
                          for p, m in zip(preds, (mv_tl, zero))], 0)
     k1 = torch.argmin(costs, dim=0) == 1
     mv64 = torch.where(k1[:, None], zero, mv_tl)
     pred_y64 = torch.where(k1[:, None, None], preds[1], preds[0])
-    pred_u64 = _mc_batch(rup, by64 // 2, bx64 // 2, mv64, 32, 1, bd=bd)
-    pred_v64 = _mc_batch(rvp, by64 // 2, bx64 // 2, mv64, 32, 1, bd=bd)
+    # mv64 follows the luma costs: the chroma windows are a second launch
+    win_u, win_v = _mc_windows([(rup, by64 // 2, bx64 // 2, mv64, 32, 1),
+                                (rvp, by64 // 2, bx64 // 2, mv64, 32, 1)])
+    pred_u64 = _mc_filter(*win_u, 32, bd=bd)
+    pred_v64 = _mc_filter(*win_v, 32, bd=bd)
     lv_y64, r2_y64 = code(blks64 - pred_y64, TxSize.TX_64X64)
     lv_u32, r2_u32 = code(ub32 - pred_u64, TxSize.TX_32X32, chroma=True)
     lv_v32, r2_v32 = code(vb32 - pred_v64, TxSize.TX_32X32, chroma=True)

@@ -24,6 +24,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from _torch_content import dir_extremes
 from rav1e_tpu.ops.tpu import cdef as jc
 from rav1e_tpu_torch.ops import cdef as tc
 
@@ -89,6 +90,10 @@ def test_directions_bit_exact(w, h):
     rec, _, _ = content(w, h)
     y = rec[0].copy()
     y[:8, :8] = 77                         # a flat block: every cost ties
+    # block row 2: all 0 (the costs' int32 bound in every direction), all
+    # 255, a ramp across and stripes along each direction
+    ext = dir_extremes(w // 8)
+    y[16:24] = ext
     dj, vj = (np.asarray(a) for a in _j_dirs(jnp.asarray(y)))
     dt, vt = tc._dirs_var(_t(y))
     np.testing.assert_array_equal(dt.numpy(), dj)
@@ -98,6 +103,7 @@ def test_directions_bit_exact(w, h):
     np.testing.assert_array_equal(d8.numpy(), dj)
     np.testing.assert_array_equal(v8.numpy(), vj)
     assert len(np.unique(dj)) == 8 and dj[0, 0] == 0 and vj[0, 0] == 0
+    assert dj[2, 0] == 0 and vj[2, 0] == 0
 
 
 @pytest.mark.parametrize("w,h", SHAPES)

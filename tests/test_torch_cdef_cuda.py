@@ -10,6 +10,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from _torch_content import dir_extremes
 from rav1e_tpu_torch.ops import cdef as tc
 
 
@@ -89,6 +90,35 @@ def _apply_equal_plain(recd, dirs, var, sk, damping, **kw):
                                    kw.get("idx"), *(st[2:] if i else st[:2]))
         assert torch.equal(got[i], want), (i, kw)
     return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["extremes", "misaligned", "1928x136"])
+def test_dirs_equal_plain_at_the_extremes_on_card(what):
+    """On the card: cdef_dirs (int32 costs, 8 threads a block) equals its
+    plain version on blocks at the ends of its range (all 0, the int32
+    bound in every direction: dir 0, var 0; all 255; a ramp and stripes
+    along each direction), on them from a misaligned base (the wrapper
+    copies to an 8-byte-aligned one), and on a frame 8 px past a
+    multiple of 64 wide (a thread block of 32 8x8 blocks partly outside
+    each row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    y = torch.from_numpy(np.tile(dir_extremes(), (3, 1))).cuda()
+    if what == "misaligned":
+        flat = torch.empty(y.numel() + 1, dtype=torch.uint8, device="cuda")
+        flat[1:].view(y.shape).copy_(y)
+        y = flat[1:].view(y.shape)
+        assert y.data_ptr() % 8
+    elif what == "1928x136":
+        rng = np.random.default_rng(31)
+        y = _t(gaussian_filter(rng.normal(128, 40, (136, 1928)), 2.0)
+               .clip(0, 255).astype(np.uint8)).cuda()
+    d, v = tc.cdef_dirs(y)
+    dp, vp = tc.cdef_dirs_plain(y)
+    assert torch.equal(d, dp) and torch.equal(v, vp)
+    if what != "1928x136":
+        assert int(d[0, 0]) == 0 and int(v[0, 0]) == 0
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from _torch_content import DIR_BINS, dir_extremes
 from rav1e_tpu_torch.ops import cdef as tc
 
 EXACT = 2 ** 24
@@ -221,6 +222,23 @@ def test_ladder_ops_at_most_each_entry_filtered_alone(chroma):
     assert 0 < shared < alone
 
 
+def test_dirs_ops_by_hand():
+    """chip_smoke.py's count of cdef_dirs' least work an 8x8 block (its
+    bound), by hand: __dp4a words of up to 4 pixels of one bin
+    (directions 0 and 4: 15 bins of 1..8..1 pixels, 22 words; 2 and 6: 8
+    bins of 8, 16; 1, 3, 5, 7: 11 bins of 2, 4, 6, 8, 8, 8, 8, 8, 6, 4, 2,
+    18), a square and a multiply-add a bin (90 bins), the argmax's 7
+    steps of 3 and var's subtract and shift."""
+    sizes = [sorted(np.bincount(b.ravel()).tolist()) for b in DIR_BINS]
+    assert sizes[0] == sizes[4] == sorted([1, 2, 3, 4, 5, 6, 7, 8, 7, 6,
+                                           5, 4, 3, 2, 1])
+    assert sizes[2] == sizes[6] == [8] * 8
+    for d in (1, 3, 5, 7):
+        assert sizes[d] == sorted([2, 4, 6, 8, 8, 8, 8, 8, 6, 4, 2])
+    words = 2 * 22 + 2 * 16 + 4 * 18
+    assert cs._dirs_ops() == words + 2 * 90 + 7 * 3 + 2 == 351
+
+
 def test_frame_wrappers_check_their_inputs():
     """Frames must be 4:2:0 with matching sources, whole superblocks on
     the sampled branch, skip8 bool or uint8 bytes, idx the SB grid, and
@@ -246,3 +264,48 @@ def test_frame_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="idx must be"):
         tc.cdef_apply(rec, dirs, var, skip8, 3,
                       idx=torch.zeros((1, 1), dtype=torch.int32))
+
+
+def _dir_costs(blocks):
+    """The 8 direction costs of 8x8 uint8 blocks [N, 8, 8], int64, from
+    the definition: bins of x - 128 along each direction, each partial
+    sum squared and weighted by 840 / (the bin's pixels)."""
+    x = blocks.astype(np.int64) - 128
+    costs = []
+    for b in DIR_BINS:
+        c = 0
+        for k in range(b.max() + 1):
+            on = b == k
+            c = c + x[:, on].sum(1) ** 2 * (840 // int(on.sum()))
+        costs.append(c)
+    return np.stack(costs, 1)
+
+
+def test_direction_costs_fit_int32():
+    """The cdef_dirs kernel keeps the costs in int32: at 8 bits a bin of
+    n pixels has |sum| <= 128 n and weight 840 / n, so a cost is at most
+    128^2 * 840 * 64 = 880,803,840 < 2^31 - 1. An all-black block reaches
+    it in all 8 directions (dir 0 by the first maximum, var 0); no
+    direction of 10^4 random, extreme or 0 / 255 blocks passes it; and
+    the argmax with var of these costs is cdef_directions'."""
+    bound = 128 * 128 * 840 * 64
+    assert bound == 880_803_840 < 2 ** 31 - 1
+    black = _dir_costs(np.zeros((1, 8, 8), np.uint8))
+    assert (black == bound).all()
+    rng = np.random.default_rng(9)
+    ext = dir_extremes()
+    blocks = np.concatenate([
+        ext.reshape(8, -1, 8).transpose(1, 0, 2),
+        rng.integers(0, 256, (5000, 8, 8)),
+        np.where(rng.random((4968, 8, 8)) < 0.5, 0, 255)]).astype(np.uint8)
+    assert blocks.shape[0] == 10_000
+    costs = _dir_costs(blocks)
+    assert costs.max() <= bound and costs.min() >= 0
+    best = costs.argmax(1)                 # the first maximum
+    top = costs[np.arange(len(costs)), best]
+    var = (top - costs[np.arange(len(costs)), best ^ 4]) >> 10
+    d, v = tc.cdef_directions(torch.from_numpy(blocks))
+    np.testing.assert_array_equal(d.numpy(), best)
+    np.testing.assert_array_equal(v.numpy(), var)
+    assert d[0] == 0 and v[0] == 0
+

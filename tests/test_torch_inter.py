@@ -135,14 +135,21 @@ def _mc_inputs(seed, ss):
     return ref, by, bx, mv, n
 
 
+def _mc(ref, by, bx, mv, n, ss):
+    """The port's sub-pel prediction as the P frame runs it: the window
+    gather (_mc_windows, one launch) then the filter (_mc_filter)."""
+    (patch, fr, fc), = tinter._mc_windows([(ref, by, bx, mv, n, ss)])
+    return tinter._mc_filter(patch, fr, fc, n)
+
+
 @pytest.mark.parametrize("ss", [0, 1])
 def test_mc_batch_bit_exact(ss):
-    """_mc_batch (8-tap, all 16 phases) on random MVs, luma and
-    chroma."""
+    """The reference's _mc_batch (8-tap, all 16 phases) on random MVs,
+    luma and chroma, against the port's window gather and filter."""
     ref, by, bx, mv, n = _mc_inputs(5 + ss, ss)
     out_j = jinter._mc_batch(jnp.asarray(ref), jnp.asarray(by),
                              jnp.asarray(bx), jnp.asarray(mv), n, ss)
-    out_t = tinter._mc_batch(_t(ref), _t(by), _t(bx), _t(mv), n, ss)
+    out_t = _mc(_t(ref), _t(by), _t(bx), _t(mv), n, ss)
     assert out_t.dtype == torch.int32
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
 
@@ -150,7 +157,7 @@ def test_mc_batch_bit_exact(ss):
 def test_mc_patch_bit_exact():
     """_mc_patch and _mc_patch_multi from M=2 patches: candidates that
     drift inside and beyond the patch (the drift clamps), bit-exact to
-    the JAX functions and, in the patch, to _mc_batch."""
+    the JAX functions and, in the patch, to the window gather and filter."""
     ref, by, bx, mv, n = _mc_inputs(9, 0)
     rng = np.random.default_rng(10)
     M = 2
@@ -177,8 +184,7 @@ def test_mc_patch_bit_exact():
     # inside the patch the folded filter equals plain MC
     np.testing.assert_array_equal(
         multi_t[1].numpy(),
-        tinter._mc_batch(_t(ref), _t(by), _t(bx), _t(cands[1]), n,
-                         0).numpy())
+        _mc(_t(ref), _t(by), _t(bx), _t(cands[1]), n, 0).numpy())
 
 
 def _search_inputs(w, h, seed, frac=None):
@@ -261,7 +267,8 @@ def test_mc_patch_multi_every_phase():
     """_mc_patch_multi at every 1/16-pel phase of both axes: luma
     (ss = 0: the even phases of eighth-pel MVs) and chroma (ss = 1: all
     16), candidates drifting up to M px from the patch centre; bit-exact
-    to the JAX function, and to _mc_batch, so the REGULAR bank's
+    to the JAX function, and to the window gather and filter, so the
+    REGULAR bank's
     intermediate rounding matches at every phase."""
     M = 2
     for ss in (0, 1):
@@ -294,8 +301,8 @@ def test_mc_patch_multi_every_phase():
         assert len(np.unique(frac[..., 1])) == 16 // step
         for c in range(len(ph)):
             np.testing.assert_array_equal(
-                out_t[c], tinter._mc_batch(_t(ref), _t(by), _t(bx),
-                                           _t(cands[c]), n, ss).numpy())
+                out_t[c], _mc(_t(ref), _t(by), _t(bx), _t(cands[c]), n,
+                              ss).numpy())
 
 
 def test_coarse_mv_identical():

@@ -375,8 +375,9 @@ def test_satd_matches_reference(case):
 
 @pytest.mark.parametrize("n", [16, 8])
 def test_four_tap_mc_every_phase(n):
-    """_mc_batch(four_tap=True) on a padded chroma plane equals the
-    reference's at every (row, column) phase of the 16, bit for bit."""
+    """_mc_filter(four_tap=True) on the windows of a padded chroma plane
+    equals the reference's _mc_batch(four_tap=True) at every (row,
+    column) phase of the 16, bit for bit."""
     rng = np.random.default_rng(n)
     plane = rng.integers(0, 256, (64 + 32, 96 + 32)).astype(np.int32)
     fr, fc = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
@@ -387,15 +388,15 @@ def test_four_tap_mc_every_phase(n):
                     fc.ravel() + 16 * rng.integers(-2, 3, B)], 1)
     pos_r = (rng.integers(0, 64 // n, B) * n).astype(np.int32)
     pos_c = (rng.integers(0, 96 // n, B) * n).astype(np.int32)
-    got = tinter._mc_batch(_t(plane), _t(pos_r), _t(pos_c),
-                           _t(mv8.astype(np.int32)), n, 1, four_tap=True)
+    (patch, r, c), = tinter._mc_windows([(_t(plane), _t(pos_r), _t(pos_c),
+                                          _t(mv8.astype(np.int32)), n, 1)])
+    got = tinter._mc_filter(patch, r, c, n, four_tap=True)
     want = jinter._mc_batch(jnp.asarray(plane), jnp.asarray(pos_r),
                             jnp.asarray(pos_c),
                             jnp.asarray(mv8.astype(np.int32)), n, 1,
                             four_tap=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    eight = tinter._mc_batch(_t(plane), _t(pos_r), _t(pos_c),
-                             _t(mv8.astype(np.int32)), n, 1)
+    eight = tinter._mc_filter(patch, r, c, n)
     assert not torch.equal(got, eight)
 
 
