@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. the card (nvidia-smi name + power limit), torch and CUDA versions;
   2. the build of csrc/ec_pack.cu, csrc/gather_patches.cu and
-     csrc/cdef.cu with nvcc for sm_90a, one nvcc process each, started
-     together;
+     csrc/cdef.cu with nvcc for sm_90a, one nvcc process each, and of
+     the C++ tile packer csrc/packer.cpp with g++, all started together;
   3. the od_ec kernels against their plain version: a 4-tile batch (three
      random adapting-CDF streams of about 20k IR rows, one empty tile) in
      one call at chunk lengths L = 16, 100 and the default: chunk starts
@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      over the launches (each launch reads a plane's covered elements
      once);
   5. the speed-10 keyframe at 1920x1088 on cuda, once to warm and once
-     timed: stage times, the ec_pack launches, the tile's IR coded again
-     by pack_ir_plain with identical bytes, and the ec kernels' device
+     timed: stage times, the ec_pack launches, the tile's IR (the C++
+     packer's) coded again by pack_ir_plain with identical bytes, and
+     the ec kernels' device
      time (CUDA events) at L = 256, 512, 1024, 2048 with identical bytes
      at each, and per pass at the default L = 512;
   6. the three CDEF kernels (cdef_dirs, cdef_ladder_sse, cdef_apply;
@@ -67,13 +68,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      every decision, level, the recon and the packet identical; the
      gather launches at refine16's patch sizes;
   12-13. encode_gop_tpu at q 100 at 1920x544 (the depth cut, to keep
-     the run short): KEY + 1 P at speed 10, then KEY + 2 P at speed 7
-     with cdef (0, 0, 0, 0, 3), every kernel's count set to 0 just before
-     and read just after: per-frame stage times, packet sizes and shares
-     of split 32-blocks; every frame launched each kernel that serves
-     it; every tile's IR coded again by pack_ir_plain gives the packet's
-     bytes; recon within 0..255; each tile's ec kernel time at L = 256,
-     512, 1024 and its per-pass times;
+     the run short): KEY + 1 P at speed 10 (no split, no CDEF: the P
+     frame takes write_inter_tile_fast), then KEY + 2 P at speed 7
+     with cdef (0, 0, 0, 0, 3), run as a user calls it (the C++ packer,
+     the keyframe's host half and each P frame's fetch + pack on worker
+     threads), every kernel's count set to 0 just before and read just
+     after: the GOP's wall time, per-frame stage times, packet sizes,
+     shares of split 32-blocks and the packer call each frame took;
+     every frame launched each kernel that serves it (the main thread's
+     kernels counted per device half, ec_pack once a tile); every tile's
+     IR coded again by pack_ir_plain gives the packet's bytes; recon
+     within 0..255; each tile's ec kernel time at L = 256, 512, 1024 and
+     its per-pass times;
   14. the default keyframe (speed 6: 13 luma modes on the 2i+j schedule,
      CfL, the quads' TX type search, the 16->8 split) with cdef
      (0, 0, 0, 0, 3) at 256x192 on cuda vs on cpu, twice: on synth
@@ -98,18 +104,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      P frame's shares of split, 16->8, merged and intra blocks; each P
      frame launched exactly phase 4's replayed gather groups, fewer than
      13 launches (the count when each gather was its own launch);
+  15b. each frame of phase 15 packed again from the same decisions by
+     the C++ packer and by the Python TileWriter + RecordingEncoder
+     (use_native=False): the IRs equal row for row, the kernel's bytes
+     on both equal pack_ir_plain + finish's; both walks' times;
   16. a speed-6 keyframe on a 1920x128 frame with phase 14's
      checkerboard every 256 px (the split8 gate on, quads split 16->8 at
      full width; the depth cut to keep the run short), counted as
      phase 15.
 
-Prints a kernels JSON line (launches: phases 15, 13 and 16 together,
-and each path's own count, every count set to 0 just before its path;
-the gather's ms, bound and plain and indexing ms are phase 4's replayed
-speed-6 P frame, with its launches a P frame; the CDEF kernels'
-launches per frame of those paths and their ms per 1080p frame),
-then,
-as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Phases 5, 7-16 print the packer call (NativeTileWriter method) each
+frame took. Prints a kernels JSON line (launches: phases 15, 13 and 16
+together, and each path's own count, every count set to 0 just before
+its path; the gather's ms, bound and plain and indexing ms are phase
+4's replayed speed-6 P frame, with its launches a P frame; the CDEF
+kernels' launches per frame of those paths and their ms per 1080p
+frame), then, as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
 rav1e_tpu_torch package beside it.
 """
@@ -119,7 +129,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -156,6 +168,57 @@ def synth(w, h, n=1, seed=3):
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
+
+
+class PackerCalls:
+    """While entered, keeps every tile the C++ packer codes (from any
+    thread): (the NativeTileWriter method that walked it, the writer's
+    device, its IR on the host, its bytes)."""
+
+    METHODS = ("write_intra_tile_fast", "write_inter_tile_fast",
+               "write_inter_tile_fast2", "write_tile")
+
+    def __init__(self, native):
+        self.W = native.NativeTileWriter
+        self.got = []
+
+    def __enter__(self):
+        W, got = self.W, self.got
+        self.saved = {m: W.__dict__[m] for m in self.METHODS + ("code",)}
+
+        def walking(m, f):
+            def walk(w, *a, **k):
+                w.walked = m
+                return f(w, *a, **k)
+            return walk
+
+        for m in self.METHODS:
+            setattr(W, m, walking(m, self.saved[m]))
+        code = self.saved["code"]
+
+        def coding(w, ir):
+            tile = code(w, ir)
+            got.append((w.walked, str(w.device), ir.clone(), tile))
+            return tile
+
+        W.code = coding
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self.saved.items():
+            setattr(self.W, m, f)
+        return False
+
+    def by_packet(self, pkts, device=None):
+        """The kept (method, device, IR, tile) of each packet (a tile is
+        the end of its packet), None where no kept tile ends it."""
+        kept = [g for g in self.got if device is None or g[1] == device]
+        return [next((g for g in kept if p.endswith(g[3])), None)
+                for p in pkts]
+
+    def methods(self, pkts, device=None):
+        return [None if g is None else g[0]
+                for g in self.by_packet(pkts, device)]
 
 
 def random_stream(seed: int, iters: int):
@@ -291,28 +354,17 @@ def time_cuda(torch, fn, reps: int, hold: bool = True) -> float:
     return a.elapsed_time(b) / reps
 
 
-def slice_1080p(torch, ec, ti, floor_ms):
+def slice_1080p(torch, ec, native, ti, floor_ms):
     """Phase 5. Returns (the kernels-line entry of the od_ec kernel, the
     timed run's KeyframeDevice, the planes)."""
     planes = synth(1920, 1088)[0]
-    captured = []
-
-    class Capture(ec.RecordingEncoder):
-        def done(self):
-            captured.append(self.ir_tensor())
-            return super().done()
-
-    orig = ti.RecordingEncoder
-    ti.RecordingEncoder = Capture
-    try:
+    with PackerCalls(native) as calls:
         t0 = time.perf_counter()
         pkt_w, _ = ti.encode_keyframe_tpu(planes, 100, speed=10,
                                           device="cuda")
-        print(f"# 1080p warm run {time.perf_counter() - t0:.3f} s",
-              flush=True)
-    finally:
-        ti.RecordingEncoder = orig
-    ir = captured[0]
+        print(f"# 1080p warm run {time.perf_counter() - t0:.3f} s; packer "
+              f"call {calls.methods([pkt_w])}", flush=True)
+    ir = calls.got[0][2]
     timings: dict = {}
     kds = []
     orig_an = ti.analyze_keyframe
@@ -750,7 +802,7 @@ def cdef_past_2_24(torch, cd):
             fail(f"{w}x{h} noise: cdef_search_persb differs on cuda and cpu")
 
 
-def gpu_vs_cpu(torch, ti):
+def gpu_vs_cpu(torch, native, ti):
     """Phase 7."""
     planes = synth(256, 192)[0]
     kd = {d: ti.analyze_keyframe(planes, 100, speed=10, device=d)
@@ -761,11 +813,13 @@ def gpu_vs_cpu(torch, ti):
     ndiff = sum(int((x != 0).sum()) for x in diff)
     ntot = sum(x.size for x in diff)
     dmax = max(int(x.max()) for x in diff)
-    pk = {d: ti.encode_keyframe_tpu(planes, 100, speed=10, device=d)
-          for d in kd}
+    with PackerCalls(native) as calls:
+        pk = {d: ti.encode_keyframe_tpu(planes, 100, speed=10, device=d)
+              for d in kd}
     same_pkt = pk["cuda"][0] == pk["cpu"][0]
     print(f"# 256x192 cuda vs cpu: {ndiff} of {ntot} levels differ "
-          f"(max |d| {dmax}); packets identical: {same_pkt}", flush=True)
+          f"(max |d| {dmax}); packets identical: {same_pkt}; packer calls "
+          f"{ {d: calls.methods([pk[d][0]], d) for d in pk} }", flush=True)
     if dmax > 1 or ndiff * 1e4 >= ntot:
         fail("cuda and cpu levels differ beyond |d| = 1 at < 1e-4")
     # a block is clean if no block at or above-left of it has a
@@ -1008,7 +1062,8 @@ FETCHED = ("mv8", "skip", "lv_y", "lv_u", "lv_v", "split", "mv16", "skip16",
            "lf_lvl", "cdef_idx")
 
 
-def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None, strict=False):
+def gop_gpu_vs_cpu(torch, native, ti, tp, w, h, speed, cdef=None,
+                   strict=False):
     """Phases 8-10: a KEY + 1 P GOP on cuda and on cpu. strict: every
     level, split map, MV field, skip, CDEF map and packet must agree."""
     frames = synth(w, h, n=2)
@@ -1021,14 +1076,18 @@ def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None, strict=False):
                       [x.cpu().numpy() for x in kd["cpu"].state[3:6]])
     kf_split = [kd[d].state[8].cpu().numpy() for d in ("cuda", "cpu")]
 
+    calls = {}
+
     def run(device):
         """The GOP's packets and its P frame's fetched decisions."""
         got, restore = _recording_fetch(tp)
         try:
-            pkts, _ = tp.encode_gop_tpu(frames, 100, speed=speed,
-                                        cdef=cdef, device=device)
+            with PackerCalls(native) as pc:
+                pkts, _ = tp.encode_gop_tpu(frames, 100, speed=speed,
+                                            cdef=cdef, device=device)
         finally:
             restore()
+        calls[device] = pc.methods(pkts)
         return pkts, got[0]
 
     (pk_g, g), (pk_c, c) = run("cuda"), run("cpu")
@@ -1050,7 +1109,7 @@ def gop_gpu_vs_cpu(torch, ti, tp, w, h, speed, cdef=None, strict=False):
           f"of {pf[1]} (max |d| {pf[2]}); CDEF index maps identical: "
           f"{maps_same}; packets identical: {same_pkts}; split 32-blocks "
           f"(keyframe, P) {int(kf_split[1].sum())}, {int(c[5].sum())} of "
-          f"{c[5].size}", flush=True)
+          f"{c[5].size}; packer calls {calls}", flush=True)
     if strict:
         bad = [k for k, a, b in zip(FETCHED, g, c) if not np.array_equal(a,
                                                                         b)]
@@ -1095,21 +1154,23 @@ def speed6_p_content(w, h):
     return frames
 
 
-def speed6_gop_gpu_vs_cpu(tp, w, h):
+def speed6_gop_gpu_vs_cpu(native, tp, w, h):
     """Phase 14b: a speed-6 KEY + 1 P GOP with cdef at w x h on cuda and
     on cpu: every fetched decision (MVs, skips, levels, split / split16 /
     b64 / choice maps, skip8, CDEF map), the recon and the packets must
     agree, and the P frame must take each speed-6 tool. Returns the P
     frame's tool counts."""
     frames = speed6_p_content(w, h)
-    res = {}
+    res, calls = {}, {}
     for d in ("cuda", "cpu"):
         got, restore = _recording_fetch(tp)
         try:
-            pkts, recs = tp.encode_gop_tpu(frames, 100, speed=6,
-                                           cdef=CDEF_SPEED8, device=d)
+            with PackerCalls(native) as pc:
+                pkts, recs = tp.encode_gop_tpu(frames, 100, speed=6,
+                                               cdef=CDEF_SPEED8, device=d)
         finally:
             restore()
+        calls[d] = pc.methods(pkts)
         rec = [np.asarray(r.cpu() if hasattr(r, "cpu") else r, np.int32)
                for r in recs[1]]
         res[d] = (pkts, rec, got[0])
@@ -1126,7 +1187,7 @@ def speed6_gop_gpu_vs_cpu(tp, w, h):
     print(f"# {w}x{h} speed-6 GOP (KEY + 1 P, cdef {CDEF_SPEED8}), cuda vs "
           f"cpu: differing {bad or 'nothing'}; packets identical: "
           f"{pk_g == pk_c} ({[len(p) for p in pk_c]} bytes); P frame took: "
-          f"{json.dumps(counts)}", flush=True)
+          f"{json.dumps(counts)}; packer calls {calls}", flush=True)
     if bad or pk_g != pk_c:
         fail(f"the {w}x{h} speed-6 GOP differs between cuda and cpu: {bad}")
     lacking = [k for k in ("quads_split_16_to_8", "merged_64x64",
@@ -1136,7 +1197,7 @@ def speed6_gop_gpu_vs_cpu(tp, w, h):
     return counts
 
 
-def default_pframe_gpu_vs_cpu(tp, w, h):
+def default_pframe_gpu_vs_cpu(native, tp, w, h):
     """Phase 11: encode_pframe_tpu(planes, ref) with the reference's
     defaults (split RDO with refine16, 16-px search, subpel) on cuda and
     on cpu; every MV field, split map, skip, level, the recon and the
@@ -1152,15 +1213,18 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
                 sizes[it[3]] = sizes.get(it[3], 0) + 1
         return orig_g(items)
 
-    res = {}
+    res, calls = {}, {}
     for d in ("cuda", "cpu"):
         got, restore = _recording_fetch(tp)
         tp.gather_patches_many = counting_gather
         try:
-            pkt, rec = tp.encode_pframe_tpu(frames[1], frames[0], device=d)
+            with PackerCalls(native) as pc:
+                pkt, rec = tp.encode_pframe_tpu(frames[1], frames[0],
+                                                device=d)
         finally:
             restore()
             tp.gather_patches_many = orig_g
+        calls[d] = pc.methods([pkt])
         res[d] = (pkt, rec, got[0])
     (pk_g, rc_g, g), (pk_c, rc_c, c) = res["cuda"], res["cpu"]
     bad = [k for k, a, b in zip(FETCHED, g, c) if not np.array_equal(a, b)]
@@ -1172,7 +1236,7 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
           f"{pk_g == pk_c} ({len(pk_c)} bytes); split 32-blocks "
           f"{int(split.sum())} of {split.size}, fractional per-16 MVs "
           f"{int((mv16[split] % 8 != 0).sum())}; cuda gathers by patch "
-          f"size {sizes}", flush=True)
+          f"size {sizes}; packer calls {calls}", flush=True)
     if bad or pk_g != pk_c:
         fail(f"the default P frame differs between cuda and cpu: {bad}")
     if not split.any():
@@ -1180,26 +1244,26 @@ def default_pframe_gpu_vs_cpu(tp, w, h):
     return sizes
 
 
-def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
-              h: int = 1088, expect=None):
-    """Phases 12, 13 and 15: a 1920 x h KEY + (n - 1) P GOP on cuda,
-    every kernel's count set to 0 just before it and read just after.
-    Checks that every frame launched each kernel that serves it (the
-    keyframe: ec_pack, and the three CDEF kernels with cdef; each P
-    frame: also gather_patches), and with `expect` that the packets have
-    those sizes (printing each packet's SHA-256). Returns ({kernel:
+def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
+              cdef=None, h: int = 1088, expect=None, record=None):
+    """Phases 12, 13 and 15: a 1920 x h KEY + (n - 1) P GOP on cuda as a
+    user calls it (the C++ packer, the keyframe's host half and each P
+    frame's fetch + pack on worker threads), every kernel's count set to
+    0 just before it and read just after. The kernels the main thread
+    launches (the gather in the P steps, CDEF in every frame's device
+    half) are counted per frame between the device halves' last stage
+    marks; ec_pack, launched on the workers, must run once a frame, one
+    launch a tile the packer coded. Checks that every frame launched
+    each kernel that serves it (the keyframe: ec_pack, and the three CDEF
+    kernels with cdef; each P frame: also gather_patches), and with
+    `expect` that the packets have those sizes (printing each packet's
+    SHA-256). `record`, a list, receives each pack call's arguments
+    (("key", kd, planes) and ("p", args, kwargs)). Returns ({kernel:
     launches}, {gather group: launches}, with a group a tuple of its
     items' (P, B, plane H, W), P frames, stage times)."""
     frames = synth(1920, h, n=n)
     w = 1920
     nsb = ((h // 32 + 1) // 2) * ((w // 32 + 1) // 2)
-    captured = []
-
-    class Capture(ec.RecordingEncoder):
-        def done(self):
-            captured.append(self.ir_tensor())
-            return super().done()
-
     sizes: dict = {}
 
     def counting_gather(items):
@@ -1214,79 +1278,89 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
         kern.update(cdef_dirs=cd.cdef_dirs,
                     cdef_ladder_sse=cd.cdef_ladder_sse,
                     cdef_apply=cd.cdef_apply)
-    marks = []
-    chosen = []                 # each frame's CDEF ladder entries, counted
-    split_share = []            # each frame's share of split 32-blocks
-    tools = []                  # each P frame's speed-6 block kinds
-
-    def mark():
-        marks.append({k: f.launches for k, f in kern.items()})
-
+    on_main = [k for k in kern if k != "ec_pack"]
+    snaps = []                  # main-thread counts after each device half
+    chosen = {}                 # each frame's CDEF ladder entries, counted
+    split_share = {}            # each frame's share of split 32-blocks
+    tools = {}                  # each P frame's speed-6 block kinds
     orig_pack, orig_kpack = tp._pack_pframe, ti.pack_keyframe
+    orig_mark = tp._Stages.mark
 
-    def marking(fn):
-        def wrapped(*a, **k):
-            mark()
-            sp = (k["split"] if fn is orig_pack
-                  else a[0].state[8].cpu().numpy())
-            split_share.append(float(np.mean(sp)))
-            if fn is orig_pack and k.get("choice") is not None:
-                # shares of the 32-blocks: split 16->8 (any quad), in a
-                # merged 64x64 SB, intra-in-inter
-                b64 = np.repeat(np.repeat(k["b64_map"], 2, 0), 2, 1)
-                tools.append({
-                    "split16": float(np.mean(k["split16"].any(1))),
-                    "merged": float(np.mean(b64)),
-                    "intra": float(np.mean(k["choice"] == 3))})
-            if cdef is not None:
-                # the P frame's map, or the keyframe's meta tail
-                cmap = (k["cdef"][1] if fn is orig_pack
-                        else a[0].meta[-nsb:].cpu().numpy())
-                chosen.append(np.bincount(
-                    np.asarray(cmap, np.int64).ravel(), minlength=8)
-                    .tolist())
-            r = fn(*a, **k)
-            mark()
-            return r
-        return wrapped
+    def mark(stages, name):
+        orig_mark(stages, name)
+        if name in ("meta", "pack") and \
+                threading.current_thread() is threading.main_thread():
+            snaps.append({k: kern[k].launches for k in on_main})
 
-    saved = (ti.RecordingEncoder, tp.RecordingEncoder,
-             tp.gather_patches_many)
-    ti.RecordingEncoder = tp.RecordingEncoder = Capture
+    def pack_p(*a, **k):
+        i = a[3]                             # the order hint: the frame
+        split_share[i] = (0.0 if k.get("split") is None
+                          else float(np.mean(k["split"])))
+        if k.get("choice") is not None:
+            # shares of the 32-blocks: split 16->8 (any quad), in a
+            # merged 64x64 SB, intra-in-inter
+            b64 = np.repeat(np.repeat(k["b64_map"], 2, 0), 2, 1)
+            tools[i] = {"split16": float(np.mean(k["split16"].any(1))),
+                        "merged": float(np.mean(b64)),
+                        "intra": float(np.mean(k["choice"] == 3))}
+        if cdef is not None:
+            chosen[i] = np.bincount(np.asarray(k["cdef"][1], np.int64)
+                                    .ravel(), minlength=8).tolist()
+        if record is not None:
+            record.append(("p", a, dict(k)))
+        return orig_pack(*a, **k)
+
+    def pack_key(kd, planes, *a, **k):
+        split_share[0] = float(np.mean(kd.state[8].cpu().numpy()))
+        if cdef is not None:
+            chosen[0] = np.bincount(kd.meta[-nsb:].cpu().numpy().astype(
+                np.int64), minlength=8).tolist()
+        if record is not None:
+            record.append(("key", kd, planes))
+        return orig_kpack(kd, planes, *a, **k)
+
+    saved = tp.gather_patches_many
     tp.gather_patches_many = counting_gather
-    tp._pack_pframe = marking(orig_pack)
-    ti.pack_keyframe = marking(orig_kpack)
+    tp._pack_pframe, ti.pack_keyframe = pack_p, pack_key
+    tp._Stages.mark = mark
     timings: list = []
     try:
-        for f in kern.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        pkts, recs = tp.encode_gop_tpu(frames, 100, speed=speed, cdef=cdef,
-                                       device="cuda", timings=timings)
-        wall = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in kern.items()}
+        with PackerCalls(native) as calls:
+            for f in kern.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            pkts, recs = tp.encode_gop_tpu(frames, 100, speed=speed,
+                                           cdef=cdef, device="cuda",
+                                           timings=timings)
+            wall = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in kern.items()}
     finally:
-        (ti.RecordingEncoder, tp.RecordingEncoder,
-         tp.gather_patches_many) = saved
+        tp.gather_patches_many = saved
         tp._pack_pframe, ti.pack_keyframe = orig_pack, orig_kpack
+        tp._Stages.mark = orig_mark
     n_p = len(frames) - 1
+    methods = calls.methods(pkts)
     print(f"# {w}x{h} GOP (KEY + {n_p} P, speed {speed}, cdef {cdef}, q 100, "
-          f"cuda): {wall:.3f} s; packets {[len(p) for p in pkts]} bytes; "
+          f"cuda, overlapped): {wall:.3f} s (gop_wall "
+          f"{timings[0]['gop_wall']:.3f} s); packets "
+          f"{[len(p) for p in pkts]} bytes; packer calls {methods}; "
           f"launches {json.dumps(launches)}, gather groups (P, B, plane) "
-          f"and their launches {sizes}",
-          flush=True)
+          f"and their launches {sizes}", flush=True)
     for i, t in enumerate(timings):
         print(f"# frame {i} stages (s): "
               + json.dumps({k: round(v, 4) for k, v in t.items()}),
               flush=True)
     if chosen:
         print(f"# CDEF ladder entries chosen per frame (SBs per entry "
-              f"0..7): {chosen}", flush=True)
-    print(f"# share of split 32-blocks per frame: {split_share}",
-          flush=True)
+              f"0..7): {[chosen.get(i) for i in range(len(frames))]}",
+              flush=True)
+    print(f"# share of split 32-blocks per frame: "
+          f"{[split_share.get(i) for i in range(len(frames))]}", flush=True)
     if tools:
         print(f"# P frames' shares of 32-blocks with a quad split 16->8, "
-              f"merged into 64x64, intra: {json.dumps(tools)}", flush=True)
+              f"merged into 64x64, intra: "
+              f"{json.dumps([tools.get(i) for i in range(1, n)])}",
+              flush=True)
     sizes_b = [len(p) for p in pkts]
     if expect is not None:
         import hashlib
@@ -1296,32 +1370,34 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
               flush=True)
         if sizes_b != expect:
             fail(f"speed {speed} GOP packets {sizes_b}, expected {expect}")
-    if len(marks) != 2 * len(frames):
-        fail(f"{len(marks) // 2} frames packed, {len(frames)} expected")
-    prev = {k: 0 for k in kern}
-    for i in range(len(frames)):
-        before, after = marks[2 * i], marks[2 * i + 1]
-        step = {k: before[k] - prev[k] for k in kern}
-        need = [k for k in kern if k not in ("ec_pack", "gather_patches")]
-        if i > 0:
-            need.append("gather_patches")
+    if len(snaps) != len(frames):
+        fail(f"{len(snaps)} device halves ended, {len(frames)} expected")
+    prev = {k: 0 for k in on_main}
+    for i, after in enumerate(snaps):
+        step = {k: after[k] - prev[k] for k in on_main}
+        need = [k for k in on_main if k != "gather_patches" or i > 0]
         bad = [k for k in need if step[k] < 1]
-        if after["ec_pack"] - before["ec_pack"] < 1:
-            bad.append("ec_pack")
         if bad:
-            fail(f"frame {i} did not launch {bad} (device half {step}, "
-                 f"pack {after['ec_pack'] - before['ec_pack']})")
+            fail(f"frame {i} did not launch {bad} (device half {step})")
         # the CDEF table and filter: one launch a frame for three planes
         many = [k for k in ("cdef_ladder_sse", "cdef_apply")
                 if k in step and step[k] != 1]
         if many:
             fail(f"frame {i} launched {many} other than once ({step})")
         prev = after
-    if len(captured) != len(frames):
-        fail(f"{len(captured)} tiles coded, {len(frames)} expected")
+    if len(calls.got) != len(frames) or None in methods \
+            or launches["ec_pack"] != len(frames):
+        fail(f"{len(calls.got)} tiles coded by the packer and "
+             f"{launches['ec_pack']} ec_pack launches for {len(frames)} "
+             f"frames (packer calls {methods})")
+    if methods[0] != "write_intra_tile_fast" or any(
+            m not in ("write_inter_tile_fast", "write_inter_tile_fast2")
+            for m in methods[1:]):
+        fail(f"the frames took the packer calls {methods}")
+    captured = [g[2] for g in calls.by_packet(pkts)]
     for i, (ir, pkt) in enumerate(zip(captured, pkts)):
         c_p, st_p = ec.pack_ir_plain(ir)
-        if ec.finish(c_p.tolist(), *st_p[:3].tolist()) not in pkt:
+        if not pkt.endswith(ec.finish(c_p.tolist(), *st_p[:3].tolist())):
             fail(f"frame {i}: the IR coded by pack_ir_plain is not the "
                  "packet's tile")
     kf_rec = recs[0]
@@ -1346,6 +1422,59 @@ def gop_1080p(torch, ec, gp, cd, ti, tp, n: int, speed: int, cdef=None,
               flush=True)
     return launches, sizes, n_p, timings
 
+
+def packer_vs_writer(torch, ec, native, ti, tp, record):
+    """Phase 15b: each frame of phase 15's GOP packed again from the
+    same decisions, by the C++ packer and by the Python TileWriter with a
+    RecordingEncoder (use_native=False), one after the other on this
+    thread: the two IRs must be equal row for row, and the kernel's
+    bytes on each must be pack_ir_plain + finish's."""
+    py = []
+
+    class Capture(ec.RecordingEncoder):
+        def done(self):
+            ir = self.ir_tensor()
+            py.append((ir, super().done()))
+            return py[-1][1]
+
+    def order(c):
+        return 0 if c[0] == "key" else c[1][3]
+
+    saved = ti.RecordingEncoder, tp.RecordingEncoder
+    ti.RecordingEncoder = tp.RecordingEncoder = Capture
+    try:
+        for c in sorted(record, key=order):
+            def run(use_native, t):
+                if c[0] == "key":
+                    return ti.pack_keyframe(c[1], c[2], 100, device="cuda",
+                                            timings=t,
+                                            use_native=use_native)[0]
+                return tp._pack_pframe(*c[1], **{**c[2], "timings": t,
+                                                 "use_native": use_native})
+
+            t_n, t_p = {}, {}
+            with PackerCalls(native) as calls:
+                pkt_n = run(True, t_n)
+            del py[:]
+            pkt_p = run(False, t_p)
+            (method, _, ir_n, tile_n), (ir_p, tile_p) = calls.got[0], py[0]
+            same_ir = ir_n.shape == ir_p.shape and torch.equal(ir_n, ir_p)
+            c_p, st_p = ec.pack_ir_plain(ir_n)
+            plain = ec.finish(c_p.tolist(), *st_p[:3].tolist())
+            same = tile_n == plain and tile_p == plain and pkt_n == pkt_p
+            print(f"# frame {order(c)} ({method}): IR {ir_n.shape[0]} rows "
+                  f"(Python writer {ir_p.shape[0]}), equal row for row: "
+                  f"{same_ir}; the kernel's bytes on both IRs equal "
+                  f"pack_ir_plain + finish's: {same}; walk (s): C++ packer "
+                  f"{t_n['tile_walk']:.4f}, Python writer "
+                  f"{t_p['tile_walk']:.4f}; IR upload {t_n['ir_upload']:.4f}"
+                  f" s, ec_kernel (upload included) {t_n['ec_kernel']:.4f} "
+                  f"s", flush=True)
+            if not (same_ir and same):
+                fail(f"frame {order(c)}: the packer and the Python writer "
+                     "differ")
+    finally:
+        ti.RecordingEncoder, tp.RecordingEncoder = saved
 
 
 def speed6_content(w, h):
@@ -1388,7 +1517,7 @@ STATE = ("rec_y", "rec_u", "rec_v", "lv_y", "lv_u", "lv_v", "y_modes",
 DIRECTIONAL = (3, 4, 5, 6, 7, 8)       # D45 D135 D113 D157 D203 D67
 
 
-def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
+def speed6_gpu_vs_cpu(torch, native, ti, w: int, h: int, split8: bool):
     """Phase 14: the default keyframe with cdef on cuda and on cpu. Every
     grid of the state, the meta buffer, the filtered recon and the packet
     must be identical. Returns the tools' counts."""
@@ -1407,7 +1536,10 @@ def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
         if not torch.equal(getattr(kd["cuda"], k).cpu(),
                            getattr(kd["cpu"], k).cpu()):
             bad.append(k)
-    out = {d: ti.pack_keyframe(kd[d], planes, 100, device=d) for d in kd}
+    with PackerCalls(native) as pc:
+        out = {d: ti.pack_keyframe(kd[d], planes, 100, device=d)
+               for d in kd}
+    calls = {d: pc.methods([out[d][0]], d) for d in out}
     if out["cuda"][0] != out["cpu"][0]:
         bad.append("packet")
     if not all(np.array_equal(a, b) for a, b in zip(out["cuda"][1],
@@ -1429,8 +1561,8 @@ def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
     print(f"# {w}x{h} speed-6 keyframe{tag}, cuda vs cpu: 8..16 px band "
           f"{band:.3f} (gate "
           f"{'on' if split8 else 'off'}); differing {bad or 'nothing'}; "
-          f"{len(out['cpu'][0])} bytes; taken: {json.dumps(counts)}",
-          flush=True)
+          f"{len(out['cpu'][0])} bytes; taken: {json.dumps(counts)}; "
+          f"packer calls {calls}", flush=True)
     if bad:
         fail(f"{w}x{h} speed 6: cuda and cpu differ ({bad})")
     if split8 and not counts["split_16_to_8"]:
@@ -1438,7 +1570,8 @@ def speed6_gpu_vs_cpu(torch, ti, w: int, h: int, split8: bool):
     return counts
 
 
-def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool):
+def speed6_keyframe(torch, ec, cd, native, ti, planes, what: str,
+                    split8: bool):
     """Phase 16: a full-width speed-6 keyframe with cdef on cuda,
     every kernel's count set to 0 just before and read just after; the
     split8 gate must be `split8`. Returns ({kernel: launches}, stage
@@ -1447,40 +1580,34 @@ def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool):
     if (band > 256.0) != split8:
         fail(f"{what}: the 8..16 px band {band:.1f} is on the wrong side of "
              "the split8 gate")
-    captured = []
-
-    class Capture(ec.RecordingEncoder):
-        def done(self):
-            captured.append(self.ir_tensor())
-            return super().done()
-
     kern = {"ec_pack": ec.pack_ir, "cdef_dirs": cd.cdef_dirs,
             "cdef_ladder_sse": cd.cdef_ladder_sse, "cdef_apply": cd.cdef_apply}
     timings: dict = {}
     kds = []
-    saved = ti.RecordingEncoder, ti.analyze_keyframe
+    saved = ti.analyze_keyframe
 
     def analyze(*a, **k):
-        kds.append(saved[1](*a, **k))
+        kds.append(saved(*a, **k))
         return kds[-1]
 
-    ti.RecordingEncoder, ti.analyze_keyframe = Capture, analyze
+    ti.analyze_keyframe = analyze
     try:
-        for f in kern.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        pkt, rec = ti.encode_keyframe_tpu(planes, 100, cdef=CDEF_SPEED8,
-                                          device="cuda", timings=timings)
-        wall = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in kern.items()}
+        with PackerCalls(native) as calls:
+            for f in kern.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            pkt, rec = ti.encode_keyframe_tpu(planes, 100, cdef=CDEF_SPEED8,
+                                              device="cuda", timings=timings)
+            wall = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in kern.items()}
     finally:
-        ti.RecordingEncoder, ti.analyze_keyframe = saved
+        ti.analyze_keyframe = saved
     n8 = int(kds[0].state[STATE.index("s16")].sum())
     stages = {k: round(v, 4) for k, v in timings.items()}
     print(f"# {what} speed-6 keyframe (q 100, cdef {CDEF_SPEED8}, cuda): "
           f"{len(pkt)} bytes in {wall:.3f} s; 8..16 px band "
           f"{band:.3f} (gate {'on' if split8 else 'off'}); quads split "
-          f"16->8: {n8}; launches "
+          f"16->8: {n8}; packer call {calls.methods([pkt])}; launches "
           f"{json.dumps(launches)}; stages (s): {json.dumps(stages)}",
           flush=True)
     idle = [k for k, n in launches.items() if n < 1]
@@ -1494,8 +1621,8 @@ def speed6_keyframe(torch, ec, cd, ti, planes, what: str, split8: bool):
     if [r.shape for r in rec] != [p.shape for p in planes] or any(
             r.min() < 0 or r.max() > 255 for r in rec):
         fail(f"the {what} speed-6 recon has other shapes or leaves 0..255")
-    c_p, st_p = ec.pack_ir_plain(captured[0])
-    if ec.finish(c_p.tolist(), *st_p[:3].tolist()) not in pkt:
+    c_p, st_p = ec.pack_ir_plain(calls.got[0][2])
+    if not pkt.endswith(ec.finish(c_p.tolist(), *st_p[:3].tolist())):
         fail(f"the {what} speed-6 tile's IR coded by pack_ir_plain is not "
              "the packet's tile")
     return launches, timings
@@ -1508,6 +1635,7 @@ def main() -> int:
         return 2
     from rav1e_tpu_torch import nvcc
     import rav1e_tpu_torch.entropy.ec_cuda as ec
+    import rav1e_tpu_torch.entropy.native as native
     import rav1e_tpu_torch.ops.cdef as cd
     import rav1e_tpu_torch.ops.gather as gp
     import rav1e_tpu_torch.pipeline.tpu_inter as tp
@@ -1521,7 +1649,10 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    libs = nvcc.build_all([ec.SRC, gp.SRC, cd.SRC])
+    with ThreadPoolExecutor(2) as ex:
+        packer = ex.submit(nvcc.build_host, native.SRC)
+        libs = nvcc.build_all([ec.SRC, gp.SRC, cd.SRC])
+        libs.append(packer.result())
     t_build = time.perf_counter() - t0
     out = subprocess.run([nvcc.nvcc(), "--version"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -1540,7 +1671,7 @@ def main() -> int:
           flush=True)
     kernel_vs_plain(torch, ec)
     gather, gframe = gather_phase(torch, gp, floor_ms)
-    ec_entry, kd, planes = slice_1080p(torch, ec, ti, floor_ms)
+    ec_entry, kd, planes = slice_1080p(torch, ec, native, ti, floor_ms)
     # phase 6: the CDEF kernels on the deblocked 1080p keyframe recon
     # (sampled branch) and on it cut to 1920x1056 (full branch)
     h, w = planes[0].shape
@@ -1556,11 +1687,12 @@ def main() -> int:
                skip8[:132], floor_ms)
     dirs_extremes(torch, cd)
     cdef_past_2_24(torch, cd)
-    gpu_vs_cpu(torch, ti)
-    gop_gpu_vs_cpu(torch, ti, tp, 512, 384, 10)
-    gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 8, CDEF_SPEED8)
-    gop_gpu_vs_cpu(torch, ti, tp, 256, 192, 7, CDEF_SPEED8, strict=True)
-    r16_sizes = default_pframe_gpu_vs_cpu(tp, 256, 192)
+    gpu_vs_cpu(torch, native, ti)
+    gop_gpu_vs_cpu(torch, native, ti, tp, 512, 384, 10)
+    gop_gpu_vs_cpu(torch, native, ti, tp, 256, 192, 8, CDEF_SPEED8)
+    gop_gpu_vs_cpu(torch, native, ti, tp, 256, 192, 7, CDEF_SPEED8,
+                   strict=True)
+    r16_sizes = default_pframe_gpu_vs_cpu(native, tp, 256, 192)
     for P in (27, 15):
         g = gather[(P, 8160)]
         print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} gathers in "
@@ -1571,19 +1703,23 @@ def main() -> int:
         if r16_sizes.get(P, 0) < 1:
             fail(f"the default P frame launched no gather at P = {P}")
     for split8 in (False, True):
-        speed6_gpu_vs_cpu(torch, ti, 256, 192, split8)
-    speed6_gop_gpu_vs_cpu(tp, 256, 192)
+        speed6_gpu_vs_cpu(torch, native, ti, 256, 192, split8)
+    speed6_gop_gpu_vs_cpu(native, tp, 256, 192)
     # the speed-10 and speed-7 GOPs, their depth cut to 544 rows to keep
     # the run short
-    gop_1080p(torch, ec, gp, cd, ti, tp, 2, 10, h=544)
-    gop7_launches, _, n_p7, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 7,
-                                          CDEF_SPEED8, h=544)
+    gop_1080p(torch, ec, gp, cd, native, ti, tp, 2, 10, h=544)
+    gop7_launches, _, n_p7, _ = gop_1080p(torch, ec, gp, cd, native, ti,
+                                          tp, 3, 7, CDEF_SPEED8, h=544)
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
-    launches, groups, n_p, _ = gop_1080p(torch, ec, gp, cd, ti, tp, 3, 6,
-                                         CDEF_SPEED8, expect=GOP6_BYTES)
+    record: list = []
+    launches, groups, n_p, _ = gop_1080p(torch, ec, gp, cd, native, ti, tp,
+                                         3, 6, CDEF_SPEED8,
+                                         expect=GOP6_BYTES, record=record)
+    # the same frames packed again by the packer and by the Python writer
+    packer_vs_writer(torch, ec, native, ti, tp, record)
     # a full-width speed-6 keyframe whose quads split 16->8
-    kf6s_launches, _ = speed6_keyframe(torch, ec, cd, ti,
+    kf6s_launches, _ = speed6_keyframe(torch, ec, cd, native, ti,
                                        checker_tiled(synth(1920, 128)[0]),
                                        "1920x128 split8", True)
 

@@ -222,7 +222,7 @@ def pack_ir(ir: torch.Tensor, offsets: torch.Tensor | None = None,
                                    f"CUDA error {err}")
             if events is not None:
                 events[p + 1].record(stream)
-    pack_ir.launches += 1
+    nvcc.count_launch(pack_ir)
     return out, lens
 
 
@@ -246,15 +246,23 @@ def fetch_tiles(out: torch.Tensor, lens: torch.Tensor,
 
 def pack_symbols(ir: torch.Tensor, device: torch.device | str | None,
                  timings: dict | None = None) -> bytes:
-    """One tile's IR -> its final bytes: upload, code on `device` (the
-    kernels on cuda), fetch the length and then the bytes."""
+    """One tile's IR -> its final bytes: upload (asynchronous from a
+    pinned buffer), code on `device` (the kernels on cuda, on the current
+    stream), fetch the length and then the bytes. `timings` receives
+    ec_kernel (upload, coding and the length's fetch), ir_upload (the
+    upload alone, a part of ec_kernel) and finish."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    out, lens = pack_ir(ir.to(dev))
+    ir_d = ir.to(dev, non_blocking=True)
+    if timings is not None and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    t_up = time.perf_counter()
+    out, lens = pack_ir(ir_d)
     lens = lens.cpu()
     t1 = time.perf_counter()
     tile = fetch_tiles(out, lens, [0, ir.shape[0]])[0]
     if timings is not None:
+        timings["ir_upload"] = t_up - t0
         timings["ec_kernel"] = t1 - t0
         timings["finish"] = time.perf_counter() - t1
     return tile

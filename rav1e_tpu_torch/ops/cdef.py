@@ -486,7 +486,7 @@ def cdef_dirs(y, bd: int = 8):
                           device=y.device)
         _raise_on(lib.cdef_dirs_launch(_ptr(y8), H, W, _ptr(dirs), _ptr(var),
                                        _stream()), "cdef_dirs")
-    cdef_dirs.launches += 1
+    nvcc.count_launch(cdef_dirs)
     return dirs, var
 
 
@@ -523,7 +523,7 @@ def cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping: int,
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), int(damping),
             int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)),
             _stream()), "cdef_ladder_sse")
-    cdef_ladder_sse.launches += 1
+    nvcc.count_launch(cdef_ladder_sse)
     return out
 
 
@@ -558,7 +558,7 @@ def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), _ptr(ix),
             y_pri, y_sec, uv_pri, uv_sec, int(damping), *map(_ptr, outs),
             _ptr(path_counts(dev)[2:]), _stream()), "cdef_apply")
-    cdef_apply.launches += 1
+    nvcc.count_launch(cdef_apply)
     return outs
 
 

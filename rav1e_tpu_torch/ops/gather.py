@@ -131,7 +131,7 @@ def gather_patches_many(items) -> list[torch.Tensor]:
         raise RuntimeError(f"gather_patches kernel launch failed: CUDA "
                            f"error {err}")
     if off > 0:
-        gather_patches_many.launches += 1
+        nvcc.count_launch(gather_patches_many)
     outs, off = [], 0
     for (_, r0, _, P), n in zip(items, sizes):
         outs.append(out[off:off + n].view(int(r0.shape[0]), P, P))

@@ -19,8 +19,16 @@ frame batches:
 - DCT + quantize + bit-exact inverse over the [B, 32, 32] batch, skip
   RD, the deblock level search, CDEF's per-SB ladder search (ops/cdef,
   CUDA kernels on the card), and one packed int8 decision buffer;
-- host: unpack, TileWriter walk, od_ec coding by the CUDA kernel of
+- host: unpack, the C++ packer's one-call tile walk into od_ec symbol
+  IR (entropy/native.py), od_ec coding of the IR by the CUDA kernels of
   entropy/ec_cuda, OBU packet.
+
+encode_gop_tpu overlaps as the reference's does: the keyframe's host
+half, each P frame's source packing and each P frame's fetch + pack run
+on a pool of four worker threads while the main thread uploads and
+dispatches the P steps in order; each worker's device work (fetches into
+pinned buffers, the od_ec kernels) runs on a stream of its own that
+waits only for its frame's step.
 
 This slice ports the speed-3 to 10 P toolsets (api/speed.py) and the
 reference's default P call: single reference, subpel at speeds <= 8, CDEF
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import functools
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
@@ -56,8 +65,9 @@ from rav1e_tpu_torch.core.constants import (
     TxSize,
     TxType,
 )
-from rav1e_tpu_torch.device import resolve_device
+from rav1e_tpu_torch.device import SideStream, resolve_device, to_host
 from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
+from rav1e_tpu_torch.entropy.native import NativeTileWriter
 from rav1e_tpu_torch.entropy.obu import (
     FrameParams,
     Sequence,
@@ -86,7 +96,8 @@ def _not_ported(what: str, item: str):
 
 class _Stages:
     """Wall time per stage into `out` (None: off), each taken after the
-    device has finished the stage's work."""
+    device has finished the stage's work on the current stream (the
+    stream of the thread that runs the stage)."""
 
     def __init__(self, dev: torch.device, out: dict | None):
         self.dev, self.out = dev, out
@@ -96,7 +107,7 @@ class _Stages:
         if self.out is None:
             return
         if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+            torch.cuda.current_stream(self.dev).synchronize()
         now = time.perf_counter()
         self.out[name] = now - self.t
         self.t = now
@@ -1721,19 +1732,20 @@ def _core(h: int, w: int, use_cdef: bool = False,
 
 def _fetch_packed(o, gather_dense, nby, nbx, packed=None):
     """Pull one frame's decisions to the host: ONE transfer of the
-    packed buffer + (rarely) one batched gather for stream-overflow
-    blocks. Returns (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
+    packed buffer (into a pinned buffer, on the current stream) +
+    (rarely) one batched gather for stream-overflow blocks. Returns
+    (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
     lf_lvl, cdef_idx, choice, mvb8, b64_map, split16, skip8)."""
     (mv8, skip, split, mv16, skip16, choice, mvb8, lf, cdef_map,
      counts, pos, val, b64_map, split16, skip8) = unpack_outputs(
-        o[0].cpu().numpy() if packed is None else packed, nby, nbx)
+        to_host(o[0]) if packed is None else packed, nby, nbx)
     lv_y, lv_u, lv_v, over = unpack_stream(counts, pos, val, split,
                                            _stream_cap(nby * nbx),
                                            split16=split16)
     didx = np.nonzero(over)[0]
     if len(didx):
-        g = gather_dense(o[1], o[2], o[3], torch.as_tensor(
-            didx, device=o[1].device)).cpu().numpy()
+        g = to_host(gather_dense(o[1], o[2], o[3], torch.as_tensor(
+            didx, device=o[1].device)))
         lv_y[didx] = g[:, :1024].reshape(-1, 32, 32)
         lv_u[didx] = g[:, 1024:1280].reshape(-1, 16, 16)
         lv_v[didx] = g[:, 1280:].reshape(-1, 16, 16)
@@ -1742,7 +1754,7 @@ def _fetch_packed(o, gather_dense, nby, nbx, packed=None):
 
 
 def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
-                 use_native=False, cdef=None, film_grain=None,
+                 use_native=True, cdef=None, film_grain=None,
                  render_size=None, lf_level=0, split=None, mv16=None,
                  skip16=None, refresh_flags=0x01, ref_slot=0,
                  show_frame=True, choice=None, b64_map=None,
@@ -1750,9 +1762,13 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
                  bit_depth: int = 8, tile_grid: tuple | None = None,
                  device=None, timings: dict | None = None):
     """Entropy-pack one P frame (single ref) from the batched outputs:
-    TileWriter walks the blocks on the host and its RecordingEncoder has
-    the tile range-coded on `device` (the od_ec kernel on cuda).
-    `timings` receives tile_walk, ec_kernel and finish.
+    the C++ packer (use_native, the reference's default) or the Python
+    TileWriter walks the blocks on the host into od_ec symbol IR, which
+    is range-coded on `device` (the od_ec kernels on cuda). As in the
+    reference, the packer takes write_inter_tile_fast when there is no
+    split map, no CDEF index, no intra, 64x64 or 16->8 block, and
+    write_inter_tile_fast2 otherwise; a packer error raises. `timings`
+    receives tile_walk, ir_upload, ec_kernel and finish.
 
     split/mv16/skip16 (optional) describe PARTITION_SPLIT 32-blocks: four
     16x16 inter blocks with their own MVs and skips, their TX_16X16 luma
@@ -1766,10 +1782,9 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
 
     cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
     idx_map): the per-SB form signals the ladder entries the SBs chose
-    (compact_ladder) and a literal index per 64x64 SB in the tile. The
-    C++ packer, LR and tiles are not ported."""
-    if use_native:
-        _not_ported("the C++ packer", "item 9 (the C++ packer)")
+    (compact_ladder) and a literal index per 64x64 SB in the tile. LR,
+    bit depths above 8 and tile_grid raise NotImplementedError naming
+    their ROADMAP item."""
     cdef_map = None
     if cdef is not None and isinstance(cdef[1], np.ndarray):
         cdef, cdef_map = cdef
@@ -1800,21 +1815,64 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
          fp.cdef_damping) = cdef
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
-    nbx = w // 32
     intra_map = None if choice is None else np.asarray(choice) == 3
+    if intra_map is not None and not intra_map.any():
+        intra_map = None
     if b64_map is not None and not np.asarray(b64_map).any():
         b64_map = None
     if split16 is not None and not np.asarray(split16).any():
-        split16 = None
-    ec_times: dict = {}
-    tw = TileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
-                    encoder=functools.partial(RecordingEncoder, dev,
-                                              ec_times))
-    if cdef_bits:
-        tw.cdef_bits = cdef_bits
-        tw.cdef_idx_map = cdef_map
+        split16 = skip8 = None
+    if use_native:
+        tw = NativeTileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
+                              device=dev, timings=timings)
+        if (split is None and cdef_bits == 0 and intra_map is None
+                and b64_map is None and split16 is None):
+            tile = tw.write_inter_tile_fast(mv8, skip, lv_y, lv_u, lv_v)
+        else:
+            if split is None:
+                B = mv8.shape[0]
+                split = np.zeros(B, bool)
+                mv16 = np.repeat(mv8[:, None, :], 4, axis=1)
+                skip16 = np.repeat(np.asarray(skip).reshape(B, 1), 4,
+                                   axis=1)
+            # 8x8 children inherit the parent 16's MV
+            mvq8 = (None if split16 is None else
+                    np.repeat(np.asarray(mv16)[:, :, None, :], 4, axis=2))
+            tile = tw.write_inter_tile_fast2(
+                split, mv8, skip, mv16, skip16, lv_y, lv_u, lv_v,
+                cdef_idx=cdef_map, cdef_bits=cdef_bits, intra32=intra_map,
+                b64=b64_map, split16=split16, mvq8=mvq8, skip8=skip8)
+    else:
+        ec_times: dict = {}
+        tw = TileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
+                        encoder=functools.partial(RecordingEncoder, dev,
+                                                  ec_times))
+        if cdef_bits:
+            tw.cdef_bits = cdef_bits
+            tw.cdef_idx_map = cdef_map
+        partitions, blocks = _pframe_tile_dicts(
+            w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, intra_map,
+            b64_map, split16, skip8)
+        tile = tw.write_tile(partitions, blocks)
+        if timings is not None:
+            # the walk's own time: the coding stages are timed in done()
+            timings["tile_walk"] = (time.perf_counter() - t_walk
+                                    - ec_times["ec_kernel"]
+                                    - ec_times["finish"])
+            timings.update(ec_times)
+    return interframe_packet(seq, fp, ti, [tile], order_hint,
+                             refresh_flags=refresh_flags,
+                             ref_idx=[ref_slot] * 7, show_frame=show_frame)
+
+
+def _pframe_tile_dicts(w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
+                       intra_map, b64_map, split16, skip8):
+    """The P frame's blocks as TileWriter.write_tile's partitions and
+    blocks dicts (the Python writer's walk, use_native=False)."""
+    nbx = w // 32
     partitions: dict = {}
     blocks: dict = {}
+
     def inter_block(mv, sk, yl, ul, vl):
         mv = (int(mv[0]), int(mv[1]))
         d = BlockDecision(y_mode=(PredictionMode.GLOBALMV if mv == (0, 0)
@@ -1885,16 +1943,7 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
         blocks[(r, c)] = inter_block(mv8[b], skip[b], lv_y[b], lv_u[b],
                                      lv_v[b])
-    tile = tw.write_tile(partitions, blocks)
-    pkt = interframe_packet(seq, fp, ti, [tile], order_hint,
-                            refresh_flags=refresh_flags,
-                            ref_idx=[ref_slot] * 7, show_frame=show_frame)
-    if timings is not None:
-        # the walk's own time: the coding stages are timed in done()
-        timings["tile_walk"] = (time.perf_counter() - t_walk
-                                - ec_times["ec_kernel"] - ec_times["finish"])
-        timings.update(ec_times)
-    return pkt
+    return partitions, blocks
 
 
 def _ds16_quads(dscale, nby: int, nbx: int, device=None):
@@ -1916,7 +1965,7 @@ def _q_scalars(qindex: int, dev):
 
 
 def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
-                      order_hint: int = 1, use_native: bool = False,
+                      order_hint: int = 1, use_native: bool = True,
                       ref_dev=None, return_device: bool = False,
                       cdef: tuple | None = None, film_grain=None,
                       render_size: tuple | None = None,
@@ -1937,10 +1986,10 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     refinement (refine16), a 16-px search, subpel. The speed-6 tools are
     use_satd, intra_rdo, b64_rdo (with use_split) and use_split8; the
     speed-7 toolset is refine16=False, search=8; speed 8 adds
-    use_split=False, and speeds 9-10 take subpel=False. use_native (the
-    reference's C++ packer, which writes the same bytes as the Python
-    writer; item 9), lr, bit depths above 8 and tile_grid raise
-    NotImplementedError naming their ROADMAP item.
+    use_split=False, and speeds 9-10 take subpel=False. use_native: the
+    C++ packer walks the tile (the reference's default), else the Python
+    TileWriter (the same IR and bytes). lr, bit depths above 8 and
+    tile_grid raise NotImplementedError naming their ROADMAP item.
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
@@ -1951,8 +2000,6 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     int32) and, with return_device, the device recon too."""
     if lr:
         _not_ported("loop restoration", "item 13 (LRF)")
-    if use_native:
-        _not_ported("the C++ packer", "item 9 (the C++ packer)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
     if bit_depth != 8:
@@ -1986,11 +2033,11 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     rec = [r.cpu().numpy().astype(np.int32) for r in rec_dev]
     stages.mark("fetch_unpack")
     pkt = _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u,
-                       lv_v, cdef=None if cdef is None else (cdef_prm,
-                                                             cdef_map),
+                       lv_v, use_native=use_native,
+                       cdef=None if cdef is None else (cdef_prm, cdef_map),
                        film_grain=film_grain,
                        render_size=render_size, lf_level=lf_lvl,
-                       split=split, mv16=mv16, skip16=skip16,
+                       **_split_args(use_split, split, mv16, skip16),
                        refresh_flags=refresh_flags, ref_slot=ref_slot,
                        show_frame=show_frame,
                        choice=choice if intra_rdo else None,
@@ -2001,6 +2048,15 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     if return_device:
         return pkt, rec, rec_dev
     return pkt, rec
+
+
+def _split_args(use_split: bool, split, mv16, skip16) -> dict:
+    """_pack_pframe's split arguments: the fetched maps, or None for a
+    step without split RDO (the packer then takes write_inter_tile_fast
+    when nothing else needs write_inter_tile_fast2)."""
+    if not use_split:
+        return dict(split=None, mv16=None, skip16=None)
+    return dict(split=split, mv16=mv16, skip16=skip16)
 
 
 def _cdef_prm(cdef):
@@ -2025,21 +2081,23 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     frame, with damping cdef[4]; each P frame then references the
     CDEF-filtered recon.
 
-    The frames run in order: the keyframe's device half, its host pack,
-    then each P step, its fetch and its host pack. The reference planes
-    stay on the device between frames (the keyframe's filtered recon,
-    then each P frame's). The reference's overlap of the keyframe pack
-    and of per-frame fetch and pack with later frames' device work is
-    ROADMAP item 10. Returns (packets, recons): the keyframe's recon as
-    numpy int32 planes, each P frame's as uint8 tensors on the device.
-    `timings`, when given a list, receives one dict of stage times per
-    frame."""
+    The schedule is the reference's: the main thread runs the keyframe's
+    device half (encode_keyframe_tpu(deferred=True)), then uploads and
+    dispatches each P step in order, its reference planes staying on the
+    device (the keyframe's filtered recon, then each P frame's); a pool
+    of four worker threads runs the keyframe's host half, pack_src of
+    every P frame and each P frame's fetch + pack, each worker's device
+    work on a stream of its own that waits for its frame's step. Returns
+    (packets, recons): the keyframe's recon as numpy int32 planes, each
+    P frame's as uint8 tensors on the device. `timings`, when given a
+    list, receives one dict of stage times per frame, each stage timed
+    on the thread that ran it; the first dict also gets gop_wall, the
+    whole call's wall time."""
     from rav1e_tpu_torch.api.speed import SpeedSettings
     from rav1e_tpu_torch.pipeline.tpu_intra import (_check_options,
-                                                    analyze_keyframe,
-                                                    encode_keyframe_tpu,
-                                                    pack_keyframe)
-    _check_options(cdef, False, False, False, frames[0], None)
+                                                    encode_keyframe_tpu)
+    t_gop = time.perf_counter()
+    _check_options(cdef, False, False, frames[0], None)
     ss = SpeedSettings.from_preset(speed)
     if len(frames) > 1 and ss.search_px > SEARCH:
         # raised before the keyframe is encoded
@@ -2053,17 +2111,19 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         timings.append({})
         return timings[-1]
 
+    def wall():
+        if timings is not None:
+            timings[0]["gop_wall"] = time.perf_counter() - t_gop
+
     if len(frames) == 1:
         pkt, rec = encode_keyframe_tpu(frames[0], qindex=qindex,
                                        speed=speed, cdef=cdef, device=dev,
                                        timings=frame_times())
+        wall()
         return [pkt], [rec]
-    t_kf = frame_times()
-    kd = analyze_keyframe(frames[0], qindex, speed, cdef=cdef, device=dev,
-                          timings=t_kf)
-    kf_pkt, kf_rec = pack_keyframe(kd, frames[0], qindex, device=dev,
-                                   timings=t_kf)
-    pkts, recs = [kf_pkt], [kf_rec]
+    kf_finish, ref_dev = encode_keyframe_tpu(
+        frames[0], qindex=qindex, speed=speed, cdef=cdef, deferred=True,
+        device=dev, timings=frame_times())
     h, w = frames[0][0].shape
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=ss.partition_split_rdo,
@@ -2078,27 +2138,44 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     rd = build_rd_inter(qindex, device=dev)
     cdef_prm = _cdef_prm(cdef)
     ones = _ds16_quads(None, nby, nbx, dev)
-    rp = kd.rec_packed
-    ref_dev = (rp[:h], rp[h:, :w // 2], rp[h:, w // 2:])
-    for i, f in enumerate(frames[1:], start=1):
-        t_p = frame_times()
-        stages = _Stages(dev, t_p)
-        src = torch.from_numpy(pack_src(f)).to(dev)
-        stages.mark("upload")
-        o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones, stages.mark)
-        ref_dev = o[4:7]
-        (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
-         cdef_map, choice, _, b64m, split16, skip8) = _fetch_packed(
-            o, gdense, nby, nbx)
-        stages.mark("fetch_unpack")
-        s8 = ss.partition_split8
-        pkts.append(_pack_pframe(
-            h, w, qindex, i, mv8, skip, lv_y, lv_u, lv_v,
-            cdef=None if cdef is None else (cdef_prm, cdef_map),
-            lf_level=lf_lvl, split=split, mv16=mv16, skip16=skip16,
-            choice=choice if speed <= 6 else None,
-            b64_map=b64m if speed <= 6 else None,
-            split16=split16 if s8 else None, skip8=skip8 if s8 else None,
-            device=dev, timings=t_p))
-        recs.append([o[4], o[5], o[6]])
+    s8 = ss.partition_split8
+
+    def tail(i, o, after, t_p):
+        """Fetch frame i's packed decisions and entropy-pack them (on a
+        worker, after frame i's step)."""
+        with after:
+            stages = _Stages(dev, t_p)
+            (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
+             cdef_map, choice, _, b64m, split16, skip8) = _fetch_packed(
+                o, gdense, nby, nbx)
+            stages.mark("fetch_unpack")
+            return _pack_pframe(
+                h, w, qindex, i, mv8, skip, lv_y, lv_u, lv_v,
+                cdef=None if cdef is None else (cdef_prm, cdef_map),
+                lf_level=lf_lvl,
+                **_split_args(ss.partition_split_rdo, split, mv16, skip16),
+                choice=choice if speed <= 6 else None,
+                b64_map=b64m if speed <= 6 else None,
+                split16=split16 if s8 else None,
+                skip8=skip8 if s8 else None, device=dev, timings=t_p)
+
+    with ThreadPoolExecutor(4) as ex:
+        kf_fut = ex.submit(kf_finish)
+        src_futs = [ex.submit(pack_src, f) for f in frames[1:]]
+        outs, pkt_futs = [], []
+        for i, sf in enumerate(src_futs, start=1):
+            t_p = frame_times()
+            stages = _Stages(dev, t_p)
+            src = torch.from_numpy(sf.result()).to(dev)
+            stages.mark("upload")
+            o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones,
+                     stages.mark)
+            ref_dev = o[4:7]
+            # the outputs stay referenced in outs until every tail ends
+            outs.append(o)
+            pkt_futs.append(ex.submit(tail, i, o, SideStream(dev), t_p))
+        kf_pkt, kf_rec = kf_fut.result()
+        pkts = [kf_pkt] + [f.result() for f in pkt_futs]
+    recs = [kf_rec] + [[o[4], o[5], o[6]] for o in outs]
+    wall()
     return pkts, recs

@@ -15,9 +15,12 @@ runs in two phases:
 
 Then `_kf_filters` runs the deblock level search and CDEF (the per-SB
 ladder search of ops/cdef, or one fixed strength) and `_kf_meta` packs
-the meta + nonzero-coefficient stream; the host unpacks it, walks the
-blocks into TileWriter, whose RecordingEncoder has the tile range-coded
-by the CUDA kernel of entropy/ec_cuda, and builds the OBU packet.
+the meta + nonzero-coefficient stream; the host unpacks it, the C++
+packer (entropy/native.py) walks the tile into od_ec symbol IR in one
+call, the CUDA kernels of entropy/ec_cuda range-code the IR, and the
+host builds the OBU packet. With deferred=True that host half is handed
+back as a callable for a worker thread (encode_gop_tpu runs it while
+the P frames compute).
 
 The toolsets of every speed preset (api/speed.py): DC-only luma and
 chroma at speeds 9-10, the 7 non-directional luma modes and 4 chroma
@@ -36,8 +39,8 @@ speed-6 keyframe:
   - when the source has detail in the 8..16 px band (_detail_band8 >
     256), each quad may split again into four 8x8 luma blocks with 4x4
     joint-uv chroma (the 16->8 split).
-Other options (AQ, LR, the deferred pack, bit depth > 8) raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+Other options (AQ, LR, bit depth > 8) raise NotImplementedError naming
+the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ from rav1e_tpu_torch.core.constants import (
     TxType,
 )
 from rav1e_tpu_torch.api.speed import SpeedSettings
-from rav1e_tpu_torch.device import resolve_device
+from rav1e_tpu_torch.device import SideStream, resolve_device, to_host
 from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
+from rav1e_tpu_torch.entropy.native import NativeTileWriter
 from rav1e_tpu_torch.entropy.obu import (
     FrameParams,
     Sequence,
@@ -1292,16 +1296,13 @@ class KeyframeDevice(NamedTuple):
     cdef_rdo: bool = True
 
 
-def _check_options(cdef, lr, aq, deferred, planes, seq_extra):
+def _check_options(cdef, lr, aq, planes, seq_extra):
     if cdef is not None and len(cdef) != 5:
         raise ValueError("cdef is (y_pri, y_sec, uv_pri, uv_sec, damping)")
     if aq:
         _not_ported("variance AQ", "item 14 (keyframe variance AQ)")
     if lr:
         _not_ported("loop restoration", "item 13 (LRF)")
-    if deferred:
-        _not_ported("the deferred keyframe pack",
-                    "item 10 (encode_gop + port bench)")
     if ((seq_extra or {}).get("bit_depth", 8) > 8
             or any(int(np.max(p)) > 255 for p in planes)):
         _not_ported("bit depth above 8", "item 12 (bd=10)")
@@ -1438,23 +1439,45 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
     Returns (packet, [y, u, v] recon int32) — the same as the
     reference's encode_keyframe_tpu at the same speed: the recon is the
     decoder's output (deblocking and CDEF included). `timings`, when
-    given, receives the wall time of each stage."""
-    _check_options(cdef, lr, aq, deferred, planes, seq_extra)
+    given, receives the wall time of each stage.
+
+    deferred=True returns (finish, rec_dev) once the device half is
+    queued, as the reference does: `finish()`, callable from any thread,
+    runs the host half (pack_keyframe, on a stream of its own that waits
+    for the device half) and returns (packet, recon); rec_dev is the
+    filtered recon's three planes on the device (uint8), for P frames to
+    reference meanwhile."""
+    _check_options(cdef, lr, aq, planes, seq_extra)
     dev = resolve_device(device)
     kd = analyze_keyframe(planes, qindex, speed, deblock, cdef, cdef_rdo,
                           dev, timings)
-    return pack_keyframe(kd, planes, qindex, render_size, seq_extra, dev,
-                         timings)
+    if not deferred:
+        return pack_keyframe(kd, planes, qindex, render_size, seq_extra,
+                             dev, timings)
+    after = SideStream(dev)
+
+    def finish():
+        with after:
+            return pack_keyframe(kd, planes, qindex, render_size,
+                                 seq_extra, dev, timings)
+
+    h, w = np.asarray(planes[0]).shape
+    rp = kd.rec_packed
+    return finish, (rp[:h], rp[h:, :w // 2], rp[h:, w // 2:])
 
 
 def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
                   render_size: tuple | None = None,
                   seq_extra: dict | None = None, device=None,
-                  timings: dict | None = None):
+                  timings: dict | None = None, use_native: bool = True):
     """The host half of a keyframe encode (the reference's deferred
     `_finish`): one fetch of the meta buffer and the recon, unpack, the
     overflow gather, the tile walk (its IR range-coded on `device`) and
-    the OBU packet. Returns (packet, [y, u, v] recon int32)."""
+    the OBU packet. The walk is the C++ packer's write_intra_tile_fast,
+    as in the reference; use_native=False walks the blocks in the Python
+    TileWriter instead (same IR, row for row), the writer the tests and
+    chip_smoke.py hold the packer against. Returns (packet, [y, u, v]
+    recon int32)."""
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     h, w = np.asarray(planes[0]).shape
@@ -1463,7 +1486,7 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     cap = _kf_stream_cap(B)
 
     # ---- fetch + unpack (host) ----
-    meta = kd.meta.cpu().numpy()
+    meta = to_host(kd.meta)
     o0 = (B + 1) * KF_META
     body = meta[:o0].reshape(B + 1, KF_META)
     body, mtail = body[:-1], body[-1]
@@ -1505,12 +1528,12 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     ly = lv_y.reshape(bh, bw, 32, 32)
     lu = lv_u.reshape(bh, bw, 16, 16)
     lvv = lv_v.reshape(bh, bw, 16, 16)
-    rp = kd.rec_packed.cpu().numpy()
+    rp = to_host(kd.rec_packed)
     rec = [rp[:h].astype(np.int32), rp[h:, :w // 2].astype(np.int32),
            rp[h:, w // 2:].astype(np.int32)]
     stages.mark("fetch_unpack")
 
-    # ---- tile walk (host) into the writer; the kernel codes the IR ----
+    # ---- tile walk (host) into IR; the kernel codes the IR ----
     t_walk = time.perf_counter()
     seq = Sequence(width=w, height=h, enable_cdef=kd.cdef is not None)
     for k, v_ in (seq_extra or {}).items():
@@ -1528,6 +1551,17 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
          fp.cdef_damping) = kd.cdef
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
+    if use_native:
+        tw = NativeTileWriter(mi_rows, mi_cols, qindex, device=dev,
+                              timings=timings)
+        tile = tw.write_intra_tile_fast(
+            sp.reshape(-1), my.reshape(-1, 5), mu.reshape(-1, 5),
+            cfm.reshape(-1, 2), ly.reshape(-1, 32, 32),
+            lu.reshape(-1, 16, 16), lvv.reshape(-1, 16, 16),
+            cdef_idx=cdef_map, cdef_bits=cdef_bits,
+            ytx=ytx.reshape(-1, 4), split16=s16 if any8 else None,
+            ym8=ym8 if any8 else None, uvm8=uvm8 if any8 else None)
+        return keyframe_packet(seq, fp, ti, [tile]), rec
     ec_times: dict = {}
     tw = TileWriter(mi_rows, mi_cols, qindex,
                     encoder=functools.partial(RecordingEncoder, dev,
@@ -1535,8 +1569,27 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     if cdef_bits:
         tw.cdef_bits = cdef_bits
         tw.cdef_idx_map = cdef_map
+    partitions, blocks = _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8,
+                                        uvm8, ly, lu, lvv, mi_rows, mi_cols)
+    tile = tw.write_tile(partitions, blocks)
+    pkt = keyframe_packet(seq, fp, ti, [tile])
+    if timings is not None:
+        # the walk's own time: the coding stages are timed in done()
+        timings["tile_walk"] = (time.perf_counter() - t_walk
+                                - ec_times["ec_kernel"] - ec_times["finish"])
+        timings.update(ec_times)
+    return pkt, rec
+
+
+def _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8, uvm8, ly, lu, lvv,
+                   mi_rows: int, mi_cols: int):
+    """The keyframe's blocks, from pack_keyframe's grids ([bh, bw, ...]),
+    as TileWriter.write_tile's partitions and blocks dicts (the Python
+    writer's walk, use_native=False)."""
+    bh, bw = sp.shape
     partitions: dict = {}
     blocks: dict = {}
+
     def intra_block(y_mode, uv_mode, yl, ul, vl, y_tx_type, cfl=None):
         d = BlockDecision(y_mode=PredictionMode(int(y_mode)),
                           uv_mode=PredictionMode(int(uv_mode)),
@@ -1594,11 +1647,4 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     for r in range(0, mi_rows, 16):
         for c in range(0, mi_cols, 16):
             partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.SPLIT
-    tile = tw.write_tile(partitions, blocks)
-    pkt = keyframe_packet(seq, fp, ti, [tile])
-    if timings is not None:
-        # the walk's own time: the coding stages are timed in done()
-        timings["tile_walk"] = (time.perf_counter() - t_walk
-                                - ec_times["ec_kernel"] - ec_times["finish"])
-        timings.update(ec_times)
-    return pkt, rec
+    return partitions, blocks

@@ -119,8 +119,8 @@ def test_chunked_model_matches_plain_on_random_streams(seed, L):
 
 @pytest.fixture(scope="module")
 def keyframe_irs():
-    """The IR of the port's CPU keyframe at 128x96, q 100 and q 30, and
-    the packets (captured as chip_smoke.py does)."""
+    """The IR of the port's CPU keyframe at 128x96, q 100 and q 30 (the
+    C++ packer's), and the packets (captured as chip_smoke.py does)."""
     from rav1e_tpu_torch.pipeline import tpu_intra as tti
     rng = np.random.default_rng(7)
     yy, xx = np.mgrid[0:96, 0:128]
@@ -130,19 +130,19 @@ def keyframe_irs():
     v = (128 - 25 * np.cos(yy[::2, ::2] / 19)).clip(0, 255).astype(np.uint8)
     captured = {}
 
-    class Capture(ec_cuda.RecordingEncoder):
-        def done(self):
-            captured[q] = self.ir_tensor()
-            return super().done()
+    class Capture(tti.NativeTileWriter):
+        def code(self, ir):
+            captured[q] = ir.clone()
+            return super().code(ir)
 
-    orig, tti.RecordingEncoder = tti.RecordingEncoder, Capture
+    orig, tti.NativeTileWriter = tti.NativeTileWriter, Capture
     pkts = {}
     try:
         for q in (100, 30):
             pkts[q], _ = tti.encode_keyframe_tpu([y, u, v], q, speed=10,
                                                  device="cpu")
     finally:
-        tti.RecordingEncoder = orig
+        tti.NativeTileWriter = orig
     return {q: (captured[q], pkts[q]) for q in pkts}
 
 

@@ -481,14 +481,14 @@ def test_noise_pframe_takes_the_overflow_gather():
     _decode_exactly([kf_pkt, pkt_t], [kf_rec, rec_t])
 
 
-@pytest.mark.parametrize("kw", [{"lr": True}, {"use_native": True},
+@pytest.mark.parametrize("kw", [{"lr": True},
                                 {"bit_depth": 10}, {"bit_depth": 12},
                                 {"tile_grid": (1, 2)}])
 def test_pframe_options_beyond_the_slice_raise(kw):
     """On top of the speed-7 toolset, each option the port does not reach
-    yet (loop restoration, the C++ packer, bit depths 10 and 12, tiles)
-    raises NotImplementedError naming its ROADMAP item; so does each on
-    top of the reference's defaults."""
+    yet (loop restoration, bit depths 10 and 12, tiles) raises
+    NotImplementedError naming its ROADMAP item; so does each on top of
+    the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -496,6 +496,21 @@ def test_pframe_options_beyond_the_slice_raise(kw):
                                  **{**SPEED7, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tinter.encode_pframe_tpu(planes, planes, device="cpu", **kw)
+
+
+def test_pframe_packer_and_python_writer_agree():
+    """encode_pframe_tpu's default C++ packer (use_native=True) and the
+    Python TileWriter walk give the same packet and recon on the speed-7
+    toolset at 64x64."""
+    frames = motion_frames(64, 64, 2)
+    pkt_n, rec_n = tinter.encode_pframe_tpu(frames[1], frames[0],
+                                            device="cpu", **SPEED7)
+    pkt_p, rec_p = tinter.encode_pframe_tpu(frames[1], frames[0],
+                                            device="cpu", use_native=False,
+                                            **SPEED7)
+    assert pkt_n == pkt_p
+    for a, b in zip(rec_n, rec_p):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_gop_below_speed_9_raises_and_cuda_is_the_default():

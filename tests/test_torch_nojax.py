@@ -38,6 +38,11 @@ assert len(pkts6) == 2 and len(pkts6[1]) > 0
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "rav1e_tpu"))]
 assert not bad, bad
+# the C++ packer the port loaded is its own, not the JAX package's
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "rav1e_tpu/native/" not in maps
+assert "rav1e_tpu_torch/build/libpacker_" in maps
 print("ok", len(pkt))
 """
 
@@ -57,16 +62,24 @@ def test_source_scan_no_jax_no_reference_imports():
     """No `import jax` / `from jax` and no module name rav1e_tpu (one not
     followed by `_torch`) in the port or chip_smoke.py. A repository
     path (`rav1e_tpu/...`) names the reference's files in docs and in
-    the kernels line; it is not a module."""
+    the kernels line; it is not a module. Neither they nor the port's
+    C++/CUDA sources name the JAX package's packer library
+    (`rav1e_tpu/native`, `libpacker`): the port builds its own."""
     files = sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     jax_imp = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     ref_mod = re.compile(r"\brav1e_tpu(?!_torch|/)\b")
+    ref_lib = re.compile(r"rav1e_tpu/native|libpacker")
     for f in files:
         src = f.read_text()
         assert not jax_imp.search(src), f
         m = ref_mod.search(src)
         assert m is None, (f, src[max(0, m.start() - 40): m.end() + 40])
+    srcs = sorted((ROOT / "rav1e_tpu_torch" / "csrc").iterdir())
+    assert any(f.suffix == ".cpp" for f in srcs)
+    for f in files + srcs:
+        m = ref_lib.search(f.read_text())
+        assert m is None, (f, m.group(0))
 
 
 def test_entry_point_without_device_and_without_cuda_raises():
@@ -81,8 +94,7 @@ def test_entry_point_without_device_and_without_cuda_raises():
         encode_keyframe_tpu(planes, 100, speed=8)
 
 
-@pytest.mark.parametrize("opt,value", [("aq", True), ("lr", True),
-                                       ("deferred", True)])
+@pytest.mark.parametrize("opt,value", [("aq", True), ("lr", True)])
 def test_options_beyond_the_slice_raise(opt, value):
     """Options the ported slices do not reach raise NotImplementedError
     naming their ROADMAP item; none falls through to another path."""
@@ -92,6 +104,22 @@ def test_options_beyond_the_slice_raise(opt, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         encode_keyframe_tpu(planes, 100, device="cpu",
                             **{"speed": 7, opt: value})
+
+
+def test_deferred_keyframe_finish_equals_the_direct_call():
+    """deferred=True on the CPU returns (finish, rec_dev): finish() gives
+    the direct call's packet and recon, rec_dev that recon's planes."""
+    import chip_smoke
+    from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
+    planes = chip_smoke.synth(64, 64)[0]
+    pkt, rec = encode_keyframe_tpu(planes, 100, speed=7, device="cpu")
+    finish, rec_dev = encode_keyframe_tpu(planes, 100, speed=7,
+                                          device="cpu", deferred=True)
+    pkt_d, rec_d = finish()
+    assert pkt_d == pkt
+    for a, b, c in zip(rec, rec_d, rec_dev):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c.numpy())
 
 
 @pytest.fixture(scope="module")
