@@ -24,10 +24,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (every shape in one mixed group): max |err| 0; kernel, plain and
      indexing-call times; then a speed-6 1080p P frame's gathers
      replayed as the main path groups them (SPEED6_P_GROUPS, one launch
-     a group) on random planes of the frame's shapes: equal to the plain
-     version; kernel, plain and indexing ms, and the byte bound summed
-     over the launches (each launch reads a plane's covered elements
-     once);
+     a group) on random planes of the frame's shapes, and a speed-6
+     1080p B frame's (SPEED6_B_GROUPS): equal to the plain version;
+     kernel, plain and indexing ms, and the byte bound summed over the
+     launches (each launch reads a plane's covered elements once);
   5. the speed-10 keyframe at 1920x1088 on cuda, once to warm and once
      timed: stage times, the ec_pack launches, the tile's IR (the C++
      packer's) coded again by pack_ir_plain with identical bytes, and
@@ -111,17 +111,40 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   16. a speed-6 keyframe on a 1920x128 frame with phase 14's
      checkerboard every 256 px (the split8 gate on, quads split 16->8 at
      full width; the depth cut to keep the run short), counted as
-     phase 15.
+     phase 15;
+  17. the default reordered group (api/context.py at speed 6, bgroup =
+     4) after phase 15's keyframe, on synth(1920, 1088, n=5) at q 100
+     with cdef (0, 0, 0, 0, 3): the non-shown anchor P (frame 4), B0
+     (frame 2, non-shown), B1 (frame 1), show-existing 3, B1 (frame 3),
+     show-existing 1, each B with split and b64_rdo; the packets' sizes
+     and SHA-256 prefixes must be BGROUP_PINS; each frame's launches
+     (each B frame B_LAUNCHES, its gathers SPEED6_B_GROUPS; the anchor
+     SPEED6_P_GROUPS), each B tile's IR coded again by pack_ir_plain,
+     the B frames' shares of fwd, bwd, compound and split blocks and
+     their stage times;
+  17b. the two-reference frames on cuda vs on cpu at 256x192 on the fade
+     + occluding-mover content of tests/_torch_content.py: a speed-6 KEY
+     and phase 17's group, then a KEY -> P -> LAST + GOLDEN chain
+     (encode_pframe2_tpu): every fetched decision (MVs, choice, skips,
+     levels, split, mv16, CDEF map), the recons and the packets
+     identical; B0 takes fwd, bwd and compound blocks and splits, the
+     LAST + GOLDEN frame takes both references.
 
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
-frame took. Prints a kernels JSON line (launches: phases 15, 13 and 16
-together, and each path's own count, every count set to 0 just before
-its path; the gather's ms, bound and plain and indexing ms are phase
-4's replayed speed-6 P frame, with its launches a P frame; the CDEF
-kernels' launches per frame of those paths and their ms per 1080p
-frame), then, as the last line, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+frame took. Prints a kernels JSON line (launches: phases 15, 13, 16 and
+17 together, and each path's own count, every count set to 0 just
+before its path; the gather's ms, bound and plain and indexing ms are
+phase 4's replayed speed-6 P frame, with its launches a P frame, and the
+replayed B frame's beside them; the CDEF kernels' launches per frame of
+those paths and their ms per 1080p frame), then, as the last line,
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
 rav1e_tpu_torch package beside it.
+
+    python3 chip_smoke.py --bgroup-pins
+
+encodes phase 15's keyframe on cuda, then phase 17's group on the CPU
+route (device="cpu"), and prints the BGROUP_PINS that phase 17 checks.
 """
 
 from __future__ import annotations
@@ -863,6 +886,12 @@ SPEED6_P_GROUPS = (((43, 2040) + _Y,),
                    ((23, 2040) + _C,) * 2,
                    ((71, 510) + _Y,) * 2,
                    ((39, 510) + _C,) * 2)
+# a 1080p B frame's gathers (phase 17 must launch exactly these on each):
+# both references' descent patches; their six re-judge MCs (three
+# candidates each); their U/V windows at the chosen MVs
+SPEED6_B_GROUPS = (((43, 2040) + _Y,) * 2,
+                   ((39, 2040) + _Y,) * 6,
+                   ((23, 2040) + _C,) * 4)
 
 
 def _gather_starts(torch, rng, P, H, W, blk, B, ncol):
@@ -913,18 +942,20 @@ def gather_phase(torch, gp, floor_ms):
     """Phase 4. Per patch size and count (P, B): gather_patches and
     gather_patches_many (every shape in one mixed group) against the plain
     version, max |err|, kernel / plain / indexing ms (device time by CUDA
-    events, mean of 20 launches) and the byte bound. Then the speed-6 P
-    frame's gathers (SPEED6_P_GROUPS) replayed as the main path groups
-    them, on random planes of the frame's shapes. Returns ({(P, B):
-    numbers}, the frame's numbers)."""
+    events, mean of 20 launches) and the byte bound. Then a speed-6 P
+    frame's gathers (SPEED6_P_GROUPS) and a B frame's (SPEED6_B_GROUPS)
+    replayed as the main path groups them, on random planes of the
+    frame's shapes. Returns ({(P, B): numbers}, the P frame's numbers, the
+    B frame's)."""
     rng = np.random.default_rng(5)
     out = {}
     planes = {}
     starts = {}
     for P, H, W, blk, B, ncol in GATHER_SHAPES:
+        # two luma references; the U and V planes of two references
         planes.setdefault((H, W), [torch.from_numpy(
             rng.integers(0, 256, (H, W)).astype(np.int32)).cuda()
-            for _ in range(2)])
+            for _ in range(2 if (H, W) == _Y else 4)])
         starts[(P, B)] = _gather_starts(torch, rng, P, H, W, blk, B, ncol)
     items = [(planes[(H, W)][0], *starts[(P, B)], P)
              for P, H, W, _, B, _ in GATHER_SHAPES]
@@ -961,52 +992,66 @@ def gather_phase(torch, gp, floor_ms):
               f"{paced:.5f} ms each", flush=True)
         out[(P, B)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound, "err": err}
-    # the speed-6 P frame's gathers, grouped as the main path launches them
     shape = {(P, B, H, W): (blk, ncol)
              for P, H, W, blk, B, ncol in GATHER_SHAPES}
-    groups = []
-    for g in SPEED6_P_GROUPS:
-        items = []
-        for i, (P, B, H, W) in enumerate(g):
-            # one luma reference; a chroma group's items are U and V
-            plane = planes[(H, W)][0 if (H, W) == _Y else i]
-            blk, ncol = shape[(P, B, H, W)]
-            items.append((plane, *_gather_starts(torch, rng, P, H, W, blk, B,
-                                                 ncol), P))
-        groups.append(items)
 
-    def frame():
-        return [gp.gather_patches_many(g) for g in groups]
+    def replay(spec, what, plane_of):
+        """The frame's gathers grouped as the main path launches them,
+        plane_of(group, item) picking each item's plane."""
+        groups = []
+        for g in spec:
+            items = []
+            for i, (P, B, H, W) in enumerate(g):
+                blk, ncol = shape[(P, B, H, W)]
+                items.append((planes[(H, W)][plane_of(g, i)],
+                              *_gather_starts(torch, rng, P, H, W, blk, B,
+                                              ncol), P))
+            groups.append(items)
 
-    def frame_plain():
-        return [gp.gather_patches_many_plain(g) for g in groups]
+        def frame():
+            return [gp.gather_patches_many(g) for g in groups]
 
-    n0 = gp.gather_patches_many.launches
-    got = frame()
-    if gp.gather_patches_many.launches - n0 != len(groups):
-        fail("the replayed frame took other than one launch a group")
-    err = 0
-    for gg, gw in zip(got, frame_plain()):
-        for a, b in zip(gg, gw):
-            err = max(err, int((a - b).abs().max()))
-            if not torch.equal(a, b):
-                fail("the replayed speed-6 P frame's gathers differ from "
-                     f"the plain version (max |err| {err})")
-    calls = [_indexing(torch, gp, *it) for g in groups for it in g]
-    fr = {"ms": time_cuda(torch, frame, 20),
-          "plain_ms": time_cuda(torch, frame_plain, 20),
-          "library_ms": time_cuda(torch, lambda: [c() for c in calls], 20),
-          "bound_ms": sum(_gather_bound(torch, gp, g) for g in groups),
-          "launches": len(groups), "err": err}
-    print(f"# gather, a speed-6 1080p P frame replayed ({len(groups)} "
-          f"launches, {sum(map(len, groups))} gathers, groups "
-          f"{[[it[:2] for it in g] for g in SPEED6_P_GROUPS]}): kernel "
-          f"{fr['ms']:.5f} ms, plain {fr['plain_ms']:.5f} ms, indexing "
-          f"calls {fr['library_ms']:.5f} ms, summed byte bound "
-          f"{fr['bound_ms']:.5f} ms ({100 * fr['bound_ms'] / fr['ms']:.1f}% "
-          f"of it; {len(groups)} empty launches "
-          f"{len(groups) * floor_ms:.5f} ms), max |err| {err}", flush=True)
-    return out, fr
+        def frame_plain():
+            return [gp.gather_patches_many_plain(g) for g in groups]
+
+        n0 = gp.gather_patches_many.launches
+        got = frame()
+        if gp.gather_patches_many.launches - n0 != len(groups):
+            fail(f"the replayed {what} took other than one launch a group")
+        err = 0
+        for gg, gw in zip(got, frame_plain()):
+            for a, b in zip(gg, gw):
+                err = max(err, int((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    fail(f"the replayed {what}'s gathers differ from the "
+                         f"plain version (max |err| {err})")
+        calls = [_indexing(torch, gp, *it) for g in groups for it in g]
+        fr = {"ms": time_cuda(torch, frame, 20),
+              "plain_ms": time_cuda(torch, frame_plain, 20),
+              "library_ms": time_cuda(torch, lambda: [c() for c in calls],
+                                      20),
+              "bound_ms": sum(_gather_bound(torch, gp, g) for g in groups),
+              "launches": len(groups), "err": err}
+        print(f"# gather, a {what} replayed ({len(groups)} launches, "
+              f"{sum(map(len, groups))} gathers, groups "
+              f"{[[it[:2] for it in g] for g in spec]}): kernel "
+              f"{fr['ms']:.5f} ms, plain {fr['plain_ms']:.5f} ms, indexing "
+              f"calls {fr['library_ms']:.5f} ms, summed byte bound "
+              f"{fr['bound_ms']:.5f} ms "
+              f"({100 * fr['bound_ms'] / fr['ms']:.1f}% of it; "
+              f"{len(groups)} empty launches "
+              f"{len(groups) * floor_ms:.5f} ms), max |err| {err}",
+              flush=True)
+        return fr
+
+    # a P frame: one luma reference, a chroma group's items U and V; a B
+    # frame: each group's first half the fwd reference's, the second the
+    # bwd one's (chroma: U, V of fwd, then of bwd)
+    pf = replay(SPEED6_P_GROUPS, "speed-6 1080p P frame",
+                lambda g, i: 0 if g[i][2:] == _Y else i)
+    bf = replay(SPEED6_B_GROUPS, "speed-6 1080p B frame",
+                lambda g, i: i // (len(g) // 2) if g[i][2:] == _Y else i)
+    return out, pf, bf
 
 
 def _level_diffs(a_list, b_list):
@@ -1260,7 +1305,7 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
     SHA-256). `record`, a list, receives each pack call's arguments
     (("key", kd, planes) and ("p", args, kwargs)). Returns ({kernel:
     launches}, {gather group: launches}, with a group a tuple of its
-    items' (P, B, plane H, W), P frames, stage times)."""
+    items' (P, B, plane H, W), P frames, stage times, packets, recons)."""
     frames = synth(1920, h, n=n)
     w = 1920
     nsb = ((h // 32 + 1) // 2) * ((w // 32 + 1) // 2)
@@ -1420,7 +1465,35 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
               f"{json.dumps({L: round(t, 4) for L, t in ms.items()})}; "
               f"passes (ms): {json.dumps(pass_times(torch, ec, ir_d))}",
               flush=True)
-    return launches, sizes, n_p, timings
+    return launches, sizes, n_p, timings, pkts, recs
+
+
+class CapturedIR:
+    """While entered, keeps the IR and bytes of every tile the Python
+    TileWriter records (RecordingEncoder.done) through the modules `mods`,
+    in order, in .got."""
+
+    def __init__(self, ec, *mods):
+        self.ec, self.mods, self.got = ec, mods, []
+
+    def __enter__(self):
+        got = self.got
+
+        class Capture(self.ec.RecordingEncoder):
+            def done(self):
+                ir = self.ir_tensor()
+                got.append((ir, super().done()))
+                return got[-1][1]
+
+        self.saved = [m.RecordingEncoder for m in self.mods]
+        for m in self.mods:
+            m.RecordingEncoder = Capture
+        return self
+
+    def __exit__(self, *exc):
+        for m, enc in zip(self.mods, self.saved):
+            m.RecordingEncoder = enc
+        return False
 
 
 def packer_vs_writer(torch, ec, native, ti, tp, record):
@@ -1429,20 +1502,10 @@ def packer_vs_writer(torch, ec, native, ti, tp, record):
     RecordingEncoder (use_native=False), one after the other on this
     thread: the two IRs must be equal row for row, and the kernel's
     bytes on each must be pack_ir_plain + finish's."""
-    py = []
-
-    class Capture(ec.RecordingEncoder):
-        def done(self):
-            ir = self.ir_tensor()
-            py.append((ir, super().done()))
-            return py[-1][1]
-
     def order(c):
         return 0 if c[0] == "key" else c[1][3]
 
-    saved = ti.RecordingEncoder, tp.RecordingEncoder
-    ti.RecordingEncoder = tp.RecordingEncoder = Capture
-    try:
+    with CapturedIR(ec, ti, tp) as py:
         for c in sorted(record, key=order):
             def run(use_native, t):
                 if c[0] == "key":
@@ -1455,9 +1518,10 @@ def packer_vs_writer(torch, ec, native, ti, tp, record):
             t_n, t_p = {}, {}
             with PackerCalls(native) as calls:
                 pkt_n = run(True, t_n)
-            del py[:]
+            del py.got[:]
             pkt_p = run(False, t_p)
-            (method, _, ir_n, tile_n), (ir_p, tile_p) = calls.got[0], py[0]
+            (method, _, ir_n, tile_n), (ir_p, tile_p) = (calls.got[0],
+                                                         py.got[0])
             same_ir = ir_n.shape == ir_p.shape and torch.equal(ir_n, ir_p)
             c_p, st_p = ec.pack_ir_plain(ir_n)
             plain = ec.finish(c_p.tolist(), *st_p[:3].tolist())
@@ -1473,8 +1537,6 @@ def packer_vs_writer(torch, ec, native, ti, tp, record):
             if not (same_ir and same):
                 fail(f"frame {order(c)}: the packer and the Python writer "
                      "differ")
-    finally:
-        ti.RecordingEncoder, tp.RecordingEncoder = saved
 
 
 def speed6_content(w, h):
@@ -1628,6 +1690,234 @@ def speed6_keyframe(torch, ec, cd, native, ti, planes, what: str,
     return launches, timings
 
 
+# the reordered group's packets in coding order (the non-shown anchor P,
+# B0, B1, show-existing 3, B1, show-existing 1) after phase 15's keyframe
+# of synth(1920, 1088, n=5) at q 100 with cdef (0, 0, 0, 0, 3): (bytes,
+# SHA-256 prefix) from the port's CPU route (device="cpu") on the H100
+# machine's host, whose packets equal the JAX package's at every test
+# shape (tests/test_torch_bframe.py); made by
+# `python3 chip_smoke.py --bgroup-pins`
+BGROUP_PINS = [(30684, "610e340bbe53fed5"), (5372, "39d31b4932536438"),
+               (1951, "84e2ee92a6da14e1"), (5, "479f23cb97654286"),
+               (2406, "0d6f4e700308289c"), (5, "f5ed02db3266a088")]
+
+
+def reordered_group(tp, frames, krec, device, run=None):
+    """The group api/context.py codes at speed 6 with bgroup = 4 after a
+    keyframe (frames[0], its recon krec, slot 0, order hint 0), at q 100
+    with cdef (0, 0, 0, 0, 3): the non-shown anchor P (frame 4, refreshing
+    slot 1), B0 (frame 2 on KEY and the anchor, non-shown, refreshing slot
+    3), B1 (frame 1 on KEY and B0), show-existing 3, B1 (frame 3 on B0 and
+    the anchor), show-existing 1. run(label, fn, *a, **k) calls each
+    frame's entry point (default: fn(*a, **k)). Returns (the packets in
+    coding order, {frame: recon int32 planes})."""
+    from rav1e_tpu_torch.api.speed import SpeedSettings
+    from rav1e_tpu_torch.entropy.obu import show_existing_packet
+    ss = SpeedSettings.from_preset(6)
+    run = run or (lambda label, fn, *a, **k: fn(*a, **k))
+    kw = dict(cdef=CDEF_SPEED8, device=device)
+    bkw = dict(kw, b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo)
+    apkt, arec = run("anchor P (frame 4)", tp.encode_pframe_tpu, frames[4],
+                     [np.asarray(r, np.uint8) for r in krec], 100,
+                     order_hint=4, refresh_flags=1 << 1, ref_slot=0,
+                     show_frame=False, use_split=ss.partition_split_rdo,
+                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
+                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
+                     search=ss.search_px, subpel=ss.subpel,
+                     use_split8=ss.partition_split8, **kw)
+    b0, r0 = run("B0 (frame 2)", tp.encode_bframe_tpu, frames[2], krec, arec, 100,
+                 order_hint=2, slot_fwd=0, slot_bwd=1, ref_hints=(0, 4),
+                 refresh_flags=1 << 3, show_frame=False, **bkw)
+    b1, r1 = run("B1 (frame 1)", tp.encode_bframe_tpu, frames[1], krec, r0, 100,
+                 order_hint=1, slot_fwd=0, slot_bwd=3, ref_hints=(0, 2),
+                 **bkw)
+    b3, r3 = run("B1 (frame 3)", tp.encode_bframe_tpu, frames[3], r0, arec, 100,
+                 order_hint=3, slot_fwd=3, slot_bwd=1, ref_hints=(2, 4),
+                 **bkw)
+    pkts = [apkt, b0, b1, show_existing_packet(3), b3, show_existing_packet(1)]
+    return pkts, {1: r1, 2: r0, 3: r3, 4: arec}
+
+
+def _pins(pkts):
+    import hashlib
+    return [(len(p), hashlib.sha256(p).hexdigest()[:16]) for p in pkts]
+
+
+def bgroup_pins(torch, ti, tp):
+    """`--bgroup-pins`: phase 15's keyframe on cuda (its packet must be
+    GOP6_BYTES[0] bytes, the JAX package's), then phase 17's group on the
+    CPU route (device="cpu"). Prints BGROUP_PINS."""
+    frames = synth(1920, 1088, n=5)
+    kpkt, krec = ti.encode_keyframe_tpu(frames[0], 100, cdef=CDEF_SPEED8,
+                                        device="cuda")
+    if len(kpkt) != GOP6_BYTES[0]:
+        fail(f"the keyframe took {len(kpkt)} bytes, not {GOP6_BYTES[0]}")
+    t0 = time.perf_counter()
+    pkts, _ = reordered_group(tp, frames, krec, "cpu")
+    print(f"# the reordered group on the CPU route in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"BGROUP_PINS = {_pins(pkts)}", flush=True)
+    return 0
+
+
+# a B frame's kernel launches on the main path: its gathers in three
+# groups, the three CDEF kernels once each, one od_ec launch for its tile
+B_LAUNCHES = {"gather_patches": 3, "ec_pack": 1, "cdef_dirs": 1,
+              "cdef_ladder_sse": 1, "cdef_apply": 1}
+
+
+def bgroup_1080p(torch, ec, gp, cd, tp, krec, kpkt):
+    """Phase 17: the reordered group after phase 15's keyframe (its packet
+    kpkt and recon krec) on cuda, every kernel's count set to 0 just
+    before it and read just after, and per frame: packets against
+    BGROUP_PINS; each frame's launches and gather groups (the anchor:
+    SPEED6_P_GROUPS; each B frame: SPEED6_B_GROUPS and B_LAUNCHES); each B
+    tile's IR coded again by pack_ir_plain gives its bytes; the B frames'
+    shares of fwd, bwd, compound and split blocks and stage times.
+    Returns ({kernel: launches}, B frames, [(label, stage times)])."""
+    frames = synth(1920, 1088, n=5)
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    groups: dict = {}
+    saved = tp.gather_patches_many
+
+    def counting_gather(items):
+        items = list(items)
+        key = tuple((P, int(r0.shape[0])) + tuple(plane.shape)
+                    for plane, r0, _, P in items)
+        groups[key] = groups.get(key, 0) + 1
+        return saved(items)
+
+    rows = []
+
+    def run(label, fn, *a, **k):
+        groups.clear()
+        before = {n: f.launches for n, f in kern.items()}
+        got, restore = _recording_fetch(tp)
+        t = {}
+        try:
+            out = fn(*a, timings=t, **k)
+        finally:
+            restore()
+        rows.append((label, {n: f.launches - before[n]
+                             for n, f in kern.items()},
+                     dict(groups), t, got[0]))
+        return out
+
+    tp.gather_patches_many = counting_gather
+    try:
+        with CapturedIR(ec, tp) as cap:
+            for f in kern.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            pkts, recs = reordered_group(tp, frames, krec, "cuda", run=run)
+            wall = time.perf_counter() - t0
+            launches = {n: f.launches for n, f in kern.items()}
+    finally:
+        tp.gather_patches_many = saved
+    pins = _pins(pkts)
+    print(f"# 1920x1088 reordered group (KEY from phase 15, anchor P, B0, B1, "
+          f"SEF 3, B1, SEF 1; speed 6, q 100, cdef {CDEF_SPEED8}, cuda): "
+          f"{wall:.3f} s after the keyframe; packets {[len(kpkt)]} + "
+          f"{[n for n, _ in pins]} bytes, SHA-256 {[h for _, h in pins]}; "
+          f"the CPU route's (BGROUP_PINS) {BGROUP_PINS}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    want_b = {g: 1 for g in SPEED6_B_GROUPS}
+    want_p = {g: 1 for g in SPEED6_P_GROUPS}
+    for label, n, g, t, dec in rows:
+        d = dict(zip(FETCHED6, dec))
+        ch = np.bincount(d["choice"], minlength=4)[:3] / d["choice"].size
+        print(f"# {label}: shares of 32-blocks fwd / bwd / compound "
+              f"{ch.round(4).tolist()}, split {float(d['split'].mean()):.4f}"
+              f"; launches {json.dumps(n)}; gather groups (P, B, plane) "
+              f"{g}; stages (s) "
+              + json.dumps({k: round(v, 4) for k, v in t.items()}),
+              flush=True)
+        if label.startswith("anchor"):
+            if g != want_p:
+                fail(f"the anchor launched the gather groups {g}, not "
+                     f"{want_p}")
+            idle = [k for k, v in n.items() if v < 1]
+            if idle:
+                fail(f"the anchor launched no {idle}")
+        else:
+            if n != B_LAUNCHES or g != want_b:
+                fail(f"{label} launched {n} in the gather groups {g}, not "
+                     f"{B_LAUNCHES} in {want_b}")
+            if d["b64_map"].any():
+                fail(f"{label} merged a 64x64 SB")
+    if len(cap.got) != 3:
+        fail(f"{len(cap.got)} tiles recorded by the Python writer, 3 B "
+             "frames coded")
+    for (ir, tile), pkt in zip(cap.got, (pkts[1], pkts[2], pkts[4])):
+        c_p, st_p = ec.pack_ir_plain(ir)
+        if not (pkt.endswith(tile) and tile == ec.finish(
+                c_p.tolist(), *st_p[:3].tolist())):
+            fail("a B tile's IR coded by pack_ir_plain is not its bytes")
+    print(f"# the B tiles' IR ({[int(ir.shape[0]) for ir, _ in cap.got]} "
+          "rows) re-coded by pack_ir_plain: identical bytes", flush=True)
+    for i, rec in recs.items():
+        if [tuple(r.shape) for r in rec] != [p.shape for p in frames[i]] or \
+                any(r.min() < 0 or r.max() > 255 for r in rec):
+            fail(f"frame {i}: recon shapes wrong or outside 0..255")
+    if pins != BGROUP_PINS:
+        fail(f"the reordered group's packets {pins}, pinned {BGROUP_PINS}")
+    return launches, 3, [(r[0], r[3]) for r in rows]
+
+
+def bgroup_gpu_vs_cpu(tp, ti, w, h):
+    """Phase 17b: a KEY + the reordered group (speed 6, cdef) and a KEY ->
+    P -> LAST + GOLDEN P chain at w x h on cuda and on cpu, on the fade +
+    occluding-mover content of tests/_torch_content.py: every fetched
+    decision (MVs, choice, skips, levels, split, mv16, CDEF map, ...), the
+    recons and the packets identical; B0 takes fwd, bwd and compound
+    blocks and splits a 32-block, the LAST + GOLDEN frame both
+    references."""
+    frames = _tests_content().bgroup(w, h, n=5)
+    res = {}
+    for d in ("cuda", "cpu"):
+        got, restore = _recording_fetch(tp)
+        try:
+            kpkt, krec = ti.encode_keyframe_tpu(frames[0], 100,
+                                                cdef=CDEF_SPEED8, device=d)
+            pkts, recs = reordered_group(tp, frames, krec, d)
+            ppkt, prec = tp.encode_pframe_tpu(
+                frames[1], [r.astype(np.uint8) for r in krec], 100,
+                order_hint=1, cdef=CDEF_SPEED8, device=d)
+            mpkt, mrec = tp.encode_pframe2_tpu(
+                frames[2], prec, krec, 100, order_hint=2, cdef=CDEF_SPEED8,
+                use_satd=True, device=d)
+        finally:
+            restore()
+        res[d] = ([kpkt] + pkts + [ppkt, mpkt],
+                  [krec] + list(recs.values()) + [prec, mrec], got)
+    (pk_g, rc_g, g), (pk_c, rc_c, c) = res["cuda"], res["cpu"]
+    bad = []
+    for i, (a, b) in enumerate(zip(g, c)):
+        bad += [f"frame {i} {k}" for k, x, y in zip(FETCHED6, a, b)
+                if not np.array_equal(x, y)]
+    if not all(np.array_equal(np.asarray(x, np.int32), np.asarray(y, np.int32))
+               for ra, rb in zip(rc_g, rc_c) for x, y in zip(ra, rb)):
+        bad.append("recon")
+    same = [a == b for a, b in zip(pk_g, pk_c)]
+    b0 = dict(zip(FETCHED6, c[1]))
+    m2 = dict(zip(FETCHED6, c[-1]))
+    kinds = np.bincount(b0["choice"], minlength=3).tolist()
+    print(f"# {w}x{h} KEY + reordered group and KEY -> P -> LAST + GOLDEN, "
+          f"cuda vs cpu: differing {bad or 'nothing'}; packets identical "
+          f"{same} ({[len(p) for p in pk_c]} bytes); B0 blocks fwd / bwd / "
+          f"compound {kinds}, split {int(b0['split'].sum())}; LAST / GOLDEN "
+          f"blocks {np.bincount(m2['choice'], minlength=2).tolist()}",
+          flush=True)
+    if bad or not all(same):
+        fail(f"the {w}x{h} two-reference frames differ between cuda and "
+             f"cpu: {bad}, packets identical {same}")
+    if min(kinds[:3]) < 1 or not b0["split"].any() or \
+            len(set(m2["choice"].tolist())) < 2:
+        fail(f"the {w}x{h} B0 or LAST + GOLDEN frame lacks a block kind")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1640,6 +1930,8 @@ def main() -> int:
     import rav1e_tpu_torch.ops.gather as gp
     import rav1e_tpu_torch.pipeline.tpu_inter as tp
     import rav1e_tpu_torch.pipeline.tpu_intra as ti
+    if sys.argv[1:] == ["--bgroup-pins"]:
+        return bgroup_pins(torch, ti, tp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1670,7 +1962,7 @@ def main() -> int:
           "of a small launch's time that no kernel design closes",
           flush=True)
     kernel_vs_plain(torch, ec)
-    gather, gframe = gather_phase(torch, gp, floor_ms)
+    gather, gframe, bframe = gather_phase(torch, gp, floor_ms)
     ec_entry, kd, planes = slice_1080p(torch, ec, native, ti, floor_ms)
     # phase 6: the CDEF kernels on the deblocked 1080p keyframe recon
     # (sampled branch) and on it cut to 1920x1056 (full branch)
@@ -1708,12 +2000,12 @@ def main() -> int:
     # the speed-10 and speed-7 GOPs, their depth cut to 544 rows to keep
     # the run short
     gop_1080p(torch, ec, gp, cd, native, ti, tp, 2, 10, h=544)
-    gop7_launches, _, n_p7, _ = gop_1080p(torch, ec, gp, cd, native, ti,
+    gop7_launches, _, n_p7, _, _, _ = gop_1080p(torch, ec, gp, cd, native, ti,
                                           tp, 3, 7, CDEF_SPEED8, h=544)
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
     record: list = []
-    launches, groups, n_p, _ = gop_1080p(torch, ec, gp, cd, native, ti, tp,
+    launches, groups, n_p, _, pkts6, recs6 = gop_1080p(torch, ec, gp, cd, native, ti, tp,
                                          3, 6, CDEF_SPEED8,
                                          expect=GOP6_BYTES, record=record)
     # the same frames packed again by the packer and by the Python writer
@@ -1722,6 +2014,11 @@ def main() -> int:
     kf6s_launches, _ = speed6_keyframe(torch, ec, cd, native, ti,
                                        checker_tiled(synth(1920, 128)[0]),
                                        "1920x128 split8", True)
+    # the default reordered group after phase 15's keyframe, then the
+    # two-reference frames on cuda against cpu
+    bg_launches, n_b, _ = bgroup_1080p(torch, ec, gp, cd, tp, recs6[0],
+                                       pkts6[0])
+    bgroup_gpu_vs_cpu(tp, ti, 256, 192)
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -1757,19 +2054,30 @@ def main() -> int:
         "bound_ms": gframe["bound_ms"], "bound_by": "bytes",
         "library_ms": gframe["library_ms"],
         "launches_per_p_frame": per_frame}
+    gather_entry.update(
+        b_frame_ms=bframe["ms"], b_frame_plain_ms=bframe["plain_ms"],
+        b_frame_bound_ms=bframe["bound_ms"],
+        b_frame_library_ms=bframe["library_ms"],
+        launches_per_b_frame=B_LAUNCHES["gather_patches"])
+    gather_entry["max_abs_err"] = max(gather_entry["max_abs_err"],
+                                      bframe["err"])
+    print(f"# gather per speed-6 B frame ({bframe['launches']} launches): "
+          f"kernel {bframe['ms']:.5f} ms, summed byte bound "
+          f"{bframe['bound_ms']:.5f} ms "
+          f"({100 * bframe['bound_ms'] / bframe['ms']:.1f}%)", flush=True)
     print(f"# gather per speed-6 P frame ({per_frame:g} launches): kernel "
           f"{gframe['ms']:.5f} ms, summed byte bound "
           f"{gframe['bound_ms']:.5f} ms "
           f"({100 * gframe['bound_ms'] / gframe['ms']:.1f}%), empty "
           f"launches {per_frame * floor_ms:.5f} ms", flush=True)
     # launches on the main paths, each counted from 0 in its own run:
-    # phase 15's speed-6 GOP, phase 13's speed-7 GOP and phase 16's
-    # split8 keyframe
+    # phase 15's speed-6 GOP, phase 13's speed-7 GOP, phase 16's split8
+    # keyframe and phase 17's reordered group
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
-               "kf6_split8": kf6s_launches}
+               "kf6_split8": kf6s_launches, "bgroup6": bg_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
-    print(f"# launches on the main paths (phases 15, 13, 16): "
+    print(f"# launches on the main paths (phases 15, 13, 16, 17): "
           f"{json.dumps(by_path)}", flush=True)
 
     def paths(k):
@@ -1777,11 +2085,13 @@ def main() -> int:
 
     ec_entry["launches"] = launches["ec_pack"]
     ec_entry["launches_by_path"] = paths("ec_pack")
+    gather_entry["launches"] = launches["gather_patches"]
     gather_entry["launches_by_path"] = paths("gather_patches")
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
-    frames = (n_p + 1) + (n_p7 + 1) + 1       # the three paths' frames
+    # the four paths' frames (phase 17: the anchor and the B frames)
+    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b)
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],

@@ -36,13 +36,19 @@ when asked, at speeds <= 7 the PARTITION_SPLIT candidate (per-16 MVs from
 {parent, zero}, or refined in-patch with refine16; TX_16X16 + TX_8X8
 residuals; per-16 skip RD), and at speed 6 SATD in the subpel descent,
 the 16->8 split (TX_8X8 + TX_4X4 children on 4-tap chroma MC), the 64x64
-merge (TX_64X64) and intra-in-inter (DC_PRED 32x32). Other options raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+merge (TX_64X64) and intra-in-inter (DC_PRED 32x32). The two-reference
+step serves the B frame (encode_bframe_tpu: single-fwd, single-bwd or
+COMPOUND_AVERAGE per block, the cheap {parent, zero} split) and the
+LAST + GOLDEN P frame (encode_pframe2_tpu); both are packed by the
+Python TileWriter, as the reference packs them, its IR coded on the
+device. Other options raise NotImplementedError naming the ROADMAP.md
+item that brings them.
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
 one f32 add at a time, row-major; the merge's and intra-in-inter's
-SSEs: _sse64_xla, _sse_cols_xla, _sse_rows_xla), so the port's
+SSEs: _sse64_xla, _sse_cols_xla, _sse_rows_xla; the two-reference
+re-judge and ref choice: _sse_cols_xla, _sse_cols_b_xla), so the port's
 decisions match the reference's on the CPU; the other residual SSEs stay
 below 2^24 on real content and are summed by torch.
 """
@@ -260,16 +266,27 @@ def _mc_window(ref_pad, pos_r, pos_c, mv8, n, ss):
     return (ref_pad, ir + (p - 3), ic + (p - 3), n + 7), fr, fc
 
 
-def _mc_filter(patch, fr, fc, n, four_tap=False, bd: int = 8):
+def _mc_filter(patch, fr, fc, n, four_tap=False, bd: int = 8,
+               interm=False):
     """The filter half of batched sub-pel prediction: the separable 8-tap
     filter (four_tap: the spec's 4-tap bank, for blocks of w/h <= 4: the
     4x4 chroma of 16->8 children, predicted here as one region that
     shares the MV) of each block's window at its phases, in int32.
-    Returns [B, n, n]."""
+    interm keeps compound intermediate precision (spec 7.11.3.1
+    isCompound: InterRound1 = 7, unclipped) for _comp_avg. Returns
+    [B, n, n]."""
     bank = _filt(patch.device, four_tap)
     intm = _round2(_taps(bank[fc.long()], patch, n, -1), 3)
     out = _taps(bank[fr.long()], intm, n, -2)
+    if interm:
+        return _round2(out, 7)
     return torch.clamp(_round2(out, 11), 0, (1 << bd) - 1)
+
+
+def _comp_avg(p0, p1, bd: int = 8):
+    """COMPOUND_AVERAGE of two intermediate-precision predictions
+    (ops/ref/mc.py mc_predict_avg's twin): Round2(p0 + p1, 5), clipped."""
+    return torch.clamp(_round2(p0 + p1, 5), 0, (1 << bd) - 1)
 
 
 def _mc_windows(specs):
@@ -307,10 +324,8 @@ def _mc_patch(patch, ir0, ic0, pos_r, pos_c, mv8, n, ss, M,
     _mc_window + _mc_filter): the whole-pixel drift vs the patch centre (<= M) folds
     into an extended (8+2M)-tap filter with the 8 spec taps placed at
     the drift offset. Accepts extra leading batch dims shared across
-    the array arguments (mv8 [..., 2], pos/ir0 broadcastable)."""
-    if interm:
-        _not_ported("compound-precision MC (interm)",
-                    "item 11 (other P/B routes)")
+    the array arguments (mv8 [..., 2], pos/ir0 broadcastable). interm:
+    compound intermediate precision, as _mc_filter's."""
     p16r = (pos_r << 4) + mv8[..., 0] * (2 >> ss)
     p16c = (pos_c << 4) + mv8[..., 1] * (2 >> ss)
     ir, fr = p16r >> 4, p16r & 15
@@ -332,6 +347,8 @@ def _mc_patch(patch, ir0, ic0, pos_r, pos_c, mv8, n, ss, M,
     fv = ext(bank[fr.long()], cr)
     intm = _round2(_taps(fh, patch, n, -1), 3)
     out = _taps(fv, intm, n, -2)
+    if interm:
+        return _round2(out, 7)
     return torch.clamp(_round2(out, 11), 0, (1 << bd) - 1)
 
 
@@ -432,6 +449,35 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
     every candidate predicted from the one patch. use_satd ranks the
     descent's candidates by SATD + lam_sad x MV bits (speed 6) instead
     of SSE + lam x MV bits."""
+    return _search_refs([ryp], blks, by, bx, rd, B, use_satd, search,
+                        subpel, bd, ds2)[0]
+
+
+def _search_refs(refs, blks, by, bx, rd, B, use_satd=False,
+                 search: int = SEARCH, subpel: bool = True, bd: int = 8,
+                 ds2: bool = True):
+    """_search_one_ref against each padded reference plane of `refs`, the
+    descent patches of all of them gathered in one launch. Returns
+    [_search_one_ref's 5-tuple, ...]."""
+    full = [_search_fullpel(r, blks, rd, B, search, subpel, ds2)
+            for r in refs]
+    if not full[0][2]:
+        return [(mv_fp * 8, None, None, None, grid_fn)
+                for mv_fp, grid_fn, _, _ in full]
+    items = [_patch_window(r, by, bx, mv_fp * 8, 32, 0, M)
+             for r, (mv_fp, _, _, M) in zip(refs, full)]
+    patches = gather_patches_many([it[0] for it in items])
+    return [(_descend(patch, ir0, ic0, mv_fp, blks, by, bx, rd, B, steps, M,
+                      use_satd, bd), patch, ir0, ic0, grid_fn)
+            for patch, (_, ir0, ic0), (mv_fp, grid_fn, steps, M)
+            in zip(patches, items, full)]
+
+
+def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
+                    subpel: bool = True, ds2: bool = True):
+    """The full-pel stage of _search_one_ref. Returns (mv_fp [B, 2]
+    full-pel, grid_fn, the descent's steps in eighth-pel, the descent
+    patches' margin M)."""
     assert search <= PAD, (search, PAD)
     dev = ryp.device
     nby_l = ryp.shape[0] // 32 - 2                # h // 32
@@ -543,12 +589,16 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
         flat_i = (cy + grid_S) * (2 * grid_S + 1) + (cx + grid_S)
         return torch.gather(ssd_flat, 1, flat_i[:, None].long())[:, 0]
 
+    return mv_fp, grid_fn, desc_steps, M
+
+
+def _descend(patch32, pir0, pic0, mv_fp, blks, by, bx, rd, B, desc_steps,
+             M: int, use_satd: bool = False, bd: int = 8):
+    """The descent of _search_one_ref from the full-pel MVs mv_fp, every
+    candidate predicted from the block's one patch (drift <= M px).
+    Returns mv8 [B, 2] eighth-pel."""
+    dev = blks.device
     mv8 = mv_fp * 8
-    if not desc_steps:
-        return mv8, None, None, None, grid_fn
-    # one patch gather per block; every descent candidate evaluates
-    # in-patch (drift <= M px)
-    patch32, pir0, pic0 = _gather_patch(ryp, by, bx, mv8, 32, 0, M)
 
     def mv_rate(mv):
         return (rd["mv_bits"][torch.abs(mv[..., 0]).long()]
@@ -580,8 +630,7 @@ def _search_one_ref(ryp, blks, by, bx, rd, B, use_satd=False,
         best = torch.where(better, cbest, best)
     # zero-MV blocks stay GLOBALMV-zero
     is_zero = torch.all(mv_fp == 0, dim=1)
-    mv8 = torch.where(is_zero[:, None], 0, mv8)
-    return mv8, patch32, pir0, pic0, grid_fn
+    return torch.where(is_zero[:, None], 0, mv8)
 
 
 def _coarse_mv(y, ryp, B, search: int = SEARCH):
@@ -652,6 +701,16 @@ def _median_q(mv8):
     return torch.round(med / 2).to(torch.int32) * 2
 
 
+def _pick(k, xs):
+    """xs[k[b]][b] for every block b: k [B] indexes the list xs of [B, ...]
+    tensors."""
+    out = xs[0]
+    for i in range(1, len(xs)):
+        sel = (k == i).reshape((-1,) + (1,) * (xs[i].dim() - 1))
+        out = torch.where(sel, xs[i], out)
+    return out
+
+
 # ---- the P-frame body --------------------------------------------------------
 
 def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
@@ -662,14 +721,24 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                  b64_rdo: bool = False,
                  search: int = SEARCH, subpel: bool = True,
                  use_split8: bool = False, bd: int = 8, mark=_nomark):
-    """The batched P-frame encode of one frame, single reference: full-pel
-    search (use_satd: the descent ranks by SATD), MV-field candidate
-    passes, skip RD, and with use_split the PARTITION_SPLIT candidate
-    (per-16 MVs, TX_16X16 luma + TX_8X8 chroma, per-16 skip RD; with
-    use_split8 each quad's 16->8 split, TX_8X8 luma + TX_4X4 chroma on
-    4-tap chroma MC, per-8 skip RD), then with b64_rdo the 64x64 merge
-    (when nby and nbx are even) and with intra_rdo the intra-in-inter
-    flips, then recon and scan lines.
+    """The batched P-frame encode of one frame: full-pel search (use_satd:
+    the descent ranks by SATD), MV-field candidate passes, skip RD, and
+    with use_split the PARTITION_SPLIT candidate (per-16 MVs, TX_16X16
+    luma + TX_8X8 chroma, per-16 skip RD; with use_split8 each quad's
+    16->8 split, TX_8X8 luma + TX_4X4 chroma on 4-tap chroma MC, per-8
+    skip RD), then with b64_rdo the 64x64 merge (when nby and nbx are
+    even) and with intra_rdo the intra-in-inter flips, then recon and
+    scan lines.
+
+    With a second padded reference ryp2/rup2/rvp2 (the two-reference step)
+    both references are searched and re-judged, and each block picks
+    single-fwd, single-bwd or COMPOUND_AVERAGE by RD (choice 0 / 1 / 2;
+    fwd2, LAST + GOLDEN: fwd or the second reference at 2 bits more, no
+    compound); mv8 is then the chosen single reference's MV (fwd for
+    compound), mvb8 the second MV of a compound block. The split is then
+    the cheap {parent, zero} one (refine16 is off), a zero-MV child
+    predicting from the fwd reference. The two-reference 64x64 merge is
+    not ported: no entry point of the reference reaches it.
 
     y/u/v: source planes (int32); ryp/rup/rvp: PADDED reference planes
     (int32); by/bx: int32 pixel origins of the 32-blocks; dcq/acq: luma
@@ -680,8 +749,13 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     the reference's 19-tuple; the in-loop filters run after it, in
     _core's `filt` (the reference's deblock_fn / cdef_fn have no caller
     here)."""
-    if ryp2 is not None or fwd2:
-        _not_ported("two-reference P/B steps", "item 11 (other P/B routes)")
+    two = ryp2 is not None
+    if two and b64_rdo:
+        raise NotImplementedError(
+            "the two-reference 64x64 merge (the reference's _merge64_pass "
+            "with ryp2, rav1e_tpu/pipeline/tpu_inter.py:637-660) is not "
+            "ported: no entry point of the reference reaches it "
+            "(ROADMAP.md section 3)")
     if bd != 8:
         _not_ported("bit depth above 8", "item 12 (bd=10)")
     from rav1e_tpu_torch.pipeline.tpu_intra import _dq_dyn, _q_dyn, block_bits
@@ -693,8 +767,11 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     if ds16 is None:
         ds16 = torch.ones((B, 4), dtype=torch.float32, device=dev)
     ds32 = torch.mean(ds16, dim=1)                # [B]
-    mv8, _, _, _, gridf0 = _search_one_ref(
-        ryp, blks, by, bx, rd, B, use_satd, search, subpel, bd=bd)
+    refs = [(ryp, rup, rvp)] + ([(ryp2, rup2, rvp2)] if two else [])
+    searched = _search_refs([r[0] for r in refs], blks, by, bx, rd, B,
+                            use_satd, search, subpel, bd=bd)
+    mvs = [s[0] for s in searched]
+    grids = [s[4] for s in searched]
     mark("search")
 
     ub = to_blocks(u.to(torch.int32), 16)
@@ -702,25 +779,12 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     lam = rd["lam"]
     i32 = torch.int32
 
-    def exact_sse(mvs):
-        """The exact SSE of each candidate MV field, the candidates'
-        windows gathered in one launch, and their predictions."""
-        preds = [_mc_filter(*w, 32, bd=bd) for w in _mc_windows(
-            [(ryp, by, bx, mv, 32, 0) for mv in mvs])]
-        return [torch.sum((p - blks).to(torch.float32) ** 2, dim=(1, 2))
-                for p in preds], preds
-
-    def grid_sse(mvs):
-        return [gridf0(mv) for mv in mvs], None
-
-    def cand_pass(mv8, sse_fn, extra=None, grid_fn=None):
+    def cand_set(mv8, extra=None, grid_fn=None):
         """Left / above / zero / median MV candidates priced with
         NEIGHBOUR-RELATIVE rates (NEAREST alias when the MV matches the
-        stack predictor); grid_fn preselects one alternative on the
-        SSD surface so sse_fn (a list of MV fields -> their SSEs and
-        their predictions, or None) runs on {own, best-alt, extra} only.
-        Returns (MVs, rates, the chosen candidates' predictions or
-        None)."""
+        stack predictor); grid_fn preselects one alternative on the SSD
+        surface, so the exact re-judge runs on {own, best-alt, extra}
+        only. Returns (candidate MV fields, their rates [C, B])."""
         mvg = mv8.reshape(nby, nbx, 2)
         mvl = torch.cat([mvg[:, :1], mvg[:, :-1]], 1).reshape(B, 2)
         mva = torch.cat([mvg[:1], mvg[:-1]], 0).reshape(B, 2)
@@ -754,41 +818,79 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                      * torch.stack([grid_fn(c) for c in cands[1:]], 0)
                      + lam * alt_r)
             ka = torch.argmin(alt_c, dim=0)               # [B]
-            alt_mv = cands[1]
-            for i in range(1, 4):
-                alt_mv = torch.where(ka[:, None] == i, cands[1 + i],
-                                     alt_mv)
-            cands = [mv8, alt_mv]
+            cands = [mv8, _pick(ka, cands[1:])]
             rates = [rates[0], torch.gather(alt_r, 0, ka[None])[0]]
         if extra is not None:
             cands.append(extra)
             rates.append(rate_rel(extra, mvl))
-        cand_r = torch.stack(rates, 0)                    # [C,B]
-        sses, preds = sse_fn(cands)
+        return cands, torch.stack(rates, 0)               # [C,B]
+
+    def cand_pick(cands, cand_r, sses):
+        """The candidate each block takes (own wins ties), its MV and its
+        rate."""
         cc = ds32[None] * torch.stack(sses, 0) + lam * cand_r
-        k = torch.argmin(cc, dim=0)                       # own wins ties
-        out = mv8
-        pred = None if preds is None else preds[0]
-        for i in range(1, len(cands)):
-            out = torch.where(k[:, None] == i, cands[i], out)
-            if preds is not None:
-                pred = torch.where(k[:, None, None] == i, preds[i], pred)
-        return out, torch.gather(cand_r, 0, k[None])[0], pred
+        k = torch.argmin(cc, dim=0)
+        return k, _pick(k, cands), torch.gather(cand_r, 0, k[None])[0]
+
+    def rejudge(extras):
+        """The exact re-judge of each reference's MV field (with its
+        long-range candidate): the candidates' windows of every reference
+        in one gather launch. Returns per reference (MVs, rates, the chosen
+        candidates' luma predictions, their windows)."""
+        sets = [cand_set(mv, ex, gf) for mv, ex, gf in zip(mvs, extras,
+                                                          grids)]
+        wins = _mc_windows([(r[0], by, bx, c, 32, 0)
+                            for r, (cands, _) in zip(refs, sets)
+                            for c in cands])
+        out = []
+        for cands, cand_r in sets:
+            w, wins = wins[:len(cands)], wins[len(cands):]
+            preds = [_mc_filter(*x, 32, bd=bd) for x in w]
+            if two:
+                # the two-reference step's re-judge sums as XLA:CPU does
+                # there (rows on 8 lanes); the one-reference step's stays
+                # below 2^24 on real content
+                sses = _sse_cols_xla(torch.cat(preds),
+                                     blks.repeat(len(preds), 1, 1)
+                                     ).split(B)
+            else:
+                sses = [torch.sum((p - blks).to(torch.float32) ** 2,
+                                  dim=(1, 2)) for p in preds]
+            k, mv, rate = cand_pick(cands, cand_r, sses)
+            out.append((mv, rate, _pick(k, preds),
+                        tuple(_pick(k, [x[j] for x in w])
+                              for j in range(3))))
+        return out
 
     # blob erosion on the SSD surface, then the long-range rescue and
-    # one exact re-judge
+    # one exact re-judge, each reference's field on its own
+    def grid_pass(mv8, grid_fn):
+        cands, cand_r = cand_set(mv8)
+        return cand_pick(cands, cand_r, [grid_fn(c) for c in cands])[1]
+
     for _ in range(8):
-        mv8, _, _ = cand_pass(mv8, grid_sse)
-    mv_coarse = _coarse_mv(y, ryp, B, search)
-    mv8, rate32, pred_y = cand_pass(mv8, exact_sse, extra=mv_coarse,
-                                    grid_fn=gridf0)
-    # the chroma windows also serve the 4-tap chroma of the 16->8 split
-    win_u, win_v = _mc_windows([(rup, by // 2, bx // 2, mv8, 16, 1),
-                                (rvp, by // 2, bx // 2, mv8, 16, 1)])
-    pred_u = _mc_filter(*win_u, 16, bd=bd)
-    pred_v = _mc_filter(*win_v, 16, bd=bd)
+        mvs = [grid_pass(mv, gf) for mv, gf in zip(mvs, grids)]
+    mv_coarse = [_coarse_mv(y, r[0], B, search) for r in refs]
+    judged = rejudge(mv_coarse)
+    # the chroma windows, both references' in one launch; they also serve
+    # the 4-tap chroma of the 16->8 split and compound's second filter
+    cwin = _mc_windows([(r[k], by // 2, bx // 2, j[0], 16, 1)
+                        for r, j in zip(refs, judged) for k in (1, 2)])
+    preds_c = [_mc_filter(*w, 16, bd=bd) for w in cwin]
+    mv8, rate32, pred_y, _ = judged[0]
+    win_u, win_v = cwin[:2]
+    pred_u, pred_v = preds_c[:2]
     choice = torch.zeros((B,), dtype=i32, device=dev)
     mvb8 = torch.zeros_like(mv8)
+    if two:
+        (choice, mv8, mvb8, pred_y, pred_u, pred_v) = _choose_ref(
+            judged, cwin, preds_c, blks, ds32, lam, fwd2, bd)
+        rate32 = None
+        if use_split8:
+            # the parent's 4-tap chroma is the fwd reference's at the
+            # chosen MV, as the reference predicts it
+            win_u, win_v = _mc_windows([(rup, by // 2, bx // 2, mv8, 16, 1),
+                                        (rvp, by // 2, bx // 2, mv8, 16, 1)])
     mark("cand")
 
     def code(resid, tx, chroma=False):
@@ -849,7 +951,6 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
 
     # ---- the PARTITION_SPLIT candidate: per-16 MVs, TX16/TX8
     # residuals, per-16 skip RD ----
-    cost32 = lam * rate32 + c32
     offs_r = torch.tensor([0, 0, 16, 16], dtype=i32, device=dev)
     offs_c = torch.tensor([0, 16, 0, 16], dtype=i32, device=dev)
     by16 = (by[:, None] + offs_r[None, :]).reshape(-1)
@@ -870,10 +971,15 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         zero = (mv[..., 0] == 0) & (mv[..., 1] == 0)
         return torch.where(zero, rd["globalmv"], mv_bits(mv) + rd["newmv"])
 
+    # a two-reference block's 32-level rate: its primary MV from zero
+    cost32 = lam * (mv_rate(mv8) if rate32 is None else rate32) + c32
+
     def cost16_pred(pred, mv):
         return ds16f * sse(pred, blks16) + lam * mv_bits(mv)
 
-    if refine16:
+    # two references take the cheap split: the refined per-16 descent
+    # predicts from the fwd reference alone
+    if refine16 and not two:
         # two patch gathers (parent- and zero-centred) in one launch, then
         # the whole per-16 descent runs in-patch: drift <= 8+4+2+2
         # eighth-pel = 2 px
@@ -930,6 +1036,12 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         pz_v = to_blocks(rvp[p2:p2 + hF // 2, p2:p2 + wF // 2], 8)[idx16]
         zbet = (cost16_pred(pz_y, mv_zero)
                 < cost16_pred(_quads(pred_y, 16), mv_par))
+        if two:
+            # a zero-MV child decodes as single-fwd GLOBALMV: a non-fwd
+            # parent with a zero MV would read the same in the packed
+            # stream, so its quads take the zero child
+            zbet = zbet | ((mv_par[:, 0] == 0) & (mv_par[:, 1] == 0)
+                           & (choice.repeat_interleave(4) != 0))
         mv16 = torch.where(zbet[:, None], 0, mv_par)
         z3 = zbet[:, None, None]
         pred_y16 = torch.where(z3, pz_y, _quads(pred_y, 16))
@@ -1027,6 +1139,51 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         lv_u, lv_v, lv_y16, lv_u8, lv_v8, rec_y, rec_u, rec_v, choice, mvb8,
         b64_map=b64_map, split16=split16 if use_split8 else None,
         skip8_out=skip8_out, lv_y8=lv_y8, lv_u4=lv_u4, lv_v4=lv_v4, bd=bd)
+
+
+def _choose_ref(judged, cwin, preds_c, blks, ds32, lam, fwd2: bool,
+                bd: int = 8):
+    """The two-reference step's choice per 32-block (the reference's
+    p_frame_body, ryp2 branch): single-fwd (0), single-bwd (1, 4 bits
+    more: a minority reference codes against an empty stack) or
+    COMPOUND_AVERAGE (2, both MV rates and 2 bits), the first of equal
+    costs; fwd2 (LAST + GOLDEN) chooses between the two single
+    references, the second at 2 bits more. judged: each reference's (MVs,
+    rate, luma prediction, luma window) from the re-judge; cwin / preds_c:
+    the U, V windows and predictions of fwd then bwd at those MVs. The
+    compound predictions filter the same windows again at intermediate
+    precision. Returns (choice, mv8: the single reference's MV, fwd for
+    compound; mvb8: the second MV of compound blocks; pred_y, pred_u,
+    pred_v)."""
+    (mvf, rate_f, pf_y, wf_y), (mvb, rate_b, pb_y, wb_y) = judged
+    B = blks.shape[0]
+    # pf and pb sum as XLA:CPU's fused cost loop sums them: chunks 0, 2,
+    # 3, 1 in the B step, in order with fwd2
+    sse_fb = (_sse_cols_xla if fwd2 else _sse_cols_b_xla)(
+        torch.cat([pf_y, pb_y]), blks.repeat(2, 1, 1))
+    cost_f = ds32 * sse_fb[:B] + lam * rate_f
+    pf_u, pf_v, pb_u, pb_v = preds_c
+    if fwd2:
+        cost_b = ds32 * sse_fb[B:] + lam * (rate_b + 2.0)
+        costs = [cost_f, cost_b]
+        pc_y, pc_u, pc_v = pf_y, pf_u, pf_v
+    else:
+        pc_y, pc_u, pc_v = (
+            _comp_avg(_mc_filter(*wf, n, bd=bd, interm=True),
+                      _mc_filter(*wb, n, bd=bd, interm=True), bd)
+            for wf, wb, n in ((wf_y, wb_y, 32), (cwin[0], cwin[2], 16),
+                              (cwin[1], cwin[3], 16)))
+        cost_b = ds32 * sse_fb[B:] + lam * (rate_b + 4.0)
+        cost_c = (ds32 * _sse_cols_xla(pc_y, blks)
+                  + lam * (rate_f + rate_b + 2.0))
+        costs = [cost_f, cost_b, cost_c]
+    choice = torch.argmin(torch.stack(costs, 1), dim=1).to(torch.int32)
+    preds = [_pick(choice, list(p)) for p in ((pf_y, pb_y, pc_y),
+                                              (pf_u, pb_u, pc_u),
+                                              (pf_v, pb_v, pc_v))]
+    mvb8 = torch.where((choice == 2)[:, None], mvb, 0)
+    mv8 = torch.where((choice == 1)[:, None], mvb, mvf)
+    return (choice, mv8, mvb8, *preds)
 
 
 def _merge64_pass(y, u, v, ryp, rup, rvp, rd, code, nby, nbx, mv8, rec_y,
@@ -1236,6 +1393,31 @@ def _sse_cols_xla(a, b):
     (ops.cdef._xla_rows_sum)."""
     from rav1e_tpu_torch.ops.cdef import _xla_rows_sum
     return _xla_rows_sum((a - b).to(torch.float32) ** 2, 8)
+
+
+def _sse_cols_b_xla(a, b):
+    """An SSE over [N, R, 32] blocks as XLA:CPU sums the B step's single-
+    reference luma costs (sse_of on the fwd and bwd predictions): rows in
+    order, each vectorized over 8 lanes (the running total enters lane
+    0), the row's four chunks of 8 added lane by lane in the order 0, 2,
+    3, 1, then the lanes fold in halves (8 -> 4 -> 2 -> 1). Read from the
+    fused cost loop's machine code (the reassociated FMA chain of its
+    object file under --xla_dump_to; its LLVM IR shows two accumulators
+    that the backend merges); the compound prediction's sum in the same
+    loop takes the chunks in order (_sse_cols_xla)."""
+    d = (a - b).to(torch.float32) ** 2
+    n, R, C = d.shape
+    s = torch.zeros((n,), dtype=torch.float32, device=d.device)
+    for r in range(R):
+        seg = d[:, r].reshape(n, C // 8, 8)
+        acc = torch.cat([(s + seg[:, 0, 0])[:, None], seg[:, 0, 1:]], -1)
+        for c in (2, 3, 1):
+            acc = acc + seg[:, c]
+        while acc.shape[-1] > 1:
+            k = acc.shape[-1] // 2
+            acc = acc[:, :k] + acc[:, k:]
+        s = acc[:, 0]
+    return s
 
 
 def _sse_rows_xla(a, b):
@@ -1648,9 +1830,14 @@ def _core(h: int, w: int, use_cdef: bool = False,
     the overflow gather), recon y, u, v uint8). `mark(name)` runs after
     each stage: search, cand, code, split, merge64, intra (core; split
     with use_split, merge64 with b64_rdo on even block counts, intra with
-    intra_rdo), filt (deblock), cdef, pack."""
-    if two_ref:
-        _not_ported("the two-reference step", "item 11 (other P/B routes)")
+    intra_rdo), filt (deblock), cdef, pack.
+
+    two_ref=True builds the two-reference step, step(src, ry, ru, rv, ry2,
+    ru2, rv2, dcq, acq, cdef_prm, rd, ds, mark): the B frame (fwd, bwd or
+    compound per block), or with fwd2 the LAST + GOLDEN P frame. As the
+    reference's, its core takes use_split, use_satd, fwd2, search, subpel
+    and bd, and not refine16, intra_rdo, b64_rdo or use_split8, which
+    reach only its filters (b64_rdo: an all-false merge map)."""
     nby, nbx = h // 32, w // 32
 
     def pad3(ry, ru, rv):
@@ -1669,6 +1856,16 @@ def _core(h: int, w: int, use_cdef: bool = False,
                             search=search, subpel=subpel,
                             use_split8=use_split8 and use_split, bd=bd,
                             mark=mark)
+
+    def core2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
+              mark=_nomark):
+        y, u, v = _unpack_src(src, h, w)
+        by, bx = _block_origins(nby, nbx, src.device)
+        return p_frame_body(y, u, v, *pad3(ry, ru, rv), dcq, acq, cdef_prm,
+                            rd, by, bx, nby, nbx, use_split,
+                            *pad3(ry2, ru2, rv2), ds16=ds,
+                            use_satd=use_satd, fwd2=fwd2, search=search,
+                            subpel=subpel, bd=bd, mark=mark)
 
     def filt(src, fry, fru, frv, base_lf, cdef_prm, split, skip16, b64m,
              lam, split16, skip8q, mark=_nomark):
@@ -1711,8 +1908,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
         o[9], o[10] = lf_lvl, cdef_idx
         return pack_outputs(o)
 
-    def step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=_nomark):
-        o = core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark)
+    def tail(src, o, cdef_prm, rd, mark):
         if not (use_deblock or use_cdef):
             out = (pack(o, o[9], o[10]), o[3], o[4], o[5], o[6], o[7],
                    o[8])
@@ -1725,7 +1921,17 @@ def _core(h: int, w: int, use_cdef: bool = False,
         mark("pack")
         return out
 
-    return step, (nby, nbx), gather_dense
+    def step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=_nomark):
+        o = core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark)
+        return tail(src, o, cdef_prm, rd, mark)
+
+    def step2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
+              mark=_nomark):
+        o = core2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
+                  mark)
+        return tail(src, o, cdef_prm, rd, mark)
+
+    return (step2 if two_ref else step), (nby, nbx), gather_dense
 
 
 # ---- host side -----------------------------------------------------------------
@@ -1785,9 +1991,6 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     (compact_ladder) and a literal index per 64x64 SB in the tile. LR,
     bit depths above 8 and tile_grid raise NotImplementedError naming
     their ROADMAP item."""
-    cdef_map = None
-    if cdef is not None and isinstance(cdef[1], np.ndarray):
-        cdef, cdef_map = cdef
     if lr_ctx is not None:
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
@@ -1796,23 +1999,8 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         _not_ported("bit depth above 8", "item 12 (bd=10)")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
-    seq = Sequence(width=w, height=h, enable_cdef=cdef is not None,
-                   bit_depth=bit_depth,
-                   film_grain_params_present=film_grain is not None)
-    lf = int(lf_level)
-    fp = FrameParams(frame_type=FrameType.INTER, base_q_idx=qindex,
-                     render_size=render_size,
-                     loop_filter_levels=(lf, lf, lf, lf))
-    fp.film_grain = film_grain
-    fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
-    cdef_bits = 0
-    if cdef_map is not None:
-        from rav1e_tpu_torch.ops.cdef import compact_ladder
-        fp.cdef_damping = cdef[4]
-        fp.cdef_strengths, cdef_bits, cdef_map = compact_ladder(cdef_map)
-    elif cdef is not None:
-        (fp.cdef_y_pri, fp.cdef_y_sec, fp.cdef_uv_pri, fp.cdef_uv_sec,
-         fp.cdef_damping) = cdef
+    seq, fp, cdef_map, cdef_bits = _inter_headers(
+        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     intra_map = None if choice is None else np.asarray(choice) == 3
@@ -1843,26 +2031,66 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
                 cdef_idx=cdef_map, cdef_bits=cdef_bits, intra32=intra_map,
                 b64=b64_map, split16=split16, mvq8=mvq8, skip8=skip8)
     else:
-        ec_times: dict = {}
-        tw = TileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
-                        encoder=functools.partial(RecordingEncoder, dev,
-                                                  ec_times))
-        if cdef_bits:
-            tw.cdef_bits = cdef_bits
-            tw.cdef_idx_map = cdef_map
         partitions, blocks = _pframe_tile_dicts(
             w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, intra_map,
             b64_map, split16, skip8)
-        tile = tw.write_tile(partitions, blocks)
-        if timings is not None:
-            # the walk's own time: the coding stages are timed in done()
-            timings["tile_walk"] = (time.perf_counter() - t_walk
-                                    - ec_times["ec_kernel"]
-                                    - ec_times["finish"])
-            timings.update(ec_times)
+        tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
+                            cdef_bits, dev, timings, t_walk)
     return interframe_packet(seq, fp, ti, [tile], order_hint,
                              refresh_flags=refresh_flags,
                              ref_idx=[ref_slot] * 7, show_frame=show_frame)
+
+
+def _inter_headers(h, w, qindex, cdef, film_grain, render_size, lf_level,
+                   bit_depth: int):
+    """An inter frame's sequence and frame headers, as the reference's
+    pack functions set them. cdef: None, a 5-tuple (one frame-wide
+    strength) or (5-tuple, idx_map) (the per-SB ladder: the entries used
+    are signalled, compact_ladder). Returns (seq, fp, the compacted index
+    map or None, its bits)."""
+    cdef_map = None
+    if cdef is not None and isinstance(cdef[1], np.ndarray):
+        cdef, cdef_map = cdef
+    seq = Sequence(width=w, height=h, enable_cdef=cdef is not None,
+                   bit_depth=bit_depth,
+                   film_grain_params_present=film_grain is not None)
+    lf = int(lf_level)
+    fp = FrameParams(frame_type=FrameType.INTER, base_q_idx=qindex,
+                     render_size=render_size,
+                     loop_filter_levels=(lf, lf, lf, lf))
+    fp.film_grain = film_grain
+    fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
+    cdef_bits = 0
+    if cdef_map is not None:
+        from rav1e_tpu_torch.ops.cdef import compact_ladder
+        fp.cdef_damping = cdef[4]
+        fp.cdef_strengths, cdef_bits, cdef_map = compact_ladder(cdef_map)
+    elif cdef is not None:
+        (fp.cdef_y_pri, fp.cdef_y_sec, fp.cdef_uv_pri, fp.cdef_uv_sec,
+         fp.cdef_damping) = cdef
+    return seq, fp, cdef_map, cdef_bits
+
+
+def _python_walk(h, w, qindex, partitions, blocks, cdef_map, cdef_bits,
+                 device, timings, t_walk, **writer):
+    """One tile walked by the Python TileWriter (keyword arguments
+    `writer`) and recorded by RecordingEncoder, its IR coded on `device`
+    (the od_ec kernels on cuda). `timings` receives tile_walk (the walk
+    since t_walk, the coding stages taken out) and the coding stages."""
+    ec_times: dict = {}
+    tw = TileWriter(h >> 2, w >> 2, qindex, inter_frame=True,
+                    encoder=functools.partial(RecordingEncoder, device,
+                                              ec_times), **writer)
+    if cdef_bits:
+        tw.cdef_bits = cdef_bits
+        tw.cdef_idx_map = cdef_map
+    tile = tw.write_tile(partitions, blocks)
+    if timings is not None:
+        timings["tile_walk"] = (time.perf_counter() - t_walk
+                                - ec_times["ec_kernel"]
+                                - ec_times["finish"])
+        timings.update(ec_times)
+    return tile
 
 
 def _pframe_tile_dicts(w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
@@ -2016,8 +2244,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                                      subpel=subpel, use_split8=use_split8,
                                      bd=bit_depth)
     if ref_dev is None:
-        ref_dev = tuple(torch.as_tensor(np.asarray(p, np.uint8), device=dev)
-                        for p in ref_planes)
+        ref_dev = _upload(ref_planes, dev)
     if src_dev is None:
         src_dev = torch.from_numpy(pack_src(planes, bd=bit_depth)).to(dev)
     cdef_prm = _cdef_prm(cdef)
@@ -2179,3 +2406,260 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     recs = [kf_rec] + [[o[4], o[5], o[6]] for o in outs]
     wall()
     return pkts, recs
+
+
+# ---- two references: the B frame and the LAST + GOLDEN P frame ----------------
+
+def _upload(planes, dev):
+    return tuple(torch.as_tensor(np.asarray(p, np.uint8), device=dev)
+                 for p in planes)
+
+
+def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
+                 lv_y, lv_u, lv_v, cdef=None, film_grain=None,
+                 render_size=None, lf_level=0, slot_fwd=0, slot_bwd=1,
+                 ref_hints=None, refresh_flags=0, show_frame=True,
+                 b64_map=None, lr_ctx=None, bit_depth: int = 8,
+                 split=None, mv16=None, skip16=None,
+                 tile_grid: tuple | None = None, device=None,
+                 timings: dict | None = None):
+    """Entropy-pack one B frame from the two-reference step's outputs, as
+    the reference does: the Python TileWriter walks the blocks (recorded by
+    RecordingEncoder, the IR coded on `device`). choice[b]: 0 single-LAST
+    (fwd), 1 single-ALTREF (bwd), 2 COMPOUND_AVERAGE (LAST, ALTREF); mv8 is
+    the primary MV (fwd for 0 and 2, bwd for 1), mvb8 the bwd MV of a
+    compound block. A split 32-block's four 16x16 children are the
+    parent's (ref choice, MV or MV pair) or, where mv16 is zero, single-
+    LAST GLOBALMV blocks. `timings` receives tile_walk and the coding
+    stages. LR, bit depths above 8, tile_grid and merged 64x64 blocks
+    raise NotImplementedError."""
+    if lr_ctx is not None:
+        _not_ported("loop restoration", "item 13 (LRF)")
+    if tile_grid is not None:
+        _not_ported("multi-tile frames", "item 17 (parallel)")
+    if bit_depth != 8:
+        _not_ported("bit depth above 8", "item 12 (bd=10)")
+    if b64_map is not None and np.asarray(b64_map).any():
+        raise NotImplementedError(
+            "merged 64x64 blocks in a B frame: the two-reference 64x64 "
+            "merge is not ported (ROADMAP.md section 3)")
+    dev = resolve_device(device)
+    t_walk = time.perf_counter()
+    seq, fp, cdef_map, cdef_bits = _inter_headers(
+        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
+    ti = TileInfo(seq)
+    nbx = w // 32
+    partitions: dict = {}
+    blocks: dict = {}
+
+    def block(mv, mv2, ch, sk, yl, ul, vl):
+        mv = (int(mv[0]), int(mv[1]))
+        if ch == 2:
+            mv2 = (int(mv2[0]), int(mv2[1]))
+            d = BlockDecision(
+                y_mode=(PredictionMode.GLOBAL_GLOBALMV
+                        if mv == (0, 0) and mv2 == (0, 0)
+                        else PredictionMode.NEW_NEWMV),
+                uv_mode=PredictionMode.DC_PRED, skip=bool(sk), mv=mv, ref=1)
+            d.ref2 = 7
+            d.mv2 = mv2
+        else:
+            d = BlockDecision(
+                y_mode=(PredictionMode.GLOBALMV if mv == (0, 0)
+                        else PredictionMode.NEWMV),
+                uv_mode=PredictionMode.DC_PRED, skip=bool(sk), mv=mv,
+                ref=1 if ch == 0 else 7)
+        if not d.skip:
+            d.coeffs = {0: yl, 1: ul, 2: vl}
+        return d
+
+    for b in range(mv8.shape[0]):
+        r, c = (b // nbx) * 8, (b % nbx) * 8
+        partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.SPLIT
+        ch = int(choice[b])
+        if split is not None and split[b]:
+            partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.SPLIT
+            for q, (dr, dc) in enumerate(((0, 0), (0, 4), (4, 0), (4, 4))):
+                py, px, cy, cx = dr * 4, dc * 4, dr * 2, dc * 2
+                partitions[(r + dr, c + dc, int(BlockSize.B16X16))] = \
+                    PartitionType.NONE
+                zero = mv16[b, q, 0] == 0 and mv16[b, q, 1] == 0
+                blocks[(r + dr, c + dc)] = block(
+                    mv16[b, q], mvb8[b], 0 if zero else ch, skip16[b, q],
+                    lv_y[b][py: py + 16, px: px + 16],
+                    lv_u[b][cy: cy + 8, cx: cx + 8],
+                    lv_v[b][cy: cy + 8, cx: cx + 8])
+            continue
+        partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
+        blocks[(r, c)] = block(mv8[b], mvb8[b], ch, skip[b], lv_y[b],
+                               lv_u[b], lv_v[b])
+    tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
+                        cdef_bits, dev, timings, t_walk,
+                        ref_sign_bias={1: False, 7: True},
+                        reference_select=True)
+    fp.reference_select = True
+    fh, bh2 = ref_hints or (0, order_hint + 1)
+    fp.ref_order_hints = [fh] * 6 + [bh2]
+    return interframe_packet(seq, fp, ti, [tile], order_hint,
+                             refresh_flags=refresh_flags,
+                             ref_idx=[slot_fwd] * 6 + [slot_bwd],
+                             show_frame=show_frame)
+
+
+def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
+                      order_hint: int = 1,
+                      ref_dev_fwd=None, ref_dev_bwd=None,
+                      cdef: tuple | None = None, film_grain=None,
+                      slot_fwd: int = 0, slot_bwd: int = 1,
+                      ref_hints: tuple | None = None,
+                      render_size: tuple | None = None,
+                      dscale=None, src_dev=None,
+                      refresh_flags: int = 0, show_frame: bool = True,
+                      b64_rdo: bool = False, lr: bool = False,
+                      search: int = SEARCH, subpel: bool = True,
+                      bit_depth: int = 8, use_split: bool = False,
+                      tile_grid: tuple | None = None, device=None,
+                      timings: dict | None = None):
+    """Batched B frame on the device: both references searched and
+    re-judged, each 32-block taking single-fwd, single-bwd or
+    COMPOUND_AVERAGE by RD, with use_split the cheap {parent, zero}
+    split; dims multiples of 32, 4:2:0 8-bit. Runs on `cuda` unless
+    device="cpu" is passed. The reference's call: b64_rdo reaches only
+    the deblock (an all-false merge map), its core never merges.
+
+    ref_fwd / ref_bwd: the references' [y, u, v] planes (ref_hints their
+    order hints, slot_fwd / slot_bwd their slots), or ref_dev_fwd /
+    ref_dev_bwd their uint8 planes on the device; src_dev: the packed
+    source (pack_src) on the device. The packet is the reference's
+    Python TileWriter walk with its IR coded on the device. `timings`
+    receives each stage's wall time. lr, bit depths above 8 and tile_grid
+    raise NotImplementedError naming their ROADMAP item. Returns (packet,
+    [y, u, v] recon int32)."""
+    if lr:
+        _not_ported("loop restoration", "item 13 (LRF)")
+    if tile_grid is not None:
+        _not_ported("multi-tile frames", "item 17 (parallel)")
+    if bit_depth != 8:
+        _not_ported("bit depth above 8", "item 12 (bd=10)")
+    h, w = planes[0].shape[0], planes[0].shape[1]
+    assert h % 32 == 0 and w % 32 == 0
+    dev = resolve_device(device)
+    stages = _Stages(dev, timings)
+    step, (nby, nbx), gdense = _core(h, w, cdef is not None,
+                                     use_split=use_split, two_ref=True,
+                                     b64_rdo=b64_rdo, search=search,
+                                     subpel=subpel, bd=bit_depth)
+    if ref_dev_fwd is None:
+        ref_dev_fwd = _upload(ref_fwd, dev)
+    if ref_dev_bwd is None:
+        ref_dev_bwd = _upload(ref_bwd, dev)
+    if src_dev is None:
+        src_dev = torch.from_numpy(pack_src(planes)).to(dev)
+    cdef_prm = _cdef_prm(cdef)
+    rd = build_rd_inter(qindex, device=dev)
+    ds = _ds16_quads(dscale, nby, nbx, dev)
+    stages.mark("upload")
+    outs = step(src_dev, *ref_dev_fwd, *ref_dev_bwd,
+                *_q_scalars(qindex, dev), cdef_prm, rd, ds, stages.mark)
+    (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl, cdef_map,
+     choice, mvb8, b64m, _, _) = _fetch_packed(outs, gdense, nby, nbx)
+    rec = [r.cpu().numpy().astype(np.int32) for r in outs[4:7]]
+    stages.mark("fetch_unpack")
+    pkt = _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
+                       lv_y, lv_u, lv_v,
+                       cdef=None if cdef is None else (cdef_prm, cdef_map),
+                       film_grain=film_grain, render_size=render_size,
+                       lf_level=lf_lvl, slot_fwd=slot_fwd,
+                       slot_bwd=slot_bwd, ref_hints=ref_hints,
+                       refresh_flags=refresh_flags, show_frame=show_frame,
+                       b64_map=b64m if b64_rdo else None,
+                       split=split if use_split else None, mv16=mv16,
+                       skip16=skip16, device=dev, timings=timings)
+    return pkt, rec
+
+
+def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,
+                      lv_y, lv_u, lv_v, cdef=None, lf_level=0,
+                      film_grain=None, render_size=None,
+                      slot_last=0, slot_golden=1, golden_hint=0,
+                      refresh_flags=0x01, bit_depth: int = 8, device=None,
+                      timings: dict | None = None):
+    """Entropy-pack a LAST + GOLDEN P frame, as the reference does (the
+    Python TileWriter's walk, its IR coded on `device`): choice[b] 0 =
+    LAST, 1 = GOLDEN, both forward, single prediction (spec
+    read_ref_frames' single path). `timings` receives tile_walk and the
+    coding stages."""
+    if bit_depth != 8:
+        _not_ported("bit depth above 8", "item 12 (bd=10)")
+    dev = resolve_device(device)
+    t_walk = time.perf_counter()
+    seq, fp, cdef_map, cdef_bits = _inter_headers(
+        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
+    ti = TileInfo(seq)
+    nbx = w // 32
+    partitions: dict = {}
+    blocks: dict = {}
+    for b in range(mv8.shape[0]):
+        r, c = (b // nbx) * 8, (b % nbx) * 8
+        partitions[(r, c, int(BlockSize.B64X64))] = PartitionType.SPLIT
+        partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
+        mv = (int(mv8[b, 0]), int(mv8[b, 1]))
+        d = BlockDecision(y_mode=(PredictionMode.GLOBALMV if mv == (0, 0)
+                                  else PredictionMode.NEWMV),
+                          uv_mode=PredictionMode.DC_PRED,
+                          skip=bool(skip[b]), mv=mv,
+                          ref=1 if int(choice[b]) == 0 else 4)
+        if not d.skip:
+            d.coeffs = {0: lv_y[b], 1: lv_u[b], 2: lv_v[b]}
+        blocks[(r, c)] = d
+    tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
+                        cdef_bits, dev, timings, t_walk,
+                        ref_sign_bias={1: False, 4: False})
+    ref_idx = [slot_last] * 7
+    ref_idx[3] = slot_golden
+    fp.ref_order_hints = [0] * 7
+    fp.ref_order_hints[3] = golden_hint
+    return interframe_packet(seq, fp, ti, [tile], order_hint,
+                             refresh_flags=refresh_flags, ref_idx=ref_idx)
+
+
+def encode_pframe2_tpu(planes, ref_last, ref_golden, qindex: int = 100,
+                       order_hint: int = 1, cdef: tuple | None = None,
+                       slot_last: int = 0, slot_golden: int = 1,
+                       golden_hint: int = 0, dscale=None,
+                       use_satd: bool = False,
+                       render_size: tuple | None = None,
+                       refresh_flags: int = 0x01, device=None,
+                       timings: dict | None = None):
+    """LAST + GOLDEN P frame on the device: every 32-block picks LAST or
+    GOLDEN by RD (the two-reference step with fwd2; no split); dims
+    multiples of 32, 4:2:0 8-bit. Runs on `cuda` unless device="cpu" is
+    passed. Packed as the reference packs it (the Python TileWriter, the
+    IR coded on the device). `timings` receives each stage's wall time.
+    Returns (packet, [y, u, v] recon int32)."""
+    h, w = planes[0].shape[0], planes[0].shape[1]
+    assert h % 32 == 0 and w % 32 == 0
+    dev = resolve_device(device)
+    stages = _Stages(dev, timings)
+    step, (nby, nbx), gdense = _core(h, w, cdef is not None,
+                                     use_split=False, two_ref=True,
+                                     use_satd=use_satd, fwd2=True)
+    refs = _upload(ref_last, dev) + _upload(ref_golden, dev)
+    src_dev = torch.from_numpy(pack_src(planes)).to(dev)
+    cdef_prm = _cdef_prm(cdef)
+    rd = build_rd_inter(qindex, device=dev)
+    ds = _ds16_quads(dscale, nby, nbx, dev)
+    stages.mark("upload")
+    outs = step(src_dev, *refs, *_q_scalars(qindex, dev), cdef_prm, rd, ds,
+                stages.mark)
+    (mv8, skip, lv_y, lv_u, lv_v, _, _, _, lf_lvl, cdef_map, choice, _, _,
+     _, _) = _fetch_packed(outs, gdense, nby, nbx)
+    rec = [r.cpu().numpy().astype(np.int32) for r in outs[4:7]]
+    stages.mark("fetch_unpack")
+    pkt = _pack_pframe_mref(
+        h, w, qindex, order_hint, mv8, choice, skip, lv_y, lv_u, lv_v,
+        cdef=None if cdef is None else (cdef_prm, cdef_map),
+        lf_level=lf_lvl, render_size=render_size, slot_last=slot_last,
+        slot_golden=slot_golden, golden_hint=golden_hint,
+        refresh_flags=refresh_flags, device=dev, timings=timings)
+    return pkt, rec

@@ -26,3 +26,33 @@ def dir_extremes(w_blocks: int = 32):
     while len(blocks) < w_blocks:
         blocks.append(rng.integers(0, 256, (8, 8)))
     return np.concatenate(blocks, 1).astype(np.uint8)
+
+
+def bgroup(w: int = 128, h: int = 96, n: int = 3, seed: int = 31):
+    """n frames [y, u, v] (uint8, 4:2:0) for the two-reference step: a
+    static textured background whose left third fades from a random
+    texture to its negative (the middle frames are best predicted by the
+    average of the ends: compound), and an occluding textured 24x24 mover
+    crossing the middle third (each end uncovers background the other
+    hides: single-fwd and single-bwd blocks; its edges split 32-blocks).
+    The content of the JAX package's B-frame tests
+    (tests/test_inter_conformance.py test_tpu_bframe_compound and
+    test_bframe_split_conformance), in one group."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    base = gaussian_filter(rng.normal(0, 60, (h, w)), 1.1)
+    tex = rng.integers(40, 220, (h, w // 3)).astype(np.float64)
+    obj = gaussian_filter(rng.normal(0, 80, (24, 24)), 1.5)
+    out = []
+    for t in range(n):
+        a = t / (n - 1)
+        y = 128 + base
+        y[:, :w // 3] = ((1 - a) * tex + a * (255 - tex)
+                         + rng.normal(0, 2, (h, w // 3)))
+        oy = h // 6 + round(a * h // 4)
+        ox = 3 * w // 8 + round(a * 11 * w // 32)
+        y[oy:oy + 24, ox:ox + 24] = 128 + obj
+        out.append([y.clip(0, 255).astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 133, np.uint8)])
+    return out
