@@ -128,11 +128,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (encode_pframe2_tpu): every fetched decision (MVs, choice, skips,
      levels, split, mv16, CDEF map), the recons and the packets
      identical; B0 takes fwd, bwd and compound blocks and splits, the
-     LAST + GOLDEN frame takes both references.
+     LAST + GOLDEN frame takes both references;
+  18. the session API (api/context.py, the CLI): (a) the port's Context
+     at its defaults (speed 6, reordered, lookahead 8) with
+     min_key_frame_interval 4 on cuda and on cpu at 256x192, on 10 frames
+     of two fade + occluding-mover groups (the cut at frame 5): packets,
+     frame types, frame numbers and qps identical, the cut a KEY; (b) the
+     lookahead's pair stats at 1920x1088 on panning content, cuda against
+     cpu: mv and inter cost identical, intra within 1e-6 relative; device
+     ms a frame pair; (c) synth(1920, 1080, n=9) written as y4m and
+     encoded by rav1e_tpu_torch.cli.main at its defaults on cuda with
+     enc_stats (the 32-padding to 1088 and render_size): each packet's
+     type, frame, qp and bytes, each coded frame's wall seconds and
+     launches (ec_pack and the CDEF kernels in every frame, the gather in
+     every inter frame); where the port's dav1d shim loads libdav1d, the
+     IVF decodes to 9 frames whose PSNR against the source is each
+     packet's enc_stats (else a line says the decode was not run).
 
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
-frame took. Prints a kernels JSON line (launches: phases 15, 13, 16 and
-17 together, and each path's own count, every count set to 0 just
+frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17
+and 18c together, and each path's own count, every count set to 0 just
 before its path; the gather's ms, bound and plain and indexing ms are
 phase 4's replayed speed-6 P frame, with its launches a P frame, and the
 replayed B frame's beside them; the CDEF kernels' launches per frame of
@@ -1918,6 +1933,205 @@ def bgroup_gpu_vs_cpu(tp, ti, w, h):
         fail(f"the {w}x{h} B0 or LAST + GOLDEN frame lacks a block kind")
 
 
+def _session(ctx, frames):
+    """Send every frame to a Context, flush and drain it: its packets."""
+    for f in frames:
+        ctx.send_frame(f)
+    ctx.flush()
+    pkts = []
+    while True:
+        _, p = ctx.receive_packet()
+        if p is None:
+            return pkts
+        pkts.append(p)
+
+
+def session_gpu_vs_cpu(w: int = 256, h: int = 192):
+    """Phase 18a: the port's Context at its defaults (speed 6, reordered,
+    lookahead 8) with min_key_frame_interval=4 on cuda and on cpu, on 10
+    frames: tests/_torch_content.py's fade + occluding-mover group and
+    another from another seed (the scene cut at frame 5). Packets, frame
+    types, frame numbers and qps identical; the cut coded as a KEY."""
+    from rav1e_tpu_torch.api import Config
+    c = _tests_content()
+    frames = c.bgroup(w, h, n=5) + c.bgroup(w, h, n=5, seed=32)
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pkts = _session(Config(width=w, height=h, min_key_frame_interval=4
+                               ).new_context(device=d), frames)
+        res[d] = ([(p.frame_type, p.input_frameno, p.qp) for p in pkts],
+                  [p.data for p in pkts], time.perf_counter() - t0)
+    (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
+    same = [a == b for a, b in zip(data, data_c)]
+    print(f"# {w}x{h} session (Config defaults, min_key_frame_interval 4, "
+          f"10 frames with a cut) cuda {t_g:.2f} s vs cpu {t_c:.2f} s: "
+          f"packets identical {same}; (type, frame, qp) {kinds}; bytes "
+          f"{[len(b) for b in data]}", flush=True)
+    if kinds != kinds_c or len(data) != len(data_c) or not all(same):
+        fail(f"the {w}x{h} session differs between cuda and cpu: "
+             f"{kinds} vs {kinds_c}, packets identical {same}")
+    keys = [n for t, n, _ in kinds if t == "KEY"]
+    if keys != [0, 5]:
+        fail(f"the {w}x{h} session's keyframes are frames {keys}, not the "
+             "first and the cut (0, 5)")
+
+
+def lookahead_gpu_vs_cpu(torch, w: int = 1920, h: int = 1088):
+    """Phase 18b: the lookahead's pair stats (analysis/lookahead.py, plain
+    torch: the +-8 px full-pel search of every 16x16 block) on panning()'s
+    two frames (synth panned by (3, -2) px under static squares), packed,
+    cuda against cpu: mv and inter cost identical, the
+    intra cost within 1e-6 relative (its f32 sum order); the device ms a
+    frame pair (CUDA events, mean of 5) and its peak memory. Returns the
+    ms."""
+    from rav1e_tpu_torch.analysis.lookahead import _pair_stats_packed_fn
+    from rav1e_tpu_torch.pipeline.tpu_inter import pack_src
+    bufs = [torch.from_numpy(pack_src(f)) for f in panning(w, h)]
+    fn = _pair_stats_packed_fn(h, w)
+    t0 = time.perf_counter()
+    cpu = [x.numpy() for x in fn(bufs[1], bufs[0])]
+    t_cpu = time.perf_counter() - t0
+    g = [b.cuda() for b in bufs]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gpu = [x.cpu().numpy() for x in fn(g[1], g[0])]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ms = time_cuda(torch, lambda: fn(g[1], g[0]), 5)
+    rel = float(np.max(np.abs(gpu[2] - cpu[2]) / np.maximum(cpu[2], 1)))
+    moved = float(np.mean(np.any(cpu[0] != 0, axis=-1)))
+    print(f"# lookahead pair stats {w}x{h} ({cpu[1].size} blocks, "
+          f"{moved:.3f} with a nonzero mv): mv identical "
+          f"{np.array_equal(gpu[0], cpu[0])}, inter identical "
+          f"{np.array_equal(gpu[1], cpu[1])}, intra max rel diff {rel:.3g}; "
+          f"device {ms:.4f} ms a frame pair (cpu {t_cpu:.2f} s), peak "
+          f"{peak:.1f} MiB", flush=True)
+    if not (np.array_equal(gpu[0], cpu[0]) and np.array_equal(gpu[1], cpu[1])
+            and rel <= 1e-6):
+        fail("the lookahead's pair stats differ between cuda and cpu")
+    return ms
+
+
+def session_cli_1080p(torch, kern: dict):
+    """Phase 18c: synth(1920, 1080, n=9) written as y4m and encoded by
+    rav1e_tpu_torch.cli.main at its defaults (cuda, speed 6, reordered,
+    lookahead 8) with enc_stats on, every kernel's count set to 0 just
+    before and read just after. Prints each packet's type, frame, qp and
+    bytes, each coded frame's wall seconds and launches; every frame
+    launches ec_pack and the three CDEF kernels, every inter frame the
+    gather. Where the port's dav1d shim loads libdav1d, the IVF decodes to
+    9 frames, each frame's PSNR against the (edge-padded) source equal to
+    its packet's enc_stats. Returns ({kernel: launches}, coded frames)."""
+    import tempfile
+    from pathlib import Path
+
+    import rav1e_tpu_torch.pipeline.tpu_inter as tp
+    import rav1e_tpu_torch.pipeline.tpu_intra as ti
+    from rav1e_tpu_torch.api.context import Context
+    from rav1e_tpu_torch.cli import main as cli
+    from rav1e_tpu_torch.cli.ivf import read_ivf
+    from rav1e_tpu_torch.cli.y4m import write_y4m
+    from rav1e_tpu_torch.conform import dav1d
+    w, h, n = 1920, 1080, 9
+    frames = synth(w, h, n=n)
+    pkts, calls = [], []
+    saved_rp = Context.receive_packet
+
+    def receive(self):
+        st, p = saved_rp(self)
+        if p is not None:
+            pkts.append(p)
+        return st, p
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            before = {m: f.launches for m, f in kern.items()}
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((fn.__name__, time.perf_counter() - t0,
+                          {m: f.launches - before[m]
+                           for m, f in kern.items()}))
+            return out
+        return call
+
+    entries = [(ti, "encode_keyframe_tpu")] + [
+        (tp, m) for m in ("encode_pframe_tpu", "encode_bframe_tpu",
+                          "encode_pframe2_tpu")]
+    saved = [(mod, m, getattr(mod, m)) for mod, m in entries]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, ivf = Path(tmp) / "in.y4m", Path(tmp) / "out.ivf"
+        write_y4m(str(src), frames)
+        Context.receive_packet = receive
+        for mod, m, fn in saved:
+            setattr(mod, m, timed(fn))
+        try:
+            for f in kern.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            cli.main([str(src), "-o", str(ivf), "-s", "enc_stats=1"])
+            wall = time.perf_counter() - t0
+            launches = {m: f.launches for m, f in kern.items()}
+        finally:
+            Context.receive_packet = saved_rp
+            for mod, m, fn in saved:
+                setattr(mod, m, fn)
+        stream = list(read_ivf(str(ivf)))
+    coded = [p for p in pkts if p.frame_type != "SHOW_EXISTING"]
+    print(f"# 1920x1080 y4m -> IVF through rav1e_tpu_torch.cli.main (cuda, "
+          f"speed 6, reordered, lookahead 8, enc_stats): {wall:.3f} s for "
+          f"{n} frames ({n / wall:.4f} frames/s), the pipelines "
+          f"{sum(c[1] for c in calls):.3f} s of it; launches "
+          f"{json.dumps(launches)}", flush=True)
+    for p in pkts:
+        print(f"#   packet {p.frame_type} frame {p.input_frameno} qp {p.qp}:"
+              f" {len(p.data)} bytes", flush=True)
+    if len(calls) != len(coded) or len(coded) != n:
+        fail(f"{len(calls)} pipeline calls for {len(coded)} coded frames, "
+             f"{n} frames sent")
+    for p, (name, sec, nl) in zip(coded, calls):
+        st = p.enc_stats
+        print(f"#   frame {p.input_frameno} ({name}): {sec:.3f} s, launches "
+              f"{json.dumps(nl)}, PSNR y/u/v {st.psnr_y:.4f} / "
+              f"{st.psnr_u:.4f} / {st.psnr_v:.4f}", flush=True)
+        need = [m for m in kern if m != "gather_patches"
+                or p.frame_type == "INTER"]
+        if any(nl[m] < 1 for m in need):
+            fail(f"frame {p.input_frameno} launched no {need}: {nl}")
+    if [(t, d) for t, d in stream] != [(p.input_frameno, p.data)
+                                       for p in pkts]:
+        fail("the IVF's packets are not the session's")
+    try:
+        ver = dav1d.version()
+    except OSError as e:
+        print(f"# libdav1d does not load here ({e}): the IVF is not "
+              "decoded; packets and launches checked only", flush=True)
+        return launches, n
+    dec = dav1d.decode_all([d for _, d in stream])
+    stats = {p.input_frameno: p.enc_stats for p in coded}
+    psnr = []
+    for i, (d, f) in enumerate(zip(dec, frames)):
+        got = []
+        for j, (plane, ref) in enumerate(zip(d.planes, f)):
+            ch, cw = plane.shape
+            ref = np.pad(ref, ((0, ch - ref.shape[0]), (0, cw - ref.shape[1])),
+                         mode="edge").astype(np.float64)
+            mse = np.mean((ref - plane.astype(np.float64)) ** 2)
+            got.append(float(10 * np.log10(255.0 ** 2 / mse))
+                       if mse > 0 else 99.0)
+        want = [stats[i].psnr_y, stats[i].psnr_u, stats[i].psnr_v]
+        psnr.append(got)
+        if got != want:
+            fail(f"decoded frame {i}'s PSNR {got} is not enc_stats' {want}")
+    print(f"# libdav1d {ver} decoded the IVF to {len(dec)} frames; each "
+          f"frame's PSNR against the source equals its enc_stats "
+          f"(y: {[round(p[0], 4) for p in psnr]})", flush=True)
+    if len(dec) != n:
+        fail(f"libdav1d decoded {len(dec)} frames, {n} sent")
+    return launches, n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2019,6 +2233,16 @@ def main() -> int:
     bg_launches, n_b, _ = bgroup_1080p(torch, ec, gp, cd, tp, recs6[0],
                                        pkts6[0])
     bgroup_gpu_vs_cpu(tp, ti, 256, 192)
+    # the session API: a Context on cuda against cpu, the lookahead's pair
+    # stats at 1080p, and the CLI's y4m -> IVF encode at 1080p
+    session_gpu_vs_cpu()
+    la_ms = lookahead_gpu_vs_cpu(torch)
+    sess_launches, n_s = session_cli_1080p(torch, {
+        "gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+        "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+        "cdef_apply": cd.cdef_apply})
+    print(f"# lookahead: {la_ms:.4f} ms of device time a 1080p frame pair, "
+          "one pair a frame sent", flush=True)
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -2072,12 +2296,13 @@ def main() -> int:
           f"launches {per_frame * floor_ms:.5f} ms", flush=True)
     # launches on the main paths, each counted from 0 in its own run:
     # phase 15's speed-6 GOP, phase 13's speed-7 GOP, phase 16's split8
-    # keyframe and phase 17's reordered group
+    # keyframe, phase 17's reordered group and phase 18's CLI session
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
-               "kf6_split8": kf6s_launches, "bgroup6": bg_launches}
+               "kf6_split8": kf6s_launches, "bgroup6": bg_launches,
+               "session_cli": sess_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
-    print(f"# launches on the main paths (phases 15, 13, 16, 17): "
+    print(f"# launches on the main paths (phases 15, 13, 16, 17, 18): "
           f"{json.dumps(by_path)}", flush=True)
 
     def paths(k):
@@ -2090,8 +2315,8 @@ def main() -> int:
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
-    # the four paths' frames (phase 17: the anchor and the B frames)
-    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b)
+    # the five paths' frames (phase 17: the anchor and the B frames)
+    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],

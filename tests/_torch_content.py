@@ -56,3 +56,27 @@ def bgroup(w: int = 128, h: int = 96, n: int = 3, seed: int = 31):
                     np.full((h // 2, w // 2), 120, np.uint8),
                     np.full((h // 2, w // 2), 133, np.uint8)])
     return out
+
+
+def session(w: int = 128, h: int = 96, n: int = 9, seed: int = 12):
+    """n frames [y, u, v] (uint8, 4:2:0) for a Context: a static smooth
+    textured background, a static flat ramp over its left quarter, and a
+    textured 24x24 mover (2 px down, 5 px right a frame), with light
+    noise. Importance differs by block, so the lookahead's distortion
+    scales are not all ones; the texture is too smooth for the speed-6
+    keyframe's 16->8 split gate (_detail_band8 about 11, gate 256)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    bg = 128 + gaussian_filter(rng.normal(0, 50, (h, w)), 2.0)
+    obj = 128 + gaussian_filter(rng.normal(0, 70, (24, 24)), 1.2)
+    out = []
+    for t in range(n):
+        y = bg.copy()
+        y[:, : w // 4] = 90 + 0.4 * np.arange(w // 4)[None, :]
+        oy, ox = 20 + 2 * t, 40 + 5 * t
+        y[oy:oy + 24, ox:ox + 24] = obj
+        y = y + rng.normal(0, 1.0, (h, w))
+        out.append([y.clip(0, 255).astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 133, np.uint8)])
+    return out

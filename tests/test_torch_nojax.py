@@ -35,6 +35,22 @@ assert len(pkt6) > 100
 pkts6, _ = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=6,
                           cdef=(0, 0, 0, 0, 3), device="cpu")
 assert len(pkts6) == 2 and len(pkts6[1]) > 0
+import rav1e_tpu_torch.cli.main
+import rav1e_tpu_torch.conform.dav1d
+from rav1e_tpu_torch.api import Config
+ctx = Config(width=64, height=64).new_context(device="cpu")   # speed 6
+assert ctx._la_depth == 8 and ctx._bgroup == 4
+for f in chip_smoke.synth(64, 64, n=5):
+    ctx.send_frame(f)
+ctx.flush()
+got = []
+while True:
+    _, p = ctx.receive_packet()
+    if p is None:
+        break
+    got.append((p.frame_type, p.input_frameno))
+assert got == [("KEY", 0), ("INTER", 4), ("INTER", 2), ("INTER", 1),
+               ("SHOW_EXISTING", 2), ("INTER", 3), ("SHOW_EXISTING", 4)], got
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "rav1e_tpu"))]
 assert not bad, bad
@@ -51,7 +67,9 @@ def test_port_runs_with_jax_and_reference_blocked():
     """In a subprocess where importing jax or rav1e_tpu fails, the port
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
     KEY + P GOP on the CPU, at speed 7 with CDEF, the default (speed-6)
-    keyframe and a speed-6 KEY + P GOP with CDEF."""
+    keyframe and a speed-6 KEY + P GOP with CDEF; the session API, the
+    CLI and the dav1d shim import, and a default Context (speed 6,
+    reordered, lookahead 8) codes 5 frames."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -92,6 +110,16 @@ def test_entry_point_without_device_and_without_cuda_raises():
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         encode_keyframe_tpu(planes, 100, speed=8)
+
+
+def test_context_without_device_and_without_cuda_raises():
+    """Config().new_context() means cuda, as the CLI's default does; with
+    no CUDA it raises before any frame, naming the way out."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available")
+    from rav1e_tpu_torch.api import Config
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Config().new_context()
 
 
 @pytest.mark.parametrize("opt,value", [("aq", True), ("lr", True)])
