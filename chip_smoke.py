@@ -143,15 +143,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      launches (ec_pack and the CDEF kernels in every frame, the gather in
      every inter frame); where the port's dav1d shim loads libdav1d, the
      IVF decodes to 9 frames whose PSNR against the source is each
-     packet's enc_stats (else a line says the decode was not run).
+     packet's enc_stats (else a line says the decode was not run);
+  19. 10-bit 4:2:0: (a) the three CDEF kernels on 10-bit planes (int16,
+     read as uint16) against their plain versions as in phase 6, on
+     phase 5's recon and source as 10-bit planes (to_10bit: x 4 plus a
+     seeded dither in [0, 3]), sampled (1920x1088) and full (1920x1056)
+     branches, the extremes and the noise past 2^24 scaled to 10 bits:
+     max |err| 0, the blocks on each path, device ms and bounds; (b) at
+     256x192 on cuda vs on cpu, on the fade + occluding-mover content as
+     10-bit planes: after the 10-bit numpy keyframe, the default P frame
+     and phase 17's reordered group (bit_depth=10), then the port's
+     Context with bit_depth=10 on 10 frames with a cut: every decision,
+     recon and packet identical; (c) the 10-bit reordered group at
+     1920x1088 on cuda (synth(1920, 1088, n=5) as 10-bit planes on
+     phase 15's keyframe recon << 2: not a decodable stream, since the
+     10-bit numpy keyframe takes minutes at 1080p), each frame's
+     launches and stage times, packets pinned in HBD_PINS (the CPU
+     route's, made by `python3 chip_smoke.py --hbd-pins`).
 
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
-frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17
-and 18c together, and each path's own count, every count set to 0 just
-before its path; the gather's ms, bound and plain and indexing ms are
-phase 4's replayed speed-6 P frame, with its launches a P frame, and the
-replayed B frame's beside them; the CDEF kernels' launches per frame of
-those paths and their ms per 1080p frame), then, as the last line,
+frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17,
+18c and 19c together, and each path's own count, every count set to 0
+just before its path; the gather's ms, bound and plain and indexing ms
+are phase 4's replayed speed-6 P frame, with its launches a P frame,
+and the replayed B frame's beside them; the CDEF kernels' launches per
+frame of those paths and their ms per 1080p frame, their 10-bit ms and
+bounds from phase 19a beside them), then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
 rav1e_tpu_torch package beside it.
@@ -159,7 +176,11 @@ rav1e_tpu_torch package beside it.
     python3 chip_smoke.py --bgroup-pins
 
 encodes phase 15's keyframe on cuda, then phase 17's group on the CPU
-route (device="cpu"), and prints the BGROUP_PINS that phase 17 checks.
+route (device="cpu"), and prints the BGROUP_PINS that phase 17 checks;
+
+    python3 chip_smoke.py --hbd-pins
+
+does the same for phase 19c's 10-bit group and prints HBD_PINS.
 """
 
 from __future__ import annotations
@@ -624,23 +645,25 @@ def _tests_content():
     return mod
 
 
-def _dirs_ops():
+def _dirs_ops(bd: int = 8):
     """cdef_dirs' least work an 8x8 block, one op an instruction: each
     bin's sum of x - 128 as __dp4a words (4 pixels of one bin a word, the
     -128 n in the first word's accumulator), a square and a multiply-add
     by 840 / n a bin, the argmax of the 8 costs (a compare and two
-    selects a step) and var (a subtract and a shift)."""
+    selects a step) and var (a subtract and a shift); above 8 bits, one
+    more a pixel for px >> (bd - 8)."""
     words = bins = 0
     for b in _tests_content().DIR_BINS:
         n = np.bincount(b.ravel())
         words += int(((n + 3) // 4).sum())
         bins += len(n)
-    return words + 2 * bins + 3 * 7 + 2
+    return words + 2 * bins + 3 * 7 + 2 + (64 if bd > 8 else 0)
 
 
-def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
+def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms, bd: int = 8):
     """Phase 6 on one frame (contiguous uint8 planes, as cdef_search_persb
-    gives them): every CDEF kernel against its plain version on the same
+    gives them; phase 19a: int16 planes of 10-bit values, bd=10): every
+    CDEF kernel against its plain version on the same
     inputs (dir, var, the SSE tables and the applied planes exactly
     equal; one launch a frame for the table and for the apply, the plain
     version per plane), the blocks on each path, device ms (CUDA events,
@@ -649,34 +672,39 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
     (floor_ms) beside it. Returns {kernel: (ms, plain_ms, bound_ms,
     bound_by)} for one frame's three planes."""
     h, w = planes_d[0].shape
+    tag = f"{w}x{h}" + ("" if bd == 8 else f" {bd}-bit")
+    px = planes_d[0].element_size()        # bytes a pixel
     sampled = h % 64 == 0 and w % 64 == 0
-    dirs, var = cd.cdef_dirs(planes_d[0])
-    dp, vp = cd.cdef_dirs_plain(planes_d[0])
+    dirs, var = cd.cdef_dirs(planes_d[0], bd)
+    dp, vp = cd.cdef_dirs_plain(planes_d[0], bd)
     if not (torch.equal(dirs, dp) and torch.equal(var, vp)):
-        fail(f"{w}x{h}: cdef_dirs kernel and plain version differ")
+        fail(f"{tag}: cdef_dirs kernel and plain version differ")
     res = {}
     nb = dirs.numel()
-    t_b = (h * w + 5 * nb) / H100_BYTES_PER_S * 1e3
-    t_o = _dirs_ops() * nb / H100_INT_OPS_PER_S * 1e3
+    t_b = (px * h * w + 5 * nb) / H100_BYTES_PER_S * 1e3
+    t_o = _dirs_ops(bd) * nb / H100_INT_OPS_PER_S * 1e3
     # a launch of a few us: the mean of 20 (3 add about 1 us a launch)
     res["cdef_dirs"] = [
-        time_cuda(torch, lambda: cd.cdef_dirs(planes_d[0]), 20),
-        time_cuda(torch, lambda: cd.cdef_dirs_plain(planes_d[0]), 3),
+        time_cuda(torch, lambda: cd.cdef_dirs(planes_d[0], bd), 20),
+        time_cuda(torch, lambda: cd.cdef_dirs_plain(planes_d[0], bd), 3),
         max(t_b, t_o), "bytes" if t_b >= t_o else "operations"]
     damping = CDEF_SPEED8[4]
-    largs = (planes_d, srcs_d, dirs, var, skip8, damping, sampled)
+    largs = (planes_d, srcs_d, dirs, var, skip8, damping, sampled, bd)
     sses, lpaths = _paths(torch, cd, lambda: cd.cdef_ladder_sse(*largs))
 
     def ladder_plain():
         return [cd.cdef_ladder_sse_plain(p, s, dirs, var, skip8, damping,
-                                         i > 0, sampled)
+                                         i > 0, sampled, bd)
                 for i, (p, s) in enumerate(zip(planes_d, srcs_d))]
 
     for i, want in enumerate(ladder_plain()):
         if not torch.equal(sses[i], want):
-            fail(f"{w}x{h} plane {i}: cdef_ladder_sse kernel and plain "
+            fail(f"{tag} plane {i}: cdef_ladder_sse kernel and plain "
                  f"version differ (max |err| "
                  f"{float((sses[i] - want).abs().max())})")
+    # the strengths scale by 2^(bd - 8), which leaves every count below
+    # as it is (an adjusted strength is > 0, or two are distinct, at
+    # every bit depth alike); the bytes scale by the pixel's size
     t_o = t_b = 0.0
     for i, p in enumerate(planes_d):
         chroma = i > 0
@@ -685,7 +713,8 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
                 if sampled else None)
         t_o += _cdef_ladder_ops(torch, cd, var, skip8, chroma,
                                 mask) / H100_INT_OPS_PER_S * 1e3
-        t_b += (2 * ph * pw + 32 * sses[i][0].numel()) / H100_BYTES_PER_S * 1e3
+        t_b += (2 * px * ph * pw
+                + 32 * sses[i][0].numel()) / H100_BYTES_PER_S * 1e3
     res["cdef_ladder_sse"] = [
         time_cuda(torch, lambda: cd.cdef_ladder_sse(*largs), 3),
         time_cuda(torch, ladder_plain, 3), max(t_b, t_o),
@@ -700,7 +729,8 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
     def apply_plain(**kw):
         st = kw.get("strengths", (0, 0, 0, 0))
         return [cd.cdef_apply_plain(p, dirs, var, skip8, damping, i > 0,
-                                    kw.get("idx"), *(st[2:] if i else st[:2]))
+                                    kw.get("idx"), *(st[2:] if i else st[:2]),
+                                    bd)
                 for i, p in enumerate(planes_d)]
 
     # the winners, every entry, and the uniform mode with chroma's primary
@@ -708,10 +738,10 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
     apaths = {}
     for name, kw in (("winners", {"idx": idx}), ("every", {"idx": every}),
                      ("uniform", {"strengths": (3, 1, 0, 2)})):
-        got, apaths[name] = _paths(torch, cd, lambda: cd.cdef_apply(*aargs,
-                                                                    **kw))
+        got, apaths[name] = _paths(torch, cd, lambda: cd.cdef_apply(
+            *aargs, **kw, bd=bd))
         if not all(torch.equal(a, b) for a, b in zip(got, apply_plain(**kw))):
-            fail(f"{w}x{h}: cdef_apply kernel and plain version differ on "
+            fail(f"{tag}: cdef_apply kernel and plain version differ on "
                  f"the {name} map")
     # timed and bounded on `every` (7 of 8 SBs filtered, at every entry);
     # the winners' map of this frame may filter nothing
@@ -720,13 +750,14 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
     for i, p in enumerate(planes_d):
         t_o += _cdef_ops(torch, cd, var, skip8, i > 0,
                          ent) / H100_INT_OPS_PER_S * 1e3
-        t_b += 2 * p.numel() / H100_BYTES_PER_S * 1e3
+        t_b += 2 * px * p.numel() / H100_BYTES_PER_S * 1e3
     res["cdef_apply"] = [
-        time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=every), 3),
+        time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=every, bd=bd), 3),
         time_cuda(torch, lambda: apply_plain(idx=every), 3), max(t_b, t_o),
         "operations" if t_o >= t_b else "bytes"]
-    winners_ms = time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=idx), 3)
-    print(f"# CDEF kernels vs plain at {w}x{h} ("
+    winners_ms = time_cuda(torch, lambda: cd.cdef_apply(*aargs, idx=idx,
+                                                        bd=bd), 3)
+    print(f"# CDEF kernels vs plain at {tag} ("
           f"{'sampled' if sampled else 'full'} branch, idx used "
           f"{sorted(set(idx.flatten().tolist()))}): dir, var, SSE tables "
           "and applied planes (the winners, every entry, a uniform "
@@ -737,45 +768,61 @@ def cdef_phase(torch, cd, planes_d, srcs_d, skip8, floor_ms):
                             for v in r] for k, r in res.items()})
           + f"; cdef_apply on the winners' map {winners_ms:.5f} ms; the "
           f"empty launch {floor_ms:.5f} ms", flush=True)
-    print(f"# CDEF paths at {w}x{h}: cdef_ladder_sse blocks "
+    print(f"# CDEF paths at {tag}: cdef_ladder_sse blocks "
           f"{json.dumps({k: v for k, v in lpaths.items() if 'ladder' in k})}"
           "; cdef_apply (SB, plane) pairs by map "
           + json.dumps({m: {k: v for k, v in c.items() if 'apply' in k}
                         for m, c in apaths.items()}), flush=True)
     beaten = [k for k, r in res.items() if r[0] < r[2]]
     if beaten:
-        fail(f"{w}x{h}: {beaten} ran in less than its bound: the count "
+        fail(f"{tag}: {beaten} ran in less than its bound: the count "
              "is no floor")
     return res
 
 
-def dirs_extremes(torch, cd):
+def to_10bit(p, rng):
+    """An 8-bit plane as 10-bit values: p << 2 plus a dither in [0, 3]
+    (int16)."""
+    p = np.asarray(p).astype(np.int16) << 2
+    return p + rng.integers(0, 4, p.shape).astype(np.int16)
+
+
+def dirs_extremes(torch, cd, bd: int = 8):
     """Phase 6, cdef_dirs at its extremes: dir_extremes' blocks, on an
     8-byte-aligned and a misaligned base (the wrapper copies it), and a
     1928x1088 frame (width 8 past a multiple of 64, the last thread block
     of each row partly outside it): kernel and plain version equal; the
-    all-black block gives dir 0, var 0."""
-    y = torch.from_numpy(np.tile(_tests_content().dir_extremes(),
-                                 (2, 1))).cuda()
-    flat = torch.empty(y.numel() + 1, dtype=torch.uint8, device="cuda")
+    all-black block gives dir 0, var 0. Phase 19a (bd=10): the same
+    content as 10-bit int16 planes (to_10bit), and 10-bit noise."""
+    rng = np.random.default_rng(29)
+    ext = np.tile(_tests_content().dir_extremes(), (2, 1))
+    wide = synth(1928, 1088)[0][0]
+    if bd == 8:
+        dt = torch.uint8
+        noise = rng.integers(0, 256, (1088, 1928)).astype(np.uint8)
+    else:
+        dt = torch.int16
+        ext, wide = to_10bit(ext, rng), to_10bit(wide, rng)
+        noise = rng.integers(0, 1 << bd, (1088, 1928)).astype(np.int16)
+    y = torch.from_numpy(ext).cuda()
+    flat = torch.empty(y.numel() + 1, dtype=dt, device="cuda")
     odd = flat[1:].view(y.shape)
     odd.copy_(y)
-    rng = np.random.default_rng(29)
-    wide = torch.from_numpy(synth(1928, 1088)[0][0]).cuda()
-    noisy = torch.from_numpy(
-        rng.integers(0, 256, (1088, 1928)).astype(np.uint8)).cuda()
+    wide = torch.from_numpy(wide).cuda()
+    noisy = torch.from_numpy(noise).cuda()
     for what, p in (("extreme blocks", y), ("a misaligned base", odd),
                     ("1928x1088 synth", wide), ("1928x1088 noise", noisy)):
-        d, v = cd.cdef_dirs(p)
-        dp, vp = cd.cdef_dirs_plain(p)
+        d, v = cd.cdef_dirs(p, bd)
+        dp, vp = cd.cdef_dirs_plain(p, bd)
         if not (torch.equal(d, dp) and torch.equal(v, vp)):
-            fail(f"cdef_dirs on {what}: kernel and plain version differ")
-    d, v = cd.cdef_dirs(y)
+            fail(f"cdef_dirs ({bd}-bit) on {what}: kernel and plain version "
+                 "differ")
+    d, v = cd.cdef_dirs(y, bd)
     if int(d[0, 0]) != 0 or int(v[0, 0]) != 0:
-        fail(f"cdef_dirs on the all-black block: dir {int(d[0, 0])}, var "
-             f"{int(v[0, 0])}, expected 0, 0")
-    print(f"# cdef_dirs at its extremes (all 0, all 255, a ramp and "
-          f"stripes along each direction, random; a misaligned base; "
+        fail(f"cdef_dirs ({bd}-bit) on the all-black block: dir "
+             f"{int(d[0, 0])}, var {int(v[0, 0])}, expected 0, 0")
+    print(f"# cdef_dirs ({bd}-bit) at its extremes (all 0, all max, a ramp "
+          f"and stripes along each direction, random; a misaligned base; "
           f"1928x1088 synth and noise): kernel = plain; dirs of the "
           f"extreme blocks {d[0, :18].tolist()}", flush=True)
 
@@ -795,28 +842,32 @@ def noise_at_q255(w, h, seed, scale=1):
     return rec, src, rng.random((h // 8, w // 8)) < 0.1
 
 
-def cdef_past_2_24(torch, cd):
+def cdef_past_2_24(torch, cd, bd: int = 8):
     """Phase 6, past 2^24: on noise at q 255, 256x192 (sampled branch)
     and 160x96 with a heavier error (full branch), the SSE tables of the
     kernel (the blocks past 2^24 on its ordered path) and of the plain
     version on the card, and the search's index and filtered planes on
     cuda and on cpu, exactly equal; a luma cell passes 2^24, where the
-    order of the f32 sum decides."""
+    order of the f32 sum decides. Phase 19a (bd=10): the same noise
+    scaled to 10 bits (x 4, int16 planes)."""
+    up, dt = (1, np.uint8) if bd == 8 else (1 << (bd - 8), np.int16)
     for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
         rec, src, skip8 = noise_at_q255(w, h, seed, scale)
         sampled = h % 64 == 0 and w % 64 == 0
-        dev = {d: ([torch.from_numpy(p.astype(np.uint8)).to(d) for p in rec],
-                   [torch.from_numpy(p.astype(np.uint8)).to(d) for p in src],
+        dev = {d: ([torch.from_numpy((p * up).astype(dt)).to(d)
+                    for p in rec],
+                   [torch.from_numpy((p * up).astype(dt)).to(d)
+                    for p in src],
                    torch.from_numpy(skip8).to(d)) for d in ("cuda", "cpu")}
         rd, sd, kd = dev["cuda"]
-        dirs, var = cd.cdef_dirs(rd[0])
+        dirs, var = cd.cdef_dirs(rd[0], bd)
         got, paths = _paths(torch, cd, lambda: cd.cdef_ladder_sse(
-            rd, sd, dirs, var, kd, 3, sampled))
+            rd, sd, dirs, var, kd, 3, sampled, bd))
         for i in range(3):
             if not torch.equal(got[i], cd.cdef_ladder_sse_plain(
-                    rd[i], sd[i], dirs, var, kd, 3, i > 0, sampled)):
-                fail(f"{w}x{h} noise plane {i}: cdef_ladder_sse kernel and "
-                     "plain version differ")
+                    rd[i], sd[i], dirs, var, kd, 3, i > 0, sampled, bd)):
+                fail(f"{w}x{h} {bd}-bit noise plane {i}: cdef_ladder_sse "
+                     "kernel and plain version differ")
         top = float(got.max())
         if top < 2 ** 24:
             fail(f"{w}x{h} noise: no cell passes 2^24 ({top})")
@@ -826,11 +877,11 @@ def cdef_past_2_24(torch, cd):
         for lam in (None, 60.0, 2000.0):
             out = {d: cd.cdef_search_persb(
                 *dev[d], 3, lam=None if lam is None
-                else torch.tensor(lam, device=d)) for d in dev}
+                else torch.tensor(lam, device=d), bd=bd) for d in dev}
             same.append(torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
                         and all(torch.equal(a.cpu(), b) for a, b in
                                 zip(out["cuda"][1], out["cpu"][1])))
-        print(f"# CDEF past 2^24 at {w}x{h} (noise at q 255, "
+        print(f"# CDEF past 2^24 at {w}x{h} {bd}-bit (noise at q 255, "
               f"{'sampled' if sampled else 'full'} branch, largest cell "
               f"SSE {top:.0f}): kernel and plain tables identical, blocks "
               f"exact / ordered {paths['ladder_exact']} / "
@@ -1717,7 +1768,7 @@ BGROUP_PINS = [(30684, "610e340bbe53fed5"), (5372, "39d31b4932536438"),
                (2406, "0d6f4e700308289c"), (5, "f5ed02db3266a088")]
 
 
-def reordered_group(tp, frames, krec, device, run=None):
+def reordered_group(tp, frames, krec, device, run=None, bit_depth=8):
     """The group api/context.py codes at speed 6 with bgroup = 4 after a
     keyframe (frames[0], its recon krec, slot 0, order hint 0), at q 100
     with cdef (0, 0, 0, 0, 3): the non-shown anchor P (frame 4, refreshing
@@ -1725,15 +1776,18 @@ def reordered_group(tp, frames, krec, device, run=None):
     3), B1 (frame 1 on KEY and B0), show-existing 3, B1 (frame 3 on B0 and
     the anchor), show-existing 1. run(label, fn, *a, **k) calls each
     frame's entry point (default: fn(*a, **k)). Returns (the packets in
-    coding order, {frame: recon int32 planes})."""
+    coding order, {frame: recon int32 planes}). bit_depth: the frames'
+    (8 or 10, phase 19)."""
     from rav1e_tpu_torch.api.speed import SpeedSettings
     from rav1e_tpu_torch.entropy.obu import show_existing_packet
     ss = SpeedSettings.from_preset(6)
     run = run or (lambda label, fn, *a, **k: fn(*a, **k))
-    kw = dict(cdef=CDEF_SPEED8, device=device)
+    kw = dict(cdef=CDEF_SPEED8, device=device, bit_depth=bit_depth)
     bkw = dict(kw, b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo)
+    kref = (krec if bit_depth > 8
+            else [np.asarray(r, np.uint8) for r in krec])
     apkt, arec = run("anchor P (frame 4)", tp.encode_pframe_tpu, frames[4],
-                     [np.asarray(r, np.uint8) for r in krec], 100,
+                     kref, 100,
                      order_hint=4, refresh_flags=1 << 1, ref_slot=0,
                      show_frame=False, use_split=ss.partition_split_rdo,
                      use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
@@ -2132,6 +2186,202 @@ def session_cli_1080p(torch, kern: dict):
     return launches, n
 
 
+# ---- phase 19: 10-bit 4:2:0 -------------------------------------------------
+
+# the 10-bit reordered group of phase 19c in coding order (the non-shown
+# anchor P, B0, B1, show-existing 3, B1, show-existing 1): (bytes,
+# SHA-256 prefix) from the port's CPU route (device="cpu") on the H100
+# machine's host, whose 10-bit packets equal the JAX package's at every
+# test shape (tests/test_torch_hbd.py); made by
+# `python3 chip_smoke.py --hbd-pins`
+HBD_PINS = [(89609, "7285c0da5de634f2"), (59494, "1dc02c01f5b02bee"),
+            (19242, "8210308a2a42fa2e"), (5, "479f23cb97654286"),
+            (15635, "69d60ddc9c3d4377"), (5, "f5ed02db3266a088")]
+
+
+def hbd_frames(krec, n=5):
+    """Phase 19c's input: synth(1920, 1088, n) as 10-bit planes
+    (to_10bit, seed 37), and phase 15's keyframe recon krec << 2 as the
+    reference picture (the 10-bit numpy keyframe takes minutes at 1080p;
+    so these packets follow no keyframe of theirs and are not a
+    decodable stream)."""
+    rng = np.random.default_rng(37)
+    frames = [[to_10bit(p, rng) for p in f] for f in synth(1920, 1088, n=n)]
+    return frames, [np.asarray(r, np.int32) << 2 for r in krec]
+
+
+def hbd_pins(torch, ti, tp):
+    """`--hbd-pins`: phase 15's keyframe on cuda (its packet must be
+    GOP6_BYTES[0] bytes), then phase 19c's 10-bit group on the CPU route.
+    Prints HBD_PINS."""
+    kpkt, krec = ti.encode_keyframe_tpu(synth(1920, 1088)[0], 100,
+                                        cdef=CDEF_SPEED8, device="cuda")
+    if len(kpkt) != GOP6_BYTES[0]:
+        fail(f"the keyframe took {len(kpkt)} bytes, not {GOP6_BYTES[0]}")
+    frames, kref = hbd_frames(krec)
+    t0 = time.perf_counter()
+    pkts, _ = reordered_group(tp, frames, kref, "cpu", bit_depth=10)
+    print(f"# the 10-bit group on the CPU route in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"HBD_PINS = {_pins(pkts)}", flush=True)
+    return 0
+
+
+def cdef_10bit(torch, cd, rec_d, src_d, skip8, floor_ms):
+    """Phase 19a: the three CDEF kernels on 10-bit planes (int16, read as
+    uint16 by the kernels) against their plain versions, as phase 6:
+    phase 5's deblocked 1080p keyframe recon and its source as 10-bit
+    planes (to_10bit, seed 43), the sampled branch at 1920x1088 and the
+    full one at 1920x1056; then the extremes and the noise past 2^24 at
+    10 bits. Returns cdef_phase's {kernel: (ms, plain_ms, bound_ms,
+    bound_by)} of the sampled frame."""
+    rng = np.random.default_rng(43)
+    rec10 = [torch.from_numpy(to_10bit(p.cpu().numpy(), rng)).cuda()
+             for p in rec_d]
+    src10 = [torch.from_numpy(to_10bit(p.cpu().numpy(), rng)).cuda()
+             for p in src_d]
+    res = cdef_phase(torch, cd, rec10, src10, skip8, floor_ms, bd=10)
+    cdef_phase(torch, cd, [rec10[0][:1056], rec10[1][:528], rec10[2][:528]],
+               [src10[0][:1056], src10[1][:528], src10[2][:528]],
+               skip8[:132], floor_ms, bd=10)
+    dirs_extremes(torch, cd, bd=10)
+    cdef_past_2_24(torch, cd, bd=10)
+    return res
+
+
+def hbd_gpu_vs_cpu(tp, w: int = 256, h: int = 192):
+    """Phase 19b: 10-bit 4:2:0 on cuda and on cpu at w x h, on
+    tests/_torch_content.py's fade + occluding-mover content as 10-bit
+    planes (to_10bit): after the 10-bit numpy keyframe (host, the same for
+    both), the low-latency P frame (encode_pframe_tpu's defaults,
+    bit_depth=10) and phase 17's reordered group (the anchor P and three
+    B frames); then the port's Context at its defaults with bit_depth=10
+    and min_key_frame_interval=4 on 10 frames with a cut at frame 5.
+    Every fetched decision, the recons, the packets, and the session's
+    packets, frame types, frame numbers and qps identical."""
+    from rav1e_tpu_torch.api import Config
+    from rav1e_tpu_torch.pipeline.intra import encode_keyframe
+    c = _tests_content()
+    rng = np.random.default_rng(47)
+    frames = [[to_10bit(p, rng) for p in f] for f in c.bgroup(w, h, n=5)]
+    t0 = time.perf_counter()
+    kpkt, krec = encode_keyframe(frames[0], 100, cdef=CDEF_SPEED8,
+                                 bit_depth=10)
+    t_kf = time.perf_counter() - t0
+    res = {}
+    for d in ("cuda", "cpu"):
+        got, restore = _recording_fetch(tp)
+        try:
+            ppkt, prec = tp.encode_pframe_tpu(
+                frames[1], krec, 100, order_hint=1, cdef=CDEF_SPEED8,
+                bit_depth=10, device=d)
+            pkts, recs = reordered_group(tp, frames, krec, d, bit_depth=10)
+        finally:
+            restore()
+        res[d] = ([ppkt] + pkts, [prec] + list(recs.values()), got)
+    (pk_g, rc_g, g), (pk_c, rc_c, cc) = res["cuda"], res["cpu"]
+    bad = []
+    for i, (a, b) in enumerate(zip(g, cc)):
+        bad += [f"frame {i} {k}" for k, x, y in zip(FETCHED6, a, b)
+                if not np.array_equal(x, y)]
+    if not all(np.array_equal(x, y) for ra, rb in zip(rc_g, rc_c)
+               for x, y in zip(ra, rb)):
+        bad.append("recon")
+    same = [a == b for a, b in zip(pk_g, pk_c)]
+    top = max(int(r.max()) for rec in rc_c for r in rec)
+    b0 = dict(zip(FETCHED6, cc[2]))
+    kinds = np.bincount(b0["choice"], minlength=3).tolist()
+    print(f"# {w}x{h} 10-bit P and reordered group, cuda vs cpu (numpy "
+          f"keyframe {len(kpkt)} B in {t_kf:.2f} s): differing "
+          f"{bad or 'nothing'}; packets identical {same} "
+          f"({[len(p) for p in pk_c]} bytes); recon max {top}; B0 blocks "
+          f"fwd / bwd / compound {kinds}", flush=True)
+    if bad or not all(same):
+        fail(f"the {w}x{h} 10-bit frames differ between cuda and cpu: "
+             f"{bad}, packets identical {same}")
+    if top <= 255 or top > 1023:
+        fail(f"the {w}x{h} 10-bit recons reach {top}, not 256..1023")
+    frames2 = frames + [[to_10bit(p, rng) for p in f]
+                        for f in c.bgroup(w, h, n=5, seed=32)]
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pk = _session(Config(width=w, height=h, bit_depth=10,
+                             min_key_frame_interval=4).new_context(device=d),
+                      frames2)
+        res[d] = ([(p.frame_type, p.input_frameno, p.qp) for p in pk],
+                  [p.data for p in pk], time.perf_counter() - t0)
+    (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
+    same = [a == b for a, b in zip(data, data_c)]
+    print(f"# {w}x{h} 10-bit session (Config defaults, bit_depth 10, "
+          f"min_key_frame_interval 4, 10 frames with a cut) cuda "
+          f"{t_g:.2f} s vs cpu {t_c:.2f} s: packets identical {same}; "
+          f"(type, frame, qp) {kinds}; bytes {[len(b) for b in data]}",
+          flush=True)
+    if kinds != kinds_c or len(data) != len(data_c) or not all(same):
+        fail(f"the {w}x{h} 10-bit session differs between cuda and cpu: "
+             f"{kinds} vs {kinds_c}, packets identical {same}")
+    keys = [n for t, n, _ in kinds if t == "KEY"]
+    if keys != [0, 5]:
+        fail(f"the {w}x{h} 10-bit session's keyframes are frames {keys}, "
+             "not the first and the cut (0, 5)")
+
+
+def hbd_1080p(torch, ec, gp, cd, tp, krec):
+    """Phase 19c: the 10-bit reordered group at 1920x1088 on cuda
+    (hbd_frames: the anchor P and three B frames at q 100, speed 6, cdef
+    (0, 0, 0, 0, 3), bit_depth=10), every kernel's count set to 0 just
+    before it and read just after: packets against HBD_PINS, each frame's
+    launches (the anchor: every kernel; each B frame: B_LAUNCHES), stage
+    times, recons within 0..1023. Returns ({kernel: launches}, frames)."""
+    frames, kref = hbd_frames(krec)
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    rows = []
+
+    def run(label, fn, *a, **k):
+        before = {n: f.launches for n, f in kern.items()}
+        t = {}
+        out = fn(*a, timings=t, **k)
+        rows.append((label, {n: f.launches - before[n]
+                             for n, f in kern.items()}, t))
+        return out
+
+    for f in kern.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    pkts, recs = reordered_group(tp, frames, kref, "cuda", run=run,
+                                 bit_depth=10)
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kern.items()}
+    pins = _pins(pkts)
+    print(f"# 1920x1088 10-bit reordered group (anchor P, B0, B1, SEF 3, "
+          f"B1, SEF 1; speed 6, q 100, cdef {CDEF_SPEED8}, cuda; not a "
+          f"decodable stream: its reference is phase 15's 8-bit keyframe "
+          f"recon << 2): {wall:.3f} s; packets {[n for n, _ in pins]} "
+          f"bytes, SHA-256 {[x for _, x in pins]}; the CPU route's "
+          f"(HBD_PINS) {HBD_PINS}; launches {json.dumps(launches)}",
+          flush=True)
+    for label, n, t in rows:
+        print(f"# 10-bit {label}: launches {json.dumps(n)}; stages (s) "
+              + json.dumps({k: round(v, 4) for k, v in t.items()}),
+              flush=True)
+        if label.startswith("anchor"):
+            idle = [k for k, v in n.items() if v < 1]
+            if idle:
+                fail(f"the 10-bit anchor launched no {idle}")
+        elif n != B_LAUNCHES:
+            fail(f"10-bit {label} launched {n}, not {B_LAUNCHES}")
+    for i, rec in recs.items():
+        if [tuple(r.shape) for r in rec] != [p.shape for p in frames[i]] or \
+                any(r.min() < 0 or r.max() > 1023 for r in rec):
+            fail(f"10-bit frame {i}: recon shapes wrong or outside 0..1023")
+    if pins != HBD_PINS:
+        fail(f"the 10-bit group's packets {pins}, pinned {HBD_PINS}")
+    return launches, 4
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2146,6 +2396,8 @@ def main() -> int:
     import rav1e_tpu_torch.pipeline.tpu_intra as ti
     if sys.argv[1:] == ["--bgroup-pins"]:
         return bgroup_pins(torch, ti, tp)
+    if sys.argv[1:] == ["--hbd-pins"]:
+        return hbd_pins(torch, ti, tp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2183,13 +2435,13 @@ def main() -> int:
     h, w = planes[0].shape
     rp = kd.rec_packed
     # contiguous uint8 planes, as cdef_search_persb hands them on
-    rec_d = cd._as_u8([rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]])
+    rec_d = cd._as_pix([rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]])
     src_d = [torch.from_numpy(p).cuda() for p in planes]
     skip8 = ti._kf_skip8(kd.state)
     cdef_ms = cdef_phase(torch, cd, rec_d, src_d, skip8, floor_ms)
-    cdef_phase(torch, cd, cd._as_u8([rec_d[0][:1056], rec_d[1][:528],
+    cdef_phase(torch, cd, cd._as_pix([rec_d[0][:1056], rec_d[1][:528],
                                      rec_d[2][:528]]),
-               cd._as_u8([src_d[0][:1056], src_d[1][:528], src_d[2][:528]]),
+               cd._as_pix([src_d[0][:1056], src_d[1][:528], src_d[2][:528]]),
                skip8[:132], floor_ms)
     dirs_extremes(torch, cd)
     cdef_past_2_24(torch, cd)
@@ -2243,6 +2495,11 @@ def main() -> int:
         "cdef_apply": cd.cdef_apply})
     print(f"# lookahead: {la_ms:.4f} ms of device time a 1080p frame pair, "
           "one pair a frame sent", flush=True)
+    # phase 19, 10-bit 4:2:0: the CDEF kernels on 16-bit planes, cuda
+    # against cpu at 256x192, and the 1080p 10-bit group
+    cdef10_ms = cdef_10bit(torch, cd, rec_d, src_d, skip8, floor_ms)
+    hbd_gpu_vs_cpu(tp)
+    hbd_launches, n_h = hbd_1080p(torch, ec, gp, cd, tp, recs6[0])
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -2296,13 +2553,14 @@ def main() -> int:
           f"launches {per_frame * floor_ms:.5f} ms", flush=True)
     # launches on the main paths, each counted from 0 in its own run:
     # phase 15's speed-6 GOP, phase 13's speed-7 GOP, phase 16's split8
-    # keyframe, phase 17's reordered group and phase 18's CLI session
+    # keyframe, phase 17's reordered group, phase 18's CLI session and
+    # phase 19c's 10-bit group
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
                "kf6_split8": kf6s_launches, "bgroup6": bg_launches,
-               "session_cli": sess_launches}
+               "session_cli": sess_launches, "hbd10": hbd_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
-    print(f"# launches on the main paths (phases 15, 13, 16, 17, 18): "
+    print(f"# launches on the main paths (phases 15, 13, 16, 17, 18, 19c): "
           f"{json.dumps(by_path)}", flush=True)
 
     def paths(k):
@@ -2315,8 +2573,9 @@ def main() -> int:
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
-    # the five paths' frames (phase 17: the anchor and the B frames)
-    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s
+    # the six paths' frames (phases 17 and 19c: the anchor and the B
+    # frames)
+    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],
@@ -2324,7 +2583,10 @@ def main() -> int:
          "launches_per_frame": launches[k] / frames,
          "max_abs_err": 0, "ms": r[0],
          "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
-         "library_ms": None} for k, r in cdef_ms.items()]
+         "library_ms": None, "ms_10bit": cdef10_ms[k][0],
+         "plain_ms_10bit": cdef10_ms[k][1],
+         "bound_ms_10bit": cdef10_ms[k][2],
+         "bound_by_10bit": cdef10_ms[k][3]} for k, r in cdef_ms.items()]
     entries = [ec_entry, gather_entry] + cdef_entries
     for e in entries:
         e["empty_launch_ms"] = floor_ms

@@ -35,10 +35,15 @@ def _pair_stats_fn(h: int, w: int):
     prediction fails).
 
     The SSD is wsq - 2 * corr + sum(blk^2) in f32, formed in that order.
-    Each of the three terms is a sum of integers below 2^24, so it is
-    computed exactly in int32 (any order gives the same value); only
-    the two f32 operations round, as they do in the reference. The
-    first minimum wins (argmin), flat content included."""
+    Each of the three terms is computed exactly in int32 and rounded to
+    f32 once. At 8 bits each is a sum of integers below 2^24, which the
+    reference's f32 sums give in any order, so only the two f32
+    operations round, as they do in the reference. At 10 bits they pass
+    2^24 (256 x 1023^2) and the reference's f32 orders (its
+    reduce_window, grouped convolution and reduce) are not mirrored: the
+    distortion scales then differ from the reference's by up to about
+    2e-4 relative (tests/test_torch_hbd.py). The first minimum wins
+    (argmin), flat content included."""
     nby, nbx = h // BLK, w // BLK
     B = nby * nbx
     span = 2 * SEARCH + 1

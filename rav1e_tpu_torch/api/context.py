@@ -9,9 +9,13 @@ rate controller, and emits packets in coded order. Key names mirror
 rav1e_config_parse where meaningful.
 
 Every frame is coded by the port's device pipelines on the Context's
-device (cuda unless device="cpu"). A configuration those pipelines do
-not reach raises NotImplementedError in Context.__init__, naming the
-ROADMAP item that brings it; nothing falls back to another path.
+device (cuda unless device="cpu"), except 10-bit keyframes, which the
+reference codes on its numpy pipeline (its device keyframe is 8-bit)
+and the port codes on its copy of it (pipeline/intra.py, host numpy);
+the 10-bit P and B frames run on the device. A configuration those
+pipelines do not reach raises NotImplementedError in Context.__init__,
+naming the ROADMAP item that brings it; nothing falls back to another
+path.
 """
 
 from __future__ import annotations
@@ -246,8 +250,8 @@ class Context:
         pipelines (or that the port's device pipelines raise for), before
         any frame is coded."""
         cfg, ss = self.cfg, self.speed_settings
-        if cfg.bit_depth != 8:
-            _not_ported(f"bit_depth {cfg.bit_depth}", "item 12 (bd=10)")
+        if cfg.bit_depth == 12:
+            _not_ported("bit_depth 12", "item 16b (the numpy pipelines)")
         if cfg.chroma_sampling != "420":
             _not_ported(f"{cfg.chroma_sampling[0]}:{cfg.chroma_sampling[1]}:"
                         f"{cfg.chroma_sampling[2]} chroma sampling",
@@ -289,7 +293,10 @@ class Context:
     # -- input side ----------------------------------------------------------
 
     def send_frame(self, frame: list[np.ndarray] | None) -> EncoderStatus:
-        """frame: [y, u, v] uint8 planes, or None to signal flush."""
+        """frame: [y, u, v] planes (uint8 at 8 bits, uint16 at 10), or
+        None to signal flush. The frame is packed and uploaded at the
+        session's bit depth (the reference's send_frame packs at 8 bits,
+        which keeps 10-bit values mod 256)."""
         if frame is None:
             self._flushed = True
             return EncoderStatus.SUCCESS
@@ -320,7 +327,8 @@ class Context:
             # single upload per frame: the packed source feeds the
             # lookahead ME stats now and the encode step later
             from rav1e_tpu_torch.pipeline.tpu_inter import pack_src
-            src_dev = torch.from_numpy(pack_src(padded)).to(self.device)
+            src_dev = torch.from_numpy(
+                pack_src(padded, bd=cfg.bit_depth)).to(self.device)
             self._lookahead.push_packed(src_dev, self._ch, self._cw)
         self._q.append((self._input_frameno, padded, src_dev))
         self._input_frameno += 1
@@ -376,7 +384,8 @@ class Context:
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
                     search=ss.search_px, subpel=ss.subpel,
-                    use_split8=ss.partition_split8, device=self.device)
+                    use_split8=ss.partition_split8,
+                    bit_depth=self.cfg.bit_depth, device=self.device)
 
     def _encode_group(self):
         """Code the buffered frames as anchor-P (non-shown) + B pyramid +
@@ -433,7 +442,7 @@ class Context:
         self._rc.update("INTER", q, len(adata) * 8)
         arec32 = _host32(arec)
         bkw = dict(b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo,
-                   device=self.device)
+                   bit_depth=self.cfg.bit_depth, device=self.device)
 
         # Binary pyramid over the inner frames for ANY group length
         # (rav1e InterConfig pyramid, src/api/internal.rs: depth-2 for
@@ -555,12 +564,22 @@ class Context:
         ftype = "KEY" if is_key else "INTER"
         q = self._rc.select_qi(ftype)
         cdef = self._loop_params(is_key, q)
-        if is_key:
+        if is_key and cfg.bit_depth == 8:
             from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
             data, rec = encode_keyframe_tpu(
                 planes, qindex=q, cdef=cdef, speed=cfg.speed,
                 render_size=self._render,
                 seq_extra=self._seq_extra or None, device=self.device)
+        elif is_key:
+            # the reference's device keyframe is 8-bit: it codes deeper
+            # keyframes on its numpy pipeline, on the host, as here
+            from rav1e_tpu_torch.pipeline.intra import encode_keyframe
+            data, rec = encode_keyframe(
+                planes, qindex=q, cdef=cdef, bit_depth=cfg.bit_depth,
+                render_size=self._render,
+                seq_extra=self._seq_extra or None,
+                angle_deltas=ss.angle_deltas)
+        if is_key:
             if self._metadata:
                 # metadata OBUs ride the keyframe temporal unit, after
                 # the 2-byte temporal delimiter and before the frame
@@ -575,7 +594,8 @@ class Context:
             # only slot 0, so slot 1 still holds the keyframe). Static
             # areas skip against the clean keyframe instead of
             # accumulating re-encode loss along the LAST chain.
-            use_mref = (ss.multiref and self._golden_rec is not None
+            use_mref = (ss.multiref and cfg.bit_depth == 8
+                        and self._golden_rec is not None
                         and self._order_hint >= 2)
             if use_mref:
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
@@ -600,7 +620,8 @@ class Context:
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
                     use_split8=ss.partition_split8,
-                    dscale=dscale, src_dev=src_dev, device=self.device)
+                    bit_depth=cfg.bit_depth, dscale=dscale,
+                    src_dev=src_dev, device=self.device)
         self._ref_rec = _host32(rec)
         if is_key:
             self._golden_rec = self._ref_rec

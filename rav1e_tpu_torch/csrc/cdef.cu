@@ -106,6 +106,16 @@
 //     masked. No integer division per pixel. Bound: the operations
 //     (chip_smoke.py, _cdef_ops: 7 a tap that the pair's strengths
 //     read, the clamp window, 5 or 6 to round and clip).
+// Each kernel is a template on the pixel type: uint8_t at 8 bits,
+// uint16_t at 10 (the reference's CoeffShift 2: the strengths and
+// dampings scale by 4, the primary taps' parity reads the adjusted
+// strength >> 2, and the direction search runs on px >> 2, packed to
+// bytes as it loads). The tiles stay int16, and OUT still constrains to
+// 0 (|d| >= 2^14 - 1023, >> at most 8, exceeds every strength <= 56).
+// At 10 bits a squared error is up to 1023^2 and a luma cell's total up
+// to 2,143,291,392, still an exact int32; the ordered path (common at 10
+// bits: a cell passes 2^24 at an RMS error of 64 in 10-bit units) forms
+// its row terms with shared atomics instead of the 8-bit err array.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -179,12 +189,63 @@ __device__ __forceinline__ int luma_pri_adj(int pri, int var) {
   return (pri * (4 + vs) + 8) >> 4;
 }
 
-// Rows r0 - 2 .. r0 + RH + 1 and columns c0 - 4 .. c0 + RW + 3 of an
-// 8-bit plane into `tile` ([RH + 4][RW + 8] int16), OUT outside the
-// frame, one aligned 4-byte word a load (c0 and W are multiples of 4).
-template <int RH, int RW, int NT>
+// Pixels: uint8_t at 8 bits, uint16_t at 10 (values <= 1023). SHIFT<Pix>
+// is bd - 8: the strengths and dampings scale by it, the direction
+// search reads px >> SHIFT, and the primary taps' parity reads the
+// adjusted strength >> SHIFT (the reference's CoeffShift).
+template <typename Pix>
+constexpr int SHIFT = sizeof(Pix) == 1 ? 0 : 2;
+
+// The vector type of N bytes (4, 8 or 16): one load or store a run.
+template <int N>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = uint32_t;
+};
+template <>
+struct Vec<8> {
+  using T = uint2;
+};
+template <>
+struct Vec<16> {
+  using T = uint4;
+};
+
+// A vector's 32-bit words, and a vector made of words.
+__device__ __forceinline__ void words(uint32_t v, uint32_t* w) { w[0] = v; }
+__device__ __forceinline__ void words(uint2 v, uint32_t* w) {
+  w[0] = v.x;
+  w[1] = v.y;
+}
+__device__ __forceinline__ void words(uint4 v, uint32_t* w) {
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+template <typename V>
+__device__ __forceinline__ V vec_of(const uint32_t* w);
+template <>
+__device__ __forceinline__ uint32_t vec_of<uint32_t>(const uint32_t* w) {
+  return w[0];
+}
+template <>
+__device__ __forceinline__ uint2 vec_of<uint2>(const uint32_t* w) {
+  return make_uint2(w[0], w[1]);
+}
+template <>
+__device__ __forceinline__ uint4 vec_of<uint4>(const uint32_t* w) {
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Rows r0 - 2 .. r0 + RH + 1 and columns c0 - 4 .. c0 + RW + 3 of a
+// plane into `tile` ([RH + 4][RW + 8] int16), OUT outside the frame, four
+// pixels an aligned load (one 4-byte word at 8 bits, 8 bytes at 10; c0
+// and W are multiples of 4).
+template <int RH, int RW, int NT, typename Pix>
 __device__ __forceinline__ void load_tile(int16_t* tile,
-                                          const uint8_t* __restrict__ plane,
+                                          const Pix* __restrict__ plane,
                                           int H, int W, int r0, int c0) {
   constexpr int WPR = (RW + 8) / 4;
   for (int i = threadIdx.x; i < (RH + 4) * WPR; i += NT) {
@@ -194,9 +255,14 @@ __device__ __forceinline__ void load_tile(int16_t* tile,
     const int xx = c0 - 4 + 4 * tw;
     uint2 v = make_uint2(OUT2, OUT2);
     if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-      const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(
-          plane + static_cast<int64_t>(yy) * W + xx));
-      v = make_uint2(__byte_perm(w, 0, 0x4140), __byte_perm(w, 0, 0x4342));
+      const Pix* at = plane + static_cast<int64_t>(yy) * W + xx;
+      if constexpr (sizeof(Pix) == 1) {
+        const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(at));
+        v = make_uint2(__byte_perm(w, 0, 0x4140),
+                       __byte_perm(w, 0, 0x4342));
+      } else {
+        v = __ldg(reinterpret_cast<const uint2*>(at));
+      }
     }
     reinterpret_cast<uint2*>(tile)[i] = v;
   }
@@ -267,8 +333,15 @@ __device__ __forceinline__ int dir_cost(const uint2* __restrict__ rows) {
   return c;
 }
 
+// Two 10-bit pixels a word (a, b: two words) >> 2 as four bytes.
+__device__ __forceinline__ uint32_t pack_shr2(uint32_t a, uint32_t b) {
+  return __byte_perm((a >> 2) & 0x00FF00FFu, (b >> 2) & 0x00FF00FFu,
+                     0x6420);
+}
+
+template <typename Pix>
 __global__ void __launch_bounds__(THREADS)
-cdef_dirs_kernel(const uint8_t* __restrict__ y, int H, int W,
+cdef_dirs_kernel(const Pix* __restrict__ y, int H, int W,
                  int8_t* __restrict__ dir_out, int* __restrict__ var_out) {
   // rows[i][b]: row i of block b; cols[j][b]: column j of block b (the
   // transposed block's row j); both x - 128 as int8
@@ -289,9 +362,17 @@ cdef_dirs_kernel(const uint8_t* __restrict__ y, int H, int W,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       r[q] = make_uint2(0x80808080u, 0x80808080u);
-      if (bx < nbx)
-        r[q] = __ldg(reinterpret_cast<const uint2*>(
-            y + static_cast<int64_t>(8 * by + r0 + q) * W + 8 * bx));
+      if (bx < nbx) {
+        const Pix* at = y + static_cast<int64_t>(8 * by + r0 + q) * W
+                        + 8 * bx;
+        if constexpr (sizeof(Pix) == 1) {
+          r[q] = __ldg(reinterpret_cast<const uint2*>(at));
+        } else {
+          // 8 pixels in 16 bytes, read >> 2 as the 8-bit search reads
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(at));
+          r[q] = make_uint2(pack_shr2(w.x, w.y), pack_shr2(w.z, w.w));
+        }
+      }
       r[q].x ^= 0x80808080u;
       r[q].y ^= 0x80808080u;
       rows[r0 + q][lane] = r[q];
@@ -342,22 +423,25 @@ struct Unit {
   int pa[8], psh[8], ta[8], tb[8];
 };
 
-template <bool LUMA>
+// pdamp: the plane's damping, scaled (+ SHIFT) as the strengths are.
+template <bool LUMA, int SH>
 __device__ __forceinline__ void unit_entries(int var, int pdamp, Unit& u) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const int pri = ladder(k, LUMA ? 0 : 2);
+    const int pri = ladder(k, LUMA ? 0 : 2) << SH;
     const int pa = LUMA ? luma_pri_adj(pri, var) : pri;
+    const int odd = (pa >> SH) & 1;
     u.pa[k] = pa;
     u.psh[k] = max(0, pdamp - msb(pa));
-    u.ta[k] = (pa & 1) ? 3 : 4;
-    u.tb[k] = (pa & 1) ? 3 : 2;
+    u.ta[k] = odd ? 3 : 4;
+    u.tb[k] = odd ? 3 : 2;
   }
 }
 
 // The 8 ladder entries' filtered values minus the source s0, for the
-// pixel at tile[i]; ssh[j]: the damping shift of secondary strength 2^j.
-template <bool LUMA>
+// pixel at tile[i]; ssh[j]: the damping shift of secondary strength
+// 2^j << SH (damping + SH - (j + SH): the same as at 8 bits).
+template <bool LUMA, int SH>
 __device__ __forceinline__ void ladder_px(const int16_t* tile, int i,
                                           const int* off, const Unit& u,
                                           const int (&ssh)[3], bool skip,
@@ -390,7 +474,8 @@ __device__ __forceinline__ void ladder_px(const int16_t* tile, int i,
   for (int j = 0; j < 3; ++j) {
     int acc = 0;
 #pragma unroll
-    for (int t = 4; t < 12; ++t) acc += sg[t] * lim(a[t], 1 << j, ssh[j]);
+    for (int t = 4; t < 12; ++t)
+      acc += sg[t] * lim(a[t], (1 << j) << SH, ssh[j]);
     ssum[j] = acc;
   }
   e[0] = x - s0;
@@ -412,33 +497,43 @@ __device__ __forceinline__ void ladder_px(const int16_t* tile, int i,
   }
 }
 
+// The NPX pixels of a run from its words: pixel j of 8 or 16 bits.
+template <typename Pix>
+__device__ __forceinline__ int run_px(const uint32_t* w, int j) {
+  if constexpr (sizeof(Pix) == 1)
+    return static_cast<int>((w[j >> 2] >> (8 * (j & 3))) & 255u);
+  else
+    return static_cast<int>((w[j >> 1] >> (16 * (j & 1))) & 0xFFFFu);
+}
+
+// A run of NPX pixels at src as words, one vector load.
+template <int NPX, typename Pix>
+__device__ __forceinline__ void load_run(const Pix* __restrict__ src,
+                                         uint32_t* w) {
+  using V = typename Vec<NPX * sizeof(Pix)>::T;
+  words(__ldg(reinterpret_cast<const V*>(src)), w);
+}
+
 // The errors of one run of 8 (luma) or 4 (chroma) pixels of a unit row:
 // f(j, e) for pixel j. tile: the region's tile; ty, tx: the run's first
 // pixel in region coordinates; src: the source at that pixel.
-template <bool LUMA, typename F>
+template <bool LUMA, typename Pix, typename F>
 __device__ __forceinline__ void ladder_run(const int16_t* tile, int ty,
                                            int tx, const int* off,
                                            const Unit& u, const int (&ssh)[3],
                                            bool skip,
-                                           const uint8_t* __restrict__ src,
+                                           const Pix* __restrict__ src,
                                            F&& f) {
   constexpr int NPX = LUMA ? 8 : 4;
   constexpr int COLS = LUMA ? 40 : 24;
-  uint32_t sw[NPX / 4];
-  if constexpr (LUMA) {
-    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
-    sw[0] = w.x;
-    sw[NPX / 4 - 1] = w.y;
-  } else {
-    sw[0] = __ldg(reinterpret_cast<const uint32_t*>(src));
-  }
+  uint32_t sw[NPX * sizeof(Pix) / 4];
+  load_run<NPX>(src, sw);
   const int i0 = (ty + 2) * COLS + tx + 4;
 #pragma unroll
   for (int j = 0; j < NPX; ++j) {
     int e[8];
-    ladder_px<LUMA>(tile, i0 + j, off, u, ssh, skip,
-                    static_cast<int>((sw[j >> 2] >> (8 * (j & 3))) & 255u),
-                    e);
+    ladder_px<LUMA, SHIFT<Pix>>(tile, i0 + j, off, u, ssh, skip,
+                                run_px<Pix>(sw, j), e);
     f(j, e);
   }
 }
@@ -448,14 +543,22 @@ __device__ __forceinline__ void ladder_run(const int16_t* tile, int ty,
 // thread's runs: luma, 4 runs of 8 px across a 32-px quadrant row, the
 // rest of the thread index over (quadrant, row); chroma, 4 runs of 4 px,
 // the rest over (plane, quadrant, row). Out f32 [3, 8, R, C].
-template <bool SAMPLED>
+//
+// At 10 bits (Pix = uint16_t) a squared error is at most 1023^2 <= 2^20:
+// a thread's run sums at most 16 of them, a cell's luma total at most
+// 2,048 (2,143,291,392 < 2^31), so the int32 totals stay exact. The
+// ordered path has no room for the errors themselves (32 bits each), so
+// each thread forms its run's part of each row's terms, the lane-0
+// errors stored and the lane sums added with shared atomics (integers,
+// in any order), and the f32 chain reads the same terms as at 8 bits.
+template <bool SAMPLED, typename Pix>
 __global__ void __launch_bounds__(LADDER_THREADS, 4)
-cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
-                       const uint8_t* __restrict__ pu,
-                       const uint8_t* __restrict__ pv,
-                       const uint8_t* __restrict__ sy,
-                       const uint8_t* __restrict__ su,
-                       const uint8_t* __restrict__ sv, int H, int W,
+cdef_ladder_sse_kernel(const Pix* __restrict__ py,
+                       const Pix* __restrict__ pu,
+                       const Pix* __restrict__ pv,
+                       const Pix* __restrict__ sy,
+                       const Pix* __restrict__ su,
+                       const Pix* __restrict__ sv, int H, int W,
                        const int8_t* __restrict__ dirs,
                        const int* __restrict__ var,
                        const uint8_t* __restrict__ skip8, int damping, int R,
@@ -463,12 +566,15 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
                        int* __restrict__ paths) {
   constexpr int NREG = SAMPLED ? 2 : 1;   // regions (quadrants) a cell
   constexpr int RPT = NREG;               // rows a thread's run covers
+  constexpr int SH = SHIFT<Pix>;
+  constexpr bool WIDE = sizeof(Pix) == 2;
   __shared__ __align__(16) int16_t tile_y[NREG][36 * 40];
   __shared__ __align__(16) int16_t tile_c[2][NREG][20 * 24];
   __shared__ int off_y[8][12], off_c[8][12];
   __shared__ int wsum[2][LADDER_THREADS / 32][8];
-  // the ordered path: one region's squared errors, each row's terms
-  __shared__ uint16_t err[8][32][34];
+  // the ordered path: one region's squared errors (8 bits), each row's
+  // terms
+  __shared__ uint16_t err[WIDE ? 1 : 8][32][34];
   __shared__ int terms[8][32][7];
 
   const int tid = threadIdx.x;
@@ -479,6 +585,7 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
                         max(0, damping - 2)};
   const int ssh_c[3] = {max(0, damping - 1), max(0, damping - 2),
                         max(0, damping - 3)};
+  const int pdamp_y = damping + SH, pdamp_c = damping + SH - 1;
   // region q's first row (rc = br) or column (rc = bc); b: its side,
   // 32 luma, 16 chroma
   auto org = [&](int q, int b, int rc) {
@@ -509,7 +616,7 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
     const int yy = org(q, 32, br) + row0, xx = org(q, 32, bc) + 8 * u4;
     const int g = (yy >> 3) * gw + (xx >> 3);
     Unit un;
-    unit_entries<true>(var[g], damping, un);
+    unit_entries<true, SH>(var[g], pdamp_y, un);
     const int* off = off_y[dirs[g]];
     const bool sk = skip8[g] != 0;
     int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -535,10 +642,10 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
     const int yy = org(q, 16, br) + row0, xx = org(q, 16, bc) + 4 * u4;
     const int g = (yy >> 2) * gw + (xx >> 2);
     Unit un;
-    unit_entries<false>(0, damping - 1, un);
+    unit_entries<false, SH>(0, pdamp_c, un);
     const int* off = off_c[dirs[g]];
     const bool sk = skip8[g] != 0;
-    const uint8_t* s = pl ? sv : su;
+    const Pix* s = pl ? sv : su;
     int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
@@ -587,54 +694,93 @@ cdef_ladder_sse_kernel(const uint8_t* __restrict__ py,
                                 // the lane-4, lanes-2+6 and odd-lane totals
     for (int q = 0; q < NREG; ++q) {
       __syncthreads();
+      if constexpr (WIDE) {
+        // zero the lane sums that the atomics add into
+        for (int i = tid; i < 8 * B * 3; i += LADDER_THREADS) {
+          const int k = i / (3 * B), rj = i - k * 3 * B;
+          terms[k][rj / 3][B / 8 + rj % 3] = 0;
+        }
+        __syncthreads();
+      }
+      // one run's squared errors: at 8 bits into err, at 10 into its
+      // row's terms (pixel col of the row, lane col & 7 of its chunk)
+      int p4[8], p26[8], podd[8];   // this run's parts of the lane sums
+#pragma unroll
+      for (int k = 0; k < 8; ++k) p4[k] = p26[k] = podd[k] = 0;
+      auto put = [&](int row, int col, const int (&e)[8]) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int e2 = e[k] * e[k];
+          if constexpr (WIDE) {
+            const int lane = col & 7;
+            if (lane == 0)
+              terms[k][row][col >> 3] = e2;
+            else if (lane == 4)
+              p4[k] += e2;
+            else if (lane == 2 || lane == 6)
+              p26[k] += e2;
+            else
+              podd[k] += e2;
+          } else {
+            err[k][row][col] = static_cast<uint16_t>(e2);
+          }
+        }
+      };
+      int row = -1;
       if (p == 0) {
-        const int row = tid >> 2;
+        row = tid >> 2;
         const int yy = org(q, 32, br) + row, xx = org(q, 32, bc) + 8 * u4;
         const int g = (yy >> 3) * gw + (xx >> 3);
         Unit un;
-        unit_entries<true>(var[g], damping, un);
+        unit_entries<true, SH>(var[g], pdamp_y, un);
         ladder_run<true>(tile_y[q], row, 8 * u4, off_y[dirs[g]], un, ssh_y,
                          skip8[g] != 0,
                          sy + static_cast<int64_t>(yy) * W + xx,
                          [&](int j, const int (&e)[8]) {
-#pragma unroll
-                           for (int k = 0; k < 8; ++k)
-                             err[k][row][8 * u4 + j] =
-                                 static_cast<uint16_t>(e[k] * e[k]);
+                           put(row, 8 * u4 + j, e);
                          });
       } else if (tid < 64) {
-        const int row = tid >> 2;
+        row = tid >> 2;
         const int yy = org(q, 16, br) + row, xx = org(q, 16, bc) + 4 * u4;
         const int g = (yy >> 2) * gw + (xx >> 2);
         Unit un;
-        unit_entries<false>(0, damping - 1, un);
+        unit_entries<false, SH>(0, pdamp_c, un);
         ladder_run<false>(tile_c[p - 1][q], row, 4 * u4, off_c[dirs[g]], un,
                           ssh_c, skip8[g] != 0,
                           (p == 1 ? su : sv) + static_cast<int64_t>(yy) * Wc
                               + xx,
                           [&](int j, const int (&e)[8]) {
-#pragma unroll
-                            for (int k = 0; k < 8; ++k)
-                              err[k][row][4 * u4 + j] =
-                                  static_cast<uint16_t>(e[k] * e[k]);
+                            put(row, 4 * u4 + j, e);
                           });
       }
-      __syncthreads();
-      for (int i = tid; i < 8 * B; i += LADDER_THREADS) {
-        const int k = i / B, r = i - k * B;
-        const uint16_t* e = err[k][r];
-        int l4 = 0, l26 = 0, lodd = 0;
-        for (int c = 0; c < B / 8; ++c) {
-          terms[k][r][c] = e[8 * c];
-          l4 += e[8 * c + 4];
-          l26 += e[8 * c + 2] + e[8 * c + 6];
-          lodd += e[8 * c + 1] + e[8 * c + 3] + e[8 * c + 5] + e[8 * c + 7];
+      if constexpr (WIDE) {
+        if (row >= 0) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            atomicAdd(&terms[k][row][B / 8], p4[k]);
+            atomicAdd(&terms[k][row][B / 8 + 1], p26[k]);
+            atomicAdd(&terms[k][row][B / 8 + 2], podd[k]);
+          }
         }
-        terms[k][r][B / 8] = l4;
-        terms[k][r][B / 8 + 1] = l26;
-        terms[k][r][B / 8 + 2] = lodd;
+        __syncthreads();
+      } else {
+        __syncthreads();
+        for (int i = tid; i < 8 * B; i += LADDER_THREADS) {
+          const int k = i / B, r = i - k * B;
+          const uint16_t* e = err[k][r];
+          int l4 = 0, l26 = 0, lodd = 0;
+          for (int c = 0; c < B / 8; ++c) {
+            terms[k][r][c] = e[8 * c];
+            l4 += e[8 * c + 4];
+            l26 += e[8 * c + 2] + e[8 * c + 6];
+            lodd += e[8 * c + 1] + e[8 * c + 3] + e[8 * c + 5] + e[8 * c + 7];
+          }
+          terms[k][r][B / 8] = l4;
+          terms[k][r][B / 8 + 1] = l26;
+          terms[k][r][B / 8 + 2] = lodd;
+        }
+        __syncthreads();
       }
-      __syncthreads();
       if (tid < 8)
         for (int r = 0; r < B; ++r)
           for (int j = 0; j < nt; ++j)
@@ -688,30 +834,40 @@ __device__ __forceinline__ int apply_px(const int16_t* tile, int i,
 
 // One run of NPX pixels of a unit row: filtered from the tile, or kept
 // as they are where the unit is skipped or has no strength; stored as
-// one word (NPX bytes) at dst.
-template <int NPX, int COLS>
+// one vector (NPX pixels) at dst. pa, sec and pdamp arrive scaled by
+// SHIFT<Pix>; the primary taps' parity reads pa >> SHIFT.
+template <int NPX, int COLS, typename Pix>
 __device__ __forceinline__ void apply_run(const int16_t* tile, int ty, int tx,
                                           const int* off, int pa, int sec,
                                           int pdamp, bool keep,
-                                          uint8_t* __restrict__ dst) {
+                                          Pix* __restrict__ dst) {
+  using V = typename Vec<NPX * sizeof(Pix)>::T;
+  constexpr int PPW = 4 / sizeof(Pix);   // pixels a 32-bit word
+  constexpr int BITS = 8 * sizeof(Pix);
   const int i0 = (ty + 2) * COLS + tx + 4;
-  uint32_t w[NPX / 4];
+  uint32_t w[NPX / PPW];
 #pragma unroll
-  for (int h = 0; h < NPX / 4; ++h) w[h] = 0;
+  for (int h = 0; h < NPX / PPW; ++h) w[h] = 0;
   const int psh = max(0, pdamp - msb(pa));
   const int ssh = max(0, pdamp - msb(sec));
-  const int ta = (pa & 1) ? 3 : 4, tb = (pa & 1) ? 3 : 2;
+  const int odd = (pa >> SHIFT<Pix>) & 1;
+  const int ta = odd ? 3 : 4, tb = odd ? 3 : 2;
 #pragma unroll
   for (int j = 0; j < NPX; ++j) {
     const int y = keep ? tile[i0 + j]
                        : apply_px(tile, i0 + j, off, pa, psh, ta, tb, sec,
                                   ssh);
-    w[j >> 2] |= static_cast<uint32_t>(y) << (8 * (j & 3));
+    w[j / PPW] |= static_cast<uint32_t>(y) << (BITS * (j % PPW));
   }
-  if constexpr (NPX == 8)
-    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[NPX / 4 - 1]);
-  else
-    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  *reinterpret_cast<V*>(dst) = vec_of<V>(w);
+}
+
+// A run of NPX pixels copied with one vector load and store.
+template <int NPX, typename Pix>
+__device__ __forceinline__ void copy_run(const Pix* __restrict__ src,
+                                         Pix* __restrict__ dst) {
+  using V = typename Vec<NPX * sizeof(Pix)>::T;
+  *reinterpret_cast<V*>(dst) = __ldg(reinterpret_cast<const V*>(src));
 }
 
 // One block per 64x64 luma SB: its luma (runs of 8 px, rows 2 rp and
@@ -719,17 +875,19 @@ __device__ __forceinline__ void apply_run(const int16_t* tile, int ty, int tx,
 // chroma SBs (runs of 4 px; the rest of the thread index over (plane,
 // row pair)). idx (row stride ceil(W / 64)) selects the SB's ladder
 // entry; without idx the planes take the uniform pairs.
+template <typename Pix>
 __global__ void __launch_bounds__(THREADS, 4)
-cdef_apply_kernel(const uint8_t* __restrict__ py,
-                  const uint8_t* __restrict__ pu,
-                  const uint8_t* __restrict__ pv, int H, int W,
+cdef_apply_kernel(const Pix* __restrict__ py,
+                  const Pix* __restrict__ pu,
+                  const Pix* __restrict__ pv, int H, int W,
                   const int8_t* __restrict__ dirs,
                   const int* __restrict__ var,
                   const uint8_t* __restrict__ skip8,
                   const int* __restrict__ idx, int y_pri, int y_sec,
                   int uv_pri, int uv_sec, int damping,
-                  uint8_t* __restrict__ oy, uint8_t* __restrict__ ou,
-                  uint8_t* __restrict__ ov, int* __restrict__ paths) {
+                  Pix* __restrict__ oy, Pix* __restrict__ ou,
+                  Pix* __restrict__ ov, int* __restrict__ paths) {
+  constexpr int SH = SHIFT<Pix>;
   __shared__ __align__(16) int16_t tile_y[68 * 72];
   __shared__ __align__(16) int16_t tile_c[2][36 * 40];
   __shared__ int off_y[8][12], off_c[8][12];
@@ -746,6 +904,10 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
     cp = ladder(k, 2);
     cs = ladder(k, 3);
   }
+  lp <<= SH;
+  ls <<= SH;
+  cp <<= SH;
+  cs <<= SH;
   bool sk = true;
   if (tid < 64) {
     const int uy = 8 * sbr + (tid >> 3), ux = 8 * sbc + (tid & 7);
@@ -774,9 +936,7 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
       const int64_t o = static_cast<int64_t>(yy) * W + xx;
       if (copy_y) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint2*>(oy + o + r * W) =
-              __ldg(reinterpret_cast<const uint2*>(py + o + r * W));
+        for (int r = 0; r < 2; ++r) copy_run<8>(py + o + r * W, oy + o + r * W);
       } else {
         const int g = (yy >> 3) * gw + (xx >> 3);
         const int pa = luma_pri_adj(lp, var[g]);
@@ -784,8 +944,8 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
         const int* off = off_y[lp > 0 ? dirs[g] : 0];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          apply_run<8, 72>(tile_y, row0 + r, 8 * u8, off, pa, ls, damping,
-                           keep, oy + o + r * W);
+          apply_run<8, 72>(tile_y, row0 + r, 8 * u8, off, pa, ls,
+                           damping + SH, keep, oy + o + r * W);
       }
     }
   }
@@ -796,20 +956,20 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
     const int yy = 32 * sbr + row0;
     if (xx < Wc && yy < Hc) {
       const int64_t o = static_cast<int64_t>(yy) * Wc + xx;
-      uint8_t* dst = pl ? ov : ou;
+      Pix* dst = pl ? ov : ou;
       if (copy_c) {
-        const uint8_t* src = pl ? pv : pu;
+        const Pix* src = pl ? pv : pu;
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(dst + o + r * Wc) =
-              __ldg(reinterpret_cast<const uint32_t*>(src + o + r * Wc));
+          copy_run<4>(src + o + r * Wc, dst + o + r * Wc);
       } else {
         const int g = (yy >> 2) * gw + (xx >> 2);
         const int* off = off_c[cp > 0 ? dirs[g] : 0];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           apply_run<4, 40>(tile_c[pl], row0 + r, 4 * u8, off, cp, cs,
-                           damping - 1, skip8[g] != 0, dst + o + r * Wc);
+                           damping + SH - 1, skip8[g] != 0,
+                           dst + o + r * Wc);
       }
     }
   }
@@ -821,14 +981,21 @@ cdef_apply_kernel(const uint8_t* __restrict__ py,
 
 }  // namespace
 
+// Every launch takes the planes' bit depth bd: 8 (uint8_t pixels) or 10
+// (uint16_t); the wrappers check it.
 extern "C" int cdef_dirs_launch(const void* y, int H, int W, void* dir_out,
-                                void* var_out, void* stream) {
+                                void* var_out, int bd, void* stream) {
   if (H >= 8 && W >= 8) {
     const dim3 grid(((W >> 3) + DIR_BLOCKS - 1) / DIR_BLOCKS, H >> 3);
-    cdef_dirs_kernel<<<grid, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(y), H, W, static_cast<int8_t*>(dir_out),
-        static_cast<int*>(var_out));
+    auto s = static_cast<cudaStream_t>(stream);
+    auto d = static_cast<int8_t*>(dir_out);
+    auto vr = static_cast<int*>(var_out);
+    if (bd == 8)
+      cdef_dirs_kernel<<<grid, THREADS, 0, s>>>(
+          static_cast<const uint8_t*>(y), H, W, d, vr);
+    else
+      cdef_dirs_kernel<<<grid, THREADS, 0, s>>>(
+          static_cast<const uint16_t*>(y), H, W, d, vr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -841,21 +1008,31 @@ extern "C" int cdef_ladder_sse_launch(const void* y, const void* u,
                                       int W, const void* dirs,
                                       const void* var, const void* skip8,
                                       int damping, int sampled, int R, int C,
-                                      void* out, void* paths, void* stream) {
+                                      void* out, void* paths, int bd,
+                                      void* stream) {
   if (R * C > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     auto b = [](const void* p) { return static_cast<const uint8_t*>(p); };
+    auto h = [](const void* p) { return static_cast<const uint16_t*>(p); };
     auto d = static_cast<const int8_t*>(dirs);
     auto vr = static_cast<const int*>(var);
     auto o = static_cast<float*>(out);
     auto pc = static_cast<int*>(paths);
-    if (sampled)
+    if (bd == 8 && sampled)
       cdef_ladder_sse_kernel<true><<<R * C, LADDER_THREADS, 0, s>>>(
           b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
           damping, R, C, o, pc);
-    else
+    else if (bd == 8)
       cdef_ladder_sse_kernel<false><<<R * C, LADDER_THREADS, 0, s>>>(
           b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
+          damping, R, C, o, pc);
+    else if (sampled)
+      cdef_ladder_sse_kernel<true><<<R * C, LADDER_THREADS, 0, s>>>(
+          h(y), h(u), h(v), h(sy), h(su), h(sv), H, W, d, vr, b(skip8),
+          damping, R, C, o, pc);
+    else
+      cdef_ladder_sse_kernel<false><<<R * C, LADDER_THREADS, 0, s>>>(
+          h(y), h(u), h(v), h(sy), h(su), h(sv), H, W, d, vr, b(skip8),
           damping, R, C, o, pc);
   }
   return static_cast<int>(cudaGetLastError());
@@ -868,16 +1045,26 @@ extern "C" int cdef_apply_launch(const void* y, const void* u, const void* v,
                                  const void* idx, int y_pri, int y_sec,
                                  int uv_pri, int uv_sec, int damping,
                                  void* oy, void* ou, void* ov, void* paths,
-                                 void* stream) {
+                                 int bd, void* stream) {
   const int nsb = ((H + 63) >> 6) * ((W + 63) >> 6);
   if (nsb > 0) {
+    auto s = static_cast<cudaStream_t>(stream);
     auto b = [](const void* p) { return static_cast<const uint8_t*>(p); };
     auto ob = [](void* p) { return static_cast<uint8_t*>(p); };
-    cdef_apply_kernel<<<nsb, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        b(y), b(u), b(v), H, W, static_cast<const int8_t*>(dirs),
-        static_cast<const int*>(var), b(skip8), static_cast<const int*>(idx),
-        y_pri, y_sec, uv_pri, uv_sec, damping, ob(oy), ob(ou), ob(ov),
-        static_cast<int*>(paths));
+    auto h = [](const void* p) { return static_cast<const uint16_t*>(p); };
+    auto oh = [](void* p) { return static_cast<uint16_t*>(p); };
+    auto d = static_cast<const int8_t*>(dirs);
+    auto vr = static_cast<const int*>(var);
+    auto ix = static_cast<const int*>(idx);
+    auto pc = static_cast<int*>(paths);
+    if (bd == 8)
+      cdef_apply_kernel<<<nsb, THREADS, 0, s>>>(
+          b(y), b(u), b(v), H, W, d, vr, b(skip8), ix, y_pri, y_sec, uv_pri,
+          uv_sec, damping, ob(oy), ob(ou), ob(ov), pc);
+    else
+      cdef_apply_kernel<<<nsb, THREADS, 0, s>>>(
+          h(y), h(u), h(v), H, W, d, vr, b(skip8), ix, y_pri, y_sec, uv_pri,
+          uv_sec, damping, oh(oy), oh(ou), oh(ov), pc);
   }
   return static_cast<int>(cudaGetLastError());
 }

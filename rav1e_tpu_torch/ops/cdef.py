@@ -19,15 +19,20 @@ Between them, shared by both routes: the per-SB SSE from the three
 planes' tables, the nb_strengths subset RD over the 107 masks (its sum
 over the SBs in XLA:CPU's order, `_subset_sum`) and the argmin.
 `cdef_search_persb` and `cdef_filter_frame` are the reference's entry
-points; they convert the planes to contiguous uint8 once a frame and
-the kernels read the bool skip map's bytes as they are. Each wrapper
-takes a CPU tensor to its plain version and a CUDA tensor to its kernel
-(counted in `<wrapper>.launches`; `path_counts` counts the kernels'
-blocks by path on the card); there is no fallback, and the kernels take
-8-bit content only (bd > 8 raises, ROADMAP.md item 12).
+points; they convert the planes to contiguous pixels once a frame
+(`_as_pix`: uint8 at 8 bits, int16 at 10, which the kernels read as
+uint16) and the kernels read the bool skip map's bytes as they are. Each
+wrapper takes a CPU tensor to its plain version and a CUDA tensor to its
+kernel (counted in `<wrapper>.launches`; `path_counts` counts the
+kernels' blocks by path on the card); there is no fallback. The kernels
+take bit depths 8 and 10 (the reference's CoeffShift: strengths and
+damping scaled by bd - 8, the direction search on px >> (bd - 8)); 12
+bits raise (ROADMAP.md item 16b).
 
 The reference's SSEs are f32 sums, and the order of the sum decides
-once a cell passes 2^24 (an RMS error of 64 a pixel, noise at q 255).
+once a cell passes 2^24 (an RMS error of 64 a pixel at 8 bits: noise at
+q 255; 64 in 10-bit units is 16 in 8-bit ones, so at 10 bits it is
+common).
 The plain version sums in XLA:CPU's order (`_xla_rows_sum`;
 tests/test_torch_speed6.py holds the table to the reference's bit for
 bit past 2^24). The kernel sums each cell's squared errors exactly in
@@ -373,11 +378,11 @@ def cdef_apply_plain(plane, dirs, var, skip8, damping: int, chroma: bool,
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cdef_dirs_launch.argtypes = [p, i, i, p, p, p]
+    lib.cdef_dirs_launch.argtypes = [p, i, i, p, p, i, p]
     lib.cdef_ladder_sse_launch.argtypes = [p] * 6 + [i, i, p, p, p, i, i, i,
-                                                     i, p, p, p]
+                                                     i, p, p, i, p]
     lib.cdef_apply_launch.argtypes = [p, p, p, i, i, p, p, p, p, i, i, i, i,
-                                      i, p, p, p, p, p]
+                                      i, p, p, p, p, i, p]
     for f in (lib.cdef_dirs_launch, lib.cdef_ladder_sse_launch,
               lib.cdef_apply_launch):
         f.restype = ctypes.c_int
@@ -390,11 +395,11 @@ def _on_card(t: torch.Tensor, what: str, bd: int) -> bool:
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
-    if bd != 8:
+    if bd not in (8, 10):
         raise NotImplementedError(
-            f"the {what} kernel takes 8-bit planes: bit depth above 8 is "
-            "not ported to rav1e_tpu_torch yet: ROADMAP.md queue 1, item 12 "
-            "(bd=10)")
+            f"the {what} kernel takes 8- and 10-bit planes: bit depth {bd} "
+            "is not ported to rav1e_tpu_torch yet (the reference codes it "
+            "on its numpy pipelines): ROADMAP.md queue 1, item 16b")
     return True
 
 
@@ -468,8 +473,8 @@ def path_counts(device) -> torch.Tensor:
 
 def cdef_dirs(y, bd: int = 8):
     """(dir int8 [H/8, W/8], var int32 [H/8, W/8]) of the luma plane
-    [H, W] (8-bit values). CUDA: the cdef_dirs kernel; CPU: the plain
-    version."""
+    [H, W] of bd-bit values (searched on y >> (bd - 8)). CUDA: the
+    cdef_dirs kernel; CPU: the plain version."""
     if y.dim() != 2 or y.shape[0] % 8 or y.shape[1] % 8:
         raise ValueError(f"luma plane must be [H, W] in 8x8 units, got "
                          f"{tuple(y.shape)}")
@@ -477,15 +482,15 @@ def cdef_dirs(y, bd: int = 8):
         return cdef_dirs_plain(y, bd)
     lib = nvcc.load(SRC, _bind)
     H, W = y.shape
-    # the kernel reads each 8x8 block's row as one 8-byte word
-    y8 = _aligned([y.to(torch.uint8).contiguous()])[0]
+    # the kernel reads each 8x8 block's row as one 8- or 16-byte word
+    yp = _aligned(_as_pix([y], bd))[0]
     with torch.cuda.device(y.device):
         dirs = torch.empty((H // 8, W // 8), dtype=torch.int8,
                            device=y.device)
         var = torch.empty((H // 8, W // 8), dtype=torch.int32,
                           device=y.device)
-        _raise_on(lib.cdef_dirs_launch(_ptr(y8), H, W, _ptr(dirs), _ptr(var),
-                                       _stream()), "cdef_dirs")
+        _raise_on(lib.cdef_dirs_launch(_ptr(yp), H, W, _ptr(dirs), _ptr(var),
+                                       bd, _stream()), "cdef_dirs")
     nvcc.count_launch(cdef_dirs)
     return dirs, var
 
@@ -514,14 +519,14 @@ def cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping: int,
             for i, (p, s) in enumerate(zip(planes, srcs))])
     lib = nvcc.load(SRC, _bind)
     R, C = (h // 64, w // 64) if sampled else (h // 32, w // 32)
-    ps, ss = _aligned(_as_u8(planes)), _aligned(_as_u8(srcs))
+    ps, ss = _aligned(_as_pix(planes, bd)), _aligned(_as_pix(srcs, bd))
     dev = planes[0].device
     with torch.cuda.device(dev):
         out = torch.empty((3, 8, R, C), dtype=torch.float32, device=dev)
         _raise_on(lib.cdef_ladder_sse_launch(
             *map(_ptr, ps), *map(_ptr, ss), h, w, _ptr(dirs.contiguous()),
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), int(damping),
-            int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)),
+            int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)), bd,
             _stream()), "cdef_ladder_sse")
     nvcc.count_launch(cdef_ladder_sse)
     return out
@@ -535,8 +540,9 @@ def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
     """A 4:2:0 frame's planes [y, u, v] filtered, each cdef_apply_plain of
     its plane: with each SB's ladder entry idx [ceil(h/64), ceil(w/64)],
     or with the uniform strengths (y_pri, y_sec, uv_pri, uv_sec) when idx
-    is None. CUDA: one cdef_apply launch for the three planes, uint8 out;
-    CPU: the plain version per plane, the planes' dtype."""
+    is None. CUDA: one cdef_apply launch for the three planes, _as_pix's
+    dtype out (uint8 at 8 bits, int16 at 10); CPU: the plain version per
+    plane, the planes' dtype."""
     h, w = _check_frame(planes, dirs, var, skip8, damping)
     if idx is not None and tuple(idx.shape) != (-(-h // 64), -(-w // 64)):
         raise ValueError(f"idx must be the 64-px SB grid of the frame, got "
@@ -548,7 +554,7 @@ def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
                                  bd)
                 for i, p in enumerate(planes)]
     lib = nvcc.load(SRC, _bind)
-    ps = _aligned(_as_u8(planes))
+    ps = _aligned(_as_pix(planes, bd))
     ix = None if idx is None else idx.to(torch.int32).contiguous()
     dev = planes[0].device
     with torch.cuda.device(dev):
@@ -557,7 +563,7 @@ def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
             *map(_ptr, ps), h, w, _ptr(dirs.contiguous()),
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), _ptr(ix),
             y_pri, y_sec, uv_pri, uv_sec, int(damping), *map(_ptr, outs),
-            _ptr(path_counts(dev)[2:]), _stream()), "cdef_apply")
+            _ptr(path_counts(dev)[2:]), bd, _stream()), "cdef_apply")
     nvcc.count_launch(cdef_apply)
     return outs
 
@@ -667,9 +673,12 @@ def _choose(sse_sb, lam):
 
 # ---- the reference's entry points -------------------------------------------
 
-def _as_u8(planes):
-    """8-bit planes as the kernels take them, converted once a frame."""
-    return [p.to(torch.uint8).contiguous() for p in planes]
+def _as_pix(planes, bd: int = 8):
+    """bd-bit planes as the kernels take them, converted once a frame:
+    uint8 at 8 bits, int16 above (the kernels read its bytes as uint16;
+    10-bit values fit)."""
+    dt = torch.uint8 if bd == 8 else torch.int16
+    return [p.to(dt).contiguous() for p in planes]
 
 
 def cdef_search_persb(planes, srcs, skip8, damping: int, lam=None,
@@ -680,9 +689,8 @@ def cdef_search_persb(planes, srcs, skip8, damping: int, lam=None,
     and apply only the winner; others evaluate every 32-block. lam
     enables the nb_strengths subset RD. planes/srcs: [y, u, v]; skip8
     [h/8, w/8] bool. Returns (idx [ceil(h/64), ceil(w/64)] int32,
-    filtered planes: uint8 at bd 8, else the input dtype)."""
-    if bd == 8:
-        planes, srcs = _as_u8(planes), _as_u8(srcs)
+    filtered planes in _as_pix's dtype: uint8 at bd 8, int16 at 10)."""
+    planes, srcs = _as_pix(planes, bd), _as_pix(srcs, bd)
     h, w = planes[0].shape
     damping = int(damping)
     dirs, var = cdef_dirs(planes[0], bd)
@@ -699,7 +707,7 @@ def cdef_filter_frame(planes, skip8, y_pri: int, y_sec: int, uv_pri: int,
                       uv_sec: int, damping: int):
     """CDEF with one strength pair per plane kind over the whole frame
     (the reference's cdef_filter_frame_jax). Returns uint8 planes."""
-    planes = _as_u8(planes)
+    planes = _as_pix(planes)
     dirs, var = cdef_dirs(planes[0])
     return cdef_apply(planes, dirs, var, skip8, int(damping),
                       strengths=(y_pri, y_sec, uv_pri, uv_sec))

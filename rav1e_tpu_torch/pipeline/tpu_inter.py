@@ -41,16 +41,20 @@ step serves the B frame (encode_bframe_tpu: single-fwd, single-bwd or
 COMPOUND_AVERAGE per block, the cheap {parent, zero} split) and the
 LAST + GOLDEN P frame (encode_pframe2_tpu); both are packed by the
 Python TileWriter, as the reference packs them, its IR coded on the
-device. Other options raise NotImplementedError naming the ROADMAP.md
-item that brings them.
+device. encode_pframe_tpu and encode_bframe_tpu code 8- and 10-bit
+4:2:0 (bit_depth; 10-bit pixels are int16 on the device, _pix_dtype);
+encode_pframe2_tpu and encode_gop_tpu are 8-bit, as the reference's.
+Other options raise NotImplementedError naming the ROADMAP.md item that
+brings them.
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
 one f32 add at a time, row-major; the merge's and intra-in-inter's
 SSEs: _sse64_xla, _sse_cols_xla, _sse_rows_xla; the two-reference
-re-judge and ref choice: _sse_cols_xla, _sse_cols_b_xla), so the port's
-decisions match the reference's on the CPU; the other residual SSEs stay
-below 2^24 on real content and are summed by torch.
+re-judge and ref choice: _sse_cols_xla, _sse_cols_b_xla; above 8 bits
+the full-pel SSD correlation: _bf16_corr), so the port's decisions match
+the reference's on the CPU; the other residual SSEs stay below 2^24 on
+real content and are summed by torch.
 """
 
 from __future__ import annotations
@@ -98,6 +102,13 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to rav1e_tpu_torch yet: ROADMAP.md queue 1, "
         f"{item}")
+
+
+def _check_bit_depth(bd: int):
+    """8 and 10 bits run; the reference codes 12 bits only on its numpy
+    pipelines."""
+    if bd not in (8, 10):
+        _not_ported(f"bit depth {bd}", "item 16b (the numpy pipelines)")
 
 
 class _Stages:
@@ -375,10 +386,13 @@ def _wht8(x, dim: int):
 def satd(d):
     """SAD-normalised SATD over 8x8 Hadamard tiles (the reference's
     `satd`): [B, n, n] int32 residual -> [B] f32. The reference sums the
-    f32 |H x H| over the block; at 8 bits each output is at most
-    64 x 255 and a 32-block's 1,024 of them stay below 2^24, so every
-    partial sum is an exact integer and the int32 sum cast once to f32
-    is the reference's value in any order."""
+    f32 |H x H| over the block. H H^T = 8 I, so a tile's outputs t have
+    sum t^2 = 64 sum d^2 and sum |t| <= 8 sqrt(sum t^2) <= 512 max |d|;
+    a 32-block's 16 tiles total at most 8,192 max |d|: 2,088,960 at 8
+    bits and 8,380,416 at 10 (|d| <= 1023), both below 2^24. Every
+    partial sum is then an exact f32 integer, and the int32 sum cast once
+    to f32 is the reference's value in any order
+    (tests/test_torch_hbd.py holds the bound)."""
     B, n, _ = d.shape
     x = (d.reshape(B, n // 8, 8, n // 8, 8).permute(0, 1, 3, 2, 4)
          .to(torch.int32))
@@ -420,6 +434,28 @@ def _window_sum(x, kh: int, kw: int):
     return acc
 
 
+def _bf16_corr(b_bf, w2):
+    """M = einsum("brc,bRdc->brRd", b_bf, w2) of bf16-rounded f32 operands
+    in XLA:CPU's order for the reference's bf16 dot with f32 results: two
+    running f32 sums over c, the even c's and the odd c's, added at the
+    end. Each product is exact in f32 (8-bit mantissas), so this order
+    decides only where a partial sum passes 2^24 (above 8 bits), or where
+    the half-resolution stage's quarter-pel means mix fine and coarse
+    terms. Matched against the reference's einsum at a 16-px search's
+    shapes (tests/test_torch_hbd.py); the half-resolution stage of an
+    8-px search sums in an order not yet matched (ROADMAP.md section
+    3)."""
+    n = b_bf.shape[-1]
+    lanes = []
+    for c0 in (0, 1):
+        acc = torch.zeros(b_bf.shape[:2] + w2.shape[1:3],
+                          dtype=torch.float32, device=b_bf.device)
+        for c in range(c0, n, 2):
+            acc = acc + b_bf[:, :, None, None, c] * w2[:, None, :, :, c]
+        lanes.append(acc)
+    return lanes[0] + lanes[1]
+
+
 def _rsum(x):
     """jnp.sum(x, (-2, -1)) in XLA:CPU's order: one f32 add at a time,
     row-major."""
@@ -459,7 +495,7 @@ def _search_refs(refs, blks, by, bx, rd, B, use_satd=False,
     """_search_one_ref against each padded reference plane of `refs`, the
     descent patches of all of them gathered in one launch. Returns
     [_search_one_ref's 5-tuple, ...]."""
-    full = [_search_fullpel(r, blks, rd, B, search, subpel, ds2)
+    full = [_search_fullpel(r, blks, rd, B, search, subpel, ds2, bd)
             for r in refs]
     if not full[0][2]:
         return [(mv_fp * 8, None, None, None, grid_fn)
@@ -474,7 +510,7 @@ def _search_refs(refs, blks, by, bx, rd, B, use_satd=False,
 
 
 def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
-                    subpel: bool = True, ds2: bool = True):
+                    subpel: bool = True, ds2: bool = True, bd: int = 8):
     """The full-pel stage of _search_one_ref. Returns (mv_fp [B, 2]
     full-pel, grid_fn, the descent's steps in eighth-pel, the descent
     patches' margin M)."""
@@ -506,16 +542,18 @@ def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
     # SSD surface as one batched product with a diagonal reduction:
     #   M[b, r, R, dx] = sum_c blk[b, r, c] * win[b, R, dx + c]
     #   corr[b, dy, dx] = sum_r M[b, r, r + dy, dx]
-    # Operands round to bf16 as the reference's; the products of
-    # bf16 values and their sums over c are exact in f32, so torch's
-    # product order cannot change M. The sum over r runs in the
-    # reference's order.
+    # Operands round to bf16 as the reference's, and the products of
+    # bf16 values are exact in f32. At 8 bits their sums over c are
+    # exact too, so torch's product order cannot change M; above 8 bits
+    # they pass 2^24 and M takes the reference's order (_bf16_corr). The
+    # sum over r runs in the reference's order.
     def ssd_surface(wins, wsq, bcomp, n, S):
         S1 = 2 * S + 1
         w_bf = wins.to(torch.bfloat16).to(torch.float32)
         b_bf = bcomp.to(torch.bfloat16).to(torch.float32)
         w2 = torch.stack([w_bf[:, :, dx: dx + n] for dx in range(S1)], 2)
-        m = torch.einsum("brc,bRdc->brRd", b_bf, w2)
+        m = (torch.einsum("brc,bRdc->brRd", b_bf, w2) if bd == 8
+             else _bf16_corr(b_bf, w2))
         corr = m[:, 0, 0:S1, :]
         for r in range(1, n):
             corr = corr + m[:, r, r: r + S1, :]   # [B,S1,S1]
@@ -756,8 +794,6 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
             "with ryp2, rav1e_tpu/pipeline/tpu_inter.py:637-660) is not "
             "ported: no entry point of the reference reaches it "
             "(ROADMAP.md section 3)")
-    if bd != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
     from rav1e_tpu_torch.pipeline.tpu_intra import _dq_dyn, _q_dyn, block_bits
     h, tw = y.shape[0], y.shape[1]
     B = nby * nbx
@@ -1783,17 +1819,22 @@ def unpack_outputs(buf: np.ndarray, nby: int, nbx: int):
 
 
 def _pix_dtype(bd: int):
-    if bd != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
-    return torch.uint8
+    """The device dtype of bd-bit pixels: uint8, or int16 above 8 bits
+    (the reference's uint16; torch's uint16 has few operations, and 10-
+    bit values fit int16)."""
+    return torch.uint8 if bd == 8 else torch.int16
+
+
+def _np_pix(bd: int):
+    """_pix_dtype on the host."""
+    return np.uint8 if bd == 8 else np.int16
 
 
 def pack_src(planes, bd: int = 8) -> np.ndarray:
-    """Host-side: [y, u, v] 4:2:0 -> one [3h/2, w] uint8 array (u|v side
-    by side under y) for a single upload."""
-    if bd != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
-    y, u, v = (np.asarray(p, np.uint8) for p in planes)
+    """Host-side: [y, u, v] 4:2:0 -> one [3h/2, w] array (u|v side by
+    side under y) for a single upload; uint8 at 8 bits, int16 above."""
+    y, u, v = (np.asarray(p).astype(_np_pix(bd), copy=False)
+               for p in planes)
     return np.concatenate([y, np.concatenate([u, v], axis=1)], axis=0)
 
 
@@ -1827,10 +1868,10 @@ def _core(h: int, w: int, use_cdef: bool = False,
     tensors. Returns (step, (nby, nbx), gather_dense) with
     step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark) ->
     (packed decisions int8, lv_y, lv_u, lv_v (int16, on the device for
-    the overflow gather), recon y, u, v uint8). `mark(name)` runs after
-    each stage: search, cand, code, split, merge64, intra (core; split
-    with use_split, merge64 with b64_rdo on even block counts, intra with
-    intra_rdo), filt (deblock), cdef, pack.
+    the overflow gather), recon y, u, v in _pix_dtype(bd)). `mark(name)`
+    runs after each stage: search, cand, code, split, merge64, intra
+    (core; split with use_split, merge64 with b64_rdo on even block
+    counts, intra with intra_rdo), filt (deblock), cdef, pack.
 
     two_ref=True builds the two-reference step, step(src, ry, ru, rv, ry2,
     ru2, rv2, dcq, acq, cdef_prm, rd, ds, mark): the B frame (fwd, bwd or
@@ -1876,7 +1917,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
         per-64x64-SB CDEF ladder search against the source (damping
         cdef_prm[4], the nb_strengths RD at lam) on the exact 8x8-unit
         skip gate.
-        Returns (lf_lvl, cdef_idx, y, u, v uint8)."""
+        Returns (lf_lvl, cdef_idx, y, u, v in _pix_dtype(bd))."""
         from rav1e_tpu_torch.ops.cdef import cdef_search_persb
         from rav1e_tpu_torch.ops.deblock import deblock_search
         y, u, v = _unpack_src(src, h, w)
@@ -1988,15 +2029,12 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
 
     cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
     idx_map): the per-SB form signals the ladder entries the SBs chose
-    (compact_ladder) and a literal index per 64x64 SB in the tile. LR,
-    bit depths above 8 and tile_grid raise NotImplementedError naming
-    their ROADMAP item."""
+    (compact_ladder) and a literal index per 64x64 SB in the tile. LR
+    and tile_grid raise NotImplementedError naming their ROADMAP item."""
     if lr_ctx is not None:
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
-    if bit_depth != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq, fp, cdef_map, cdef_bits = _inter_headers(
@@ -2187,9 +2225,11 @@ def _ds16_quads(dscale, nby: int, nbx: int, device=None):
         .reshape(nby * nbx, 4)), device=dev)
 
 
-def _q_scalars(qindex: int, dev):
-    return (torch.tensor(dc_q_lut(qindex), dtype=torch.int32, device=dev),
-            torch.tensor(ac_q_lut(qindex), dtype=torch.int32, device=dev))
+def _q_scalars(qindex: int, dev, bit_depth: int = 8):
+    return (torch.tensor(dc_q_lut(qindex, 0, bit_depth), dtype=torch.int32,
+                         device=dev),
+            torch.tensor(ac_q_lut(qindex, 0, bit_depth), dtype=torch.int32,
+                         device=dev))
 
 
 def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
@@ -2208,7 +2248,9 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                       tile_grid: tuple | None = None, device=None,
                       timings: dict | None = None):
     """Batched P frame (single reference) on the device; dims multiples
-    of 32, 4:2:0 8-bit. Runs on `cuda` unless device="cpu" is passed.
+    of 32, 4:2:0 at 8 or 10 bits (bit_depth; 10-bit planes are uint16 or
+    any integer type on the host, int16 on the device). Runs on `cuda`
+    unless device="cpu" is passed.
 
     The defaults are the reference's: split RDO with the per-16 subpel
     refinement (refine16), a 16-px search, subpel. The speed-6 tools are
@@ -2216,13 +2258,13 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     speed-7 toolset is refine16=False, search=8; speed 8 adds
     use_split=False, and speeds 9-10 take subpel=False. use_native: the
     C++ packer walks the tile (the reference's default), else the Python
-    TileWriter (the same IR and bytes). lr, bit depths above 8 and
-    tile_grid raise NotImplementedError naming their ROADMAP item.
+    TileWriter (the same IR and bytes). lr and tile_grid raise
+    NotImplementedError naming their ROADMAP item.
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
-    ref_dev: device-resident reference planes (y, u, v uint8) from a
-    prior call with return_device=True, which skips the upload; src_dev:
+    ref_dev: device-resident reference planes (y, u, v; _pix_dtype) from
+    a prior call with return_device=True, which skips the upload; src_dev:
     the packed source (pack_src) already on the device. `timings`
     receives each stage's wall time. Returns (packet, [y, u, v] recon
     int32) and, with return_device, the device recon too."""
@@ -2230,8 +2272,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
-    if bit_depth != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
+    _check_bit_depth(bit_depth)
     y, u, v = planes
     h, w = y.shape[0], y.shape[1]
     assert h % 32 == 0 and w % 32 == 0
@@ -2244,15 +2285,15 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                                      subpel=subpel, use_split8=use_split8,
                                      bd=bit_depth)
     if ref_dev is None:
-        ref_dev = _upload(ref_planes, dev)
+        ref_dev = _upload(ref_planes, dev, bit_depth)
     if src_dev is None:
         src_dev = torch.from_numpy(pack_src(planes, bd=bit_depth)).to(dev)
     cdef_prm = _cdef_prm(cdef)
     rd = build_rd_inter(qindex, bit_depth, device=dev)
     ds = _ds16_quads(dscale, nby, nbx, dev)
     stages.mark("upload")
-    outs = step(src_dev, *ref_dev, *_q_scalars(qindex, dev), cdef_prm, rd,
-                ds, stages.mark)
+    outs = step(src_dev, *ref_dev, *_q_scalars(qindex, dev, bit_depth),
+                cdef_prm, rd, ds, stages.mark)
     rec_dev = outs[4:7]
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
      cdef_map, choice, _, b64_map, split16, skip8) = _fetch_packed(
@@ -2410,8 +2451,10 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
 
 # ---- two references: the B frame and the LAST + GOLDEN P frame ----------------
 
-def _upload(planes, dev):
-    return tuple(torch.as_tensor(np.asarray(p, np.uint8), device=dev)
+def _upload(planes, dev, bd: int = 8):
+    return tuple(torch.as_tensor(np.asarray(p).astype(_np_pix(bd),
+                                                      copy=False),
+                                 device=dev)
                  for p in planes)
 
 
@@ -2431,14 +2474,12 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     compound block. A split 32-block's four 16x16 children are the
     parent's (ref choice, MV or MV pair) or, where mv16 is zero, single-
     LAST GLOBALMV blocks. `timings` receives tile_walk and the coding
-    stages. LR, bit depths above 8, tile_grid and merged 64x64 blocks
-    raise NotImplementedError."""
+    stages. LR, tile_grid and merged 64x64 blocks raise
+    NotImplementedError."""
     if lr_ctx is not None:
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
-    if bit_depth != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
     if b64_map is not None and np.asarray(b64_map).any():
         raise NotImplementedError(
             "merged 64x64 blocks in a B frame: the two-reference 64x64 "
@@ -2523,24 +2564,24 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     """Batched B frame on the device: both references searched and
     re-judged, each 32-block taking single-fwd, single-bwd or
     COMPOUND_AVERAGE by RD, with use_split the cheap {parent, zero}
-    split; dims multiples of 32, 4:2:0 8-bit. Runs on `cuda` unless
-    device="cpu" is passed. The reference's call: b64_rdo reaches only
+    split; dims multiples of 32, 4:2:0 at 8 or 10 bits (bit_depth, as
+    encode_pframe_tpu). Runs on `cuda` unless device="cpu" is passed.
+    The reference's call: b64_rdo reaches only
     the deblock (an all-false merge map), its core never merges.
 
     ref_fwd / ref_bwd: the references' [y, u, v] planes (ref_hints their
     order hints, slot_fwd / slot_bwd their slots), or ref_dev_fwd /
-    ref_dev_bwd their uint8 planes on the device; src_dev: the packed
+    ref_dev_bwd their planes on the device (_pix_dtype); src_dev: the packed
     source (pack_src) on the device. The packet is the reference's
     Python TileWriter walk with its IR coded on the device. `timings`
-    receives each stage's wall time. lr, bit depths above 8 and tile_grid
-    raise NotImplementedError naming their ROADMAP item. Returns (packet,
+    receives each stage's wall time. lr and tile_grid raise
+    NotImplementedError naming their ROADMAP item. Returns (packet,
     [y, u, v] recon int32)."""
     if lr:
         _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
-    if bit_depth != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
+    _check_bit_depth(bit_depth)
     h, w = planes[0].shape[0], planes[0].shape[1]
     assert h % 32 == 0 and w % 32 == 0
     dev = resolve_device(device)
@@ -2550,17 +2591,18 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
                                      b64_rdo=b64_rdo, search=search,
                                      subpel=subpel, bd=bit_depth)
     if ref_dev_fwd is None:
-        ref_dev_fwd = _upload(ref_fwd, dev)
+        ref_dev_fwd = _upload(ref_fwd, dev, bit_depth)
     if ref_dev_bwd is None:
-        ref_dev_bwd = _upload(ref_bwd, dev)
+        ref_dev_bwd = _upload(ref_bwd, dev, bit_depth)
     if src_dev is None:
-        src_dev = torch.from_numpy(pack_src(planes)).to(dev)
+        src_dev = torch.from_numpy(pack_src(planes, bd=bit_depth)).to(dev)
     cdef_prm = _cdef_prm(cdef)
-    rd = build_rd_inter(qindex, device=dev)
+    rd = build_rd_inter(qindex, bit_depth, device=dev)
     ds = _ds16_quads(dscale, nby, nbx, dev)
     stages.mark("upload")
     outs = step(src_dev, *ref_dev_fwd, *ref_dev_bwd,
-                *_q_scalars(qindex, dev), cdef_prm, rd, ds, stages.mark)
+                *_q_scalars(qindex, dev, bit_depth), cdef_prm, rd, ds,
+                stages.mark)
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl, cdef_map,
      choice, mvb8, b64m, _, _) = _fetch_packed(outs, gdense, nby, nbx)
     rec = [r.cpu().numpy().astype(np.int32) for r in outs[4:7]]
@@ -2574,7 +2616,8 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
                        refresh_flags=refresh_flags, show_frame=show_frame,
                        b64_map=b64m if b64_rdo else None,
                        split=split if use_split else None, mv16=mv16,
-                       skip16=skip16, device=dev, timings=timings)
+                       skip16=skip16, bit_depth=bit_depth, device=dev,
+                       timings=timings)
     return pkt, rec
 
 
@@ -2588,9 +2631,12 @@ def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,
     Python TileWriter's walk, its IR coded on `device`): choice[b] 0 =
     LAST, 1 = GOLDEN, both forward, single prediction (spec
     read_ref_frames' single path). `timings` receives tile_walk and the
-    coding stages."""
+    coding stages. 8-bit only: the reference's encode_pframe2_tpu has no
+    bit depth, and its Context takes LAST + GOLDEN only at 8 bits."""
     if bit_depth != 8:
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
+        raise NotImplementedError(
+            "LAST + GOLDEN P frames are 8-bit: the reference's "
+            "encode_pframe2_tpu has no bit depth")
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq, fp, cdef_map, cdef_bits = _inter_headers(

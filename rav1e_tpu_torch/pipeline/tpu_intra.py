@@ -1305,7 +1305,12 @@ def _check_options(cdef, lr, aq, planes, seq_extra):
         _not_ported("loop restoration", "item 13 (LRF)")
     if ((seq_extra or {}).get("bit_depth", 8) > 8
             or any(int(np.max(p)) > 255 for p in planes)):
-        _not_ported("bit depth above 8", "item 12 (bd=10)")
+        # as the reference's: its device keyframe is 8-bit too
+        raise NotImplementedError(
+            "the device keyframe takes 8-bit planes: a keyframe at a bit "
+            "depth above 8 is coded on the host by "
+            "rav1e_tpu_torch.pipeline.intra.encode_keyframe(bit_depth=...), "
+            "as api/context.py does (ROADMAP.md, item 12)")
 
 
 def _mode_sets(speed: int):

@@ -370,8 +370,8 @@ def test_send_frame_validates_planes():
 # each configuration the JAX package codes on its numpy pipelines, by the
 # ROADMAP item its NotImplementedError names
 NOT_PORTED = {
-    "item 12": [dict(bit_depth=10), dict(bit_depth=12)],
-    "item 16b": [dict(chroma_sampling="422"), dict(chroma_sampling="444"),
+    "item 16b": [dict(bit_depth=12),
+                 dict(chroma_sampling="422"), dict(chroma_sampling="444"),
                  dict(extra={"photon_noise": 800}),
                  dict(low_latency=True, extra={"switch_frame_interval": 4}),
                  dict(low_latency=True, extra={"error_resilient": "1"})],
@@ -396,11 +396,13 @@ def test_numpy_pipeline_configurations_raise(item):
 
 
 def test_speeds_4_to_10_and_resilience_outside_low_latency():
-    """The other speeds reach the device pipelines (no raise), and
-    error_resilient without low_latency stays the reference's
+    """The other speeds reach the device pipelines (no raise) at 8 and 10
+    bits, and error_resilient without low_latency stays the reference's
     ValueError."""
     for speed in range(4, 11):
-        Config(width=64, height=64, speed=speed).new_context(device="cpu")
+        for bd in (8, 10):
+            Config(width=64, height=64, speed=speed,
+                   bit_depth=bd).new_context(device="cpu")
     with pytest.raises(ValueError, match="low_latency"):
         Config(width=64, height=64, extra={"error_resilient": "1"}
                ).new_context(device="cpu")

@@ -482,13 +482,14 @@ def test_noise_pframe_takes_the_overflow_gather():
 
 
 @pytest.mark.parametrize("kw", [{"lr": True},
-                                {"bit_depth": 10}, {"bit_depth": 12},
+                                {"b64_rdo": True, "use_split": False},
+                                {"bit_depth": 12},
                                 {"tile_grid": (1, 2)}])
 def test_pframe_options_beyond_the_slice_raise(kw):
     """On top of the speed-7 toolset, each option the port does not reach
-    yet (loop restoration, bit depths 10 and 12, tiles) raises
-    NotImplementedError naming its ROADMAP item; so does each on top of
-    the reference's defaults."""
+    yet (loop restoration, the 64x64 merge without split RDO, bit depth
+    12, tiles) raises NotImplementedError naming its ROADMAP item; so
+    does each on top of the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
