@@ -67,8 +67,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      RDO with refine16, 16-px search, subpel) at 256x192 on cuda vs cpu:
      every decision, level, the recon and the packet identical; the
      gather launches at refine16's patch sizes;
-  12-13. encode_gop_tpu at q 100 at 1920x544 (the depth cut, to keep
-     the run short): KEY + 1 P at speed 10 (no split, no CDEF: the P
+  12-13. encode_gop_tpu at q 100 at 1920x288 (the depth cut, to keep
+     the run short; 540 blocks, so the half-resolution search runs): KEY + 1 P at speed 10 (no split, no CDEF: the P
      frame takes write_inter_tile_fast), then KEY + 2 P at speed 7
      with cdef (0, 0, 0, 0, 3), run as a user calls it (the C++ packer,
      the keyframe's host half and each P frame's fetch + pack on worker
@@ -159,11 +159,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phase 15's keyframe recon << 2: not a decodable stream, since the
      10-bit numpy keyframe takes minutes at 1080p), each frame's
      launches and stage times, packets pinned in HBD_PINS (the CPU
-     route's, made by `python3 chip_smoke.py --hbd-pins`).
+     route's, made by `python3 chip_smoke.py --hbd-pins`);
+  20. loop restoration and speeds 0-3: (a) the LRF search (ops/lrf.py)
+     on phase 5's 1080p recon against its source, luma and U, and the
+     luma as 10-bit planes, on cuda and on cpu: grids and filtered planes
+     identical; per plane the warm call's wall ms, its kernel launches
+     and device ms (torch.profiler) and the host argmin's ms; (b) a
+     speed-2 Context (the numpy keyframe with HORZ/VERT partitions and
+     LR, the 24-px anchor search, LR on every P and B frame) on cuda and
+     on cpu at 256x192, 9 frames: packets, frame types, frame numbers
+     and qps identical; (c) a
+     keyframe with LR (encode_keyframe_tpu(lr=True)) and phase 17's group
+     at speed 2 with lr on every frame (the anchor's 24-px search) at
+     1920x1088 on cuda, each frame's launches and stage times (lr,
+     tile_walk), packets pinned in LR_PINS (the CPU route's, made by
+     `python3 chip_smoke.py --lr-pins`), decoded to the recons where
+     libdav1d loads.
 
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
 frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17,
-18c and 19c together, and each path's own count, every count set to 0
+18c, 19c and 20c together, and each path's own count, every count set to 0
 just before its path; the gather's ms, bound and plain and indexing ms
 are phase 4's replayed speed-6 P frame, with its launches a P frame,
 and the replayed B frame's beside them; the CDEF kernels' launches per
@@ -180,7 +195,11 @@ route (device="cpu"), and prints the BGROUP_PINS that phase 17 checks;
 
     python3 chip_smoke.py --hbd-pins
 
-does the same for phase 19c's 10-bit group and prints HBD_PINS.
+does the same for phase 19c's 10-bit group and prints HBD_PINS, and
+
+    python3 chip_smoke.py --lr-pins
+
+for phase 20c's LR keyframe and group, LR_PINS.
 """
 
 from __future__ import annotations
@@ -1768,21 +1787,23 @@ BGROUP_PINS = [(30684, "610e340bbe53fed5"), (5372, "39d31b4932536438"),
                (2406, "0d6f4e700308289c"), (5, "f5ed02db3266a088")]
 
 
-def reordered_group(tp, frames, krec, device, run=None, bit_depth=8):
-    """The group api/context.py codes at speed 6 with bgroup = 4 after a
-    keyframe (frames[0], its recon krec, slot 0, order hint 0), at q 100
+def reordered_group(tp, frames, krec, device, run=None, bit_depth=8,
+                    speed=6, lr=False):
+    """The group api/context.py codes at `speed` (6) with bgroup = 4 after
+    a keyframe (frames[0], its recon krec, slot 0, order hint 0), at q 100
     with cdef (0, 0, 0, 0, 3): the non-shown anchor P (frame 4, refreshing
-    slot 1), B0 (frame 2 on KEY and the anchor, non-shown, refreshing slot
-    3), B1 (frame 1 on KEY and B0), show-existing 3, B1 (frame 3 on B0 and
-    the anchor), show-existing 1. run(label, fn, *a, **k) calls each
-    frame's entry point (default: fn(*a, **k)). Returns (the packets in
-    coding order, {frame: recon int32 planes}). bit_depth: the frames'
-    (8 or 10, phase 19)."""
+    slot 1; the speed's P tools and search), B0 (frame 2 on KEY and the
+    anchor, non-shown, refreshing slot 3), B1 (frame 1 on KEY and B0),
+    show-existing 3, B1 (frame 3 on B0 and the anchor), show-existing 1;
+    every frame with loop restoration when lr. run(label, fn, *a, **k)
+    calls each frame's entry point (default: fn(*a, **k)). Returns (the
+    packets in coding order, {frame: recon int32 planes}). bit_depth: the
+    frames' (8 or 10, phase 19)."""
     from rav1e_tpu_torch.api.speed import SpeedSettings
     from rav1e_tpu_torch.entropy.obu import show_existing_packet
-    ss = SpeedSettings.from_preset(6)
+    ss = SpeedSettings.from_preset(speed)
     run = run or (lambda label, fn, *a, **k: fn(*a, **k))
-    kw = dict(cdef=CDEF_SPEED8, device=device, bit_depth=bit_depth)
+    kw = dict(cdef=CDEF_SPEED8, device=device, bit_depth=bit_depth, lr=lr)
     bkw = dict(kw, b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo)
     kref = (krec if bit_depth > 8
             else [np.asarray(r, np.uint8) for r in krec])
@@ -2382,6 +2403,224 @@ def hbd_1080p(torch, ec, gp, cd, tp, krec):
     return launches, 4
 
 
+# the LR stream's packets (phase 20c: the keyframe, then the group in
+# coding order) on the CPU route: made by `python3 chip_smoke.py
+# --lr-pins`
+LR_PINS = [(93789, "9f578ac7b76cd23a"), (29061, "c70382dd79c823ea"),
+           (7740, "a96729a8588dfbb5"), (3666, "503ea8fa1d185f1f"),
+           (5, "479f23cb97654286"), (4310, "50fa855df39ba1dd"),
+           (5, "f5ed02db3266a088")]
+
+
+def _device_profile(torch, fn):
+    """fn() under torch.profiler on the card: (its result, kernel launches,
+    their summed device ms, copies and sets), or (result, None, None,
+    None) where the profiler shows no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not evs:
+        return out, None, None, None
+    dt = lambda e: getattr(e, "device_time", None) or getattr(  # noqa
+        e, "cuda_time", 0)
+    kern = [e for e in evs if "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+    return out, len(kern), sum(dt(e) for e in kern) / 1e3, len(evs) - len(kern)
+
+
+def lrf_1080p(torch, rec_d, src_d):
+    """Phase 20a: the loop-restoration search (ops/lrf.py: the Wiener
+    least-squares taps and presets, the 8 SGR sets, the per-unit SSEs in
+    XLA:CPU's f32 order, each unit's winner applied) on phase 5's 1080p
+    keyframe recon against its source, luma and U, and the luma as
+    10-bit planes (to_10bit, seed 47; the box sums in int64), on cuda
+    and on cpu: the grids and the filtered planes identical; per plane
+    on cuda the wall ms of a warm call, its kernel launches and device
+    ms (profiler), and the host argmin's ms (_choose on the fetched
+    per-unit results)."""
+    from rav1e_tpu_torch.ops import lrf as lrf_mod
+    rng = np.random.default_rng(47)
+    y10 = [torch.from_numpy(to_10bit(p.cpu().numpy(), rng)).to(torch.int32)
+           for p in (rec_d[0], src_d[0])]
+    out = {}
+    for name, rec, src, ss, bd in (("luma", rec_d[0], src_d[0], 0, 8),
+                                   ("U", rec_d[1], src_d[1], 1, 8),
+                                   ("luma 10-bit", *y10, 0, 10)):
+        res = {}
+        for d in ("cuda", "cpu"):
+            r, s_ = rec.to(d), src.to(d)
+            if d == "cuda":
+                lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss)      # warm
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, f, used = lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            res[d] = (g, f.cpu(), used, 1e3 * (time.perf_counter() - t0))
+        (g, f, used, wall), (gc, fc, usedc, wall_c) = res["cuda"], res["cpu"]
+        rc, sc = (x.cuda().to(torch.int32) for x in (rec, src))
+        summ, _, _, tb = lrf_mod._search_dev(rc, sc, bd, ss)
+        summ = summ.cpu().numpy()
+        t0 = time.perf_counter()
+        lrf_mod._choose(summ, tb, ss > 0)
+        am = 1e3 * (time.perf_counter() - t0)
+        _, n_k, dev_ms, n_copy = _device_profile(
+            torch, lambda: lrf_mod.search_lr_plane(rc, sc, bd=bd, ss=ss))
+        cells = [c for row in g for c in row]
+        kinds = {k: sum(1 for c in cells if (c and c[0]) == k)
+                 for k in ("W", "S", None)}
+        same = g == gc and torch.equal(f, fc) and used == usedc
+        print(f"# LRF search {name} {tuple(rec.shape)} on phase 5's recon: "
+              f"units Wiener / SGR / none {list(kinds.values())}; cuda "
+              f"{wall:.2f} ms a warm call (host argmin {am:.3f} ms), "
+              f"{n_k if n_k is not None else 'not measured'} kernel "
+              f"launches, device {'%.3f' % dev_ms if dev_ms else 'not measured'}"
+              f" ms, {n_copy} copies; cpu {wall_c:.1f} ms; grid and "
+              f"filtered plane identical {same}", flush=True)
+        if not same:
+            fail(f"the LRF search of the 1080p {name} plane differs between "
+                 "cuda and cpu")
+        if not used:
+            fail(f"no unit of the 1080p {name} plane chose a filter")
+        if int(f.max()) > (1 << bd) - 1 or int(f.min()) < 0:
+            fail(f"the filtered 1080p {name} plane leaves 0..{(1 << bd) - 1}")
+        out[name] = (wall, n_k, dev_ms, am)
+    return out
+
+
+def lr_session_gpu_vs_cpu(w: int = 256, h: int = 192):
+    """Phase 20b: the port's Context at speed 2 (the numpy keyframe with
+    HORZ/VERT partitions and loop restoration, the 24-px anchor P search,
+    loop restoration in every P and B frame) on cuda and on cpu at w x h,
+    9 frames of tests/_torch_content.py's session content: packets, frame
+    types, frame numbers and qps identical."""
+    from rav1e_tpu_torch.api import Config
+    frames = _tests_content().session(w, h, 9)
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pk = _session(Config(width=w, height=h, speed=2).new_context(
+            device=d), frames)
+        res[d] = ([(p.frame_type, p.input_frameno, p.qp) for p in pk],
+                  [p.data for p in pk], time.perf_counter() - t0)
+    (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
+    same = [a == b for a, b in zip(data, data_c)]
+    print(f"# {w}x{h} speed-2 session (9 frames, loop restoration, HORZ/VERT "
+          f"keyframe, 24-px anchor search) cuda {t_g:.2f} s vs cpu "
+          f"{t_c:.2f} s: packets identical {same}; (type, frame, qp) "
+          f"{kinds}; bytes {[len(b) for b in data]}", flush=True)
+    if kinds != kinds_c or len(data) != len(data_c) or not all(same):
+        fail(f"the {w}x{h} speed-2 session differs between cuda and cpu: "
+             f"{kinds} vs {kinds_c}, packets identical {same}")
+
+
+def lr_keyframe(ti, frames, device, run=None):
+    """Phase 20c's keyframe: frames[0] at q 100 with cdef (0, 0, 0, 0, 3)
+    and loop restoration (encode_keyframe_tpu(lr=True): the device
+    search, then the Python walk), at speed 10's mode sets (phase 5's:
+    the speed-6 keyframe's recon wavefront would add half a minute).
+    Returns (packet, recon)."""
+    run = run or (lambda label, fn, *a, **k: fn(*a, **k))
+    return run("keyframe (frame 0)", ti.encode_keyframe_tpu, frames[0], 100,
+               speed=10, cdef=CDEF_SPEED8, lr=True, device=device)
+
+
+def lr_pins(torch, ti, tp):
+    """`--lr-pins`: phase 20c's keyframe and group on the CPU route.
+    Prints LR_PINS."""
+    frames = synth(1920, 1088, n=5)
+    t0 = time.perf_counter()
+    kpkt, krec = lr_keyframe(ti, frames, "cpu")
+    pkts, _ = reordered_group(tp, frames, krec, "cpu", speed=2, lr=True)
+    print(f"# the LR keyframe and group on the CPU route in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"LR_PINS = {_pins([kpkt] + pkts)}", flush=True)
+    return 0
+
+
+def lr_group_1080p(torch, ec, gp, cd, ti, tp):
+    """Phase 20c: a speed-10 keyframe with loop restoration (lr_keyframe),
+    then the reordered group at speed 2 with loop restoration on every
+    frame, at 1920x1088 on cuda: the anchor P (the 24-px search,
+    refine16 and the speed-6 tools), B0, B1, B1, every kernel's count
+    set to 0 just before the keyframe and read just after the group:
+    packets against LR_PINS (the CPU route's), where libdav1d loads the
+    stream decoded to the recons, each frame's launches (the keyframe: every
+    kernel but the gather; the anchor: every kernel; each B frame:
+    B_LAUNCHES) and stage times (lr, the search and apply on the device;
+    tile_walk, the Python walk LR frames take). Returns ({kernel: launches},
+    frames)."""
+    from rav1e_tpu_torch.conform import dav1d
+    frames = synth(1920, 1088, n=5)
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    rows = []
+
+    def run(label, fn, *a, **k):
+        before = {n: f.launches for n, f in kern.items()}
+        t = {}
+        out = fn(*a, timings=t, **k)
+        rows.append((label, {n: f.launches - before[n]
+                             for n, f in kern.items()}, t))
+        return out
+
+    for f in kern.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    kpkt, krec = lr_keyframe(ti, frames, "cuda", run=run)
+    pkts, recs = reordered_group(tp, frames, krec, "cuda", run=run, speed=2,
+                                 lr=True)
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kern.items()}
+    pkts = [kpkt] + pkts
+    recs[0] = krec
+    pins = _pins(pkts)
+    print(f"# 1920x1088 speed-2 LR stream (KEY, anchor P with the 24-px "
+          f"search, B0, B1, SEF 3, B1, SEF 1; q 100, cdef {CDEF_SPEED8}, lr "
+          f"on every frame, cuda): {wall:.3f} s; packets "
+          f"{[n for n, _ in pins]} bytes, SHA-256 {[x for _, x in pins]}; "
+          f"the CPU route's (LR_PINS) {LR_PINS}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    for label, n, t in rows:
+        print(f"# LR {label}: launches {json.dumps(n)}; stages (s) "
+              + json.dumps({k: round(v, 4) for k, v in t.items()}),
+              flush=True)
+        if "lr" not in t or "tile_walk" not in t:
+            fail(f"LR {label} timed no lr or tile_walk stage")
+        if label.startswith(("keyframe", "anchor")):
+            idle = [k for k, v in n.items() if v < 1 and (
+                k != "gather_patches" or label.startswith("anchor"))]
+            if idle:
+                fail(f"the LR {label} launched no {idle}")
+        elif n != B_LAUNCHES:
+            fail(f"LR {label} launched {n}, not {B_LAUNCHES}")
+    for i, rec in recs.items():
+        if [tuple(r.shape) for r in rec] != [p.shape for p in frames[i]] or \
+                any(r.min() < 0 or r.max() > 255 for r in rec):
+            fail(f"LR frame {i}: recon shapes wrong or outside 0..255")
+    if pins != LR_PINS:
+        fail(f"the LR stream's packets {pins}, pinned {LR_PINS}")
+    try:
+        dav1d.version()
+    except OSError as e:
+        print(f"# libdav1d does not load here ({e}): the LR stream is not "
+              "decoded; packets checked against the CPU route", flush=True)
+        return launches, 5
+    dec = dav1d.decode_all(pkts)
+    for d, i in zip(dec, range(5)):
+        if any(not np.array_equal(np.asarray(pl)[:r.shape[0], :r.shape[1]],
+                                  np.asarray(r))
+               for pl, r in zip(d.planes, recs[i])):
+            fail(f"libdav1d's frame {i} of the LR stream is not its recon")
+    print(f"# libdav1d decoded the LR stream to {len(dec)} frames, each its "
+          "recon", flush=True)
+    return launches, 5
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2398,6 +2637,8 @@ def main() -> int:
         return bgroup_pins(torch, ti, tp)
     if sys.argv[1:] == ["--hbd-pins"]:
         return hbd_pins(torch, ti, tp)
+    if sys.argv[1:] == ["--lr-pins"]:
+        return lr_pins(torch, ti, tp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2463,11 +2704,12 @@ def main() -> int:
     for split8 in (False, True):
         speed6_gpu_vs_cpu(torch, native, ti, 256, 192, split8)
     speed6_gop_gpu_vs_cpu(native, tp, 256, 192)
-    # the speed-10 and speed-7 GOPs, their depth cut to 544 rows to keep
-    # the run short
-    gop_1080p(torch, ec, gp, cd, native, ti, tp, 2, 10, h=544)
+    # the speed-10 and speed-7 GOPs, their depth cut to 288 rows (544
+    # before phase 20 came) to keep the run short; still 540 blocks, so
+    # the P frames search at half resolution as at 1080p
+    gop_1080p(torch, ec, gp, cd, native, ti, tp, 2, 10, h=288)
     gop7_launches, _, n_p7, _, _, _ = gop_1080p(torch, ec, gp, cd, native, ti,
-                                          tp, 3, 7, CDEF_SPEED8, h=544)
+                                          tp, 3, 7, CDEF_SPEED8, h=288)
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
     record: list = []
@@ -2500,6 +2742,12 @@ def main() -> int:
     cdef10_ms = cdef_10bit(torch, cd, rec_d, src_d, skip8, floor_ms)
     hbd_gpu_vs_cpu(tp)
     hbd_launches, n_h = hbd_1080p(torch, ec, gp, cd, tp, recs6[0])
+    # phase 20, loop restoration and speeds 0-3: the LRF search on phase
+    # 5's recon, a speed-2 Context on cuda against cpu, and a keyframe and
+    # the speed-2 group with LR at 1080p
+    lrf_1080p(torch, rec_d, src_d)
+    lr_session_gpu_vs_cpu()
+    lr_launches, n_l = lr_group_1080p(torch, ec, gp, cd, ti, tp)
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -2557,11 +2805,12 @@ def main() -> int:
     # phase 19c's 10-bit group
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
                "kf6_split8": kf6s_launches, "bgroup6": bg_launches,
-               "session_cli": sess_launches, "hbd10": hbd_launches}
+               "session_cli": sess_launches, "hbd10": hbd_launches,
+               "lr": lr_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
-    print(f"# launches on the main paths (phases 15, 13, 16, 17, 18, 19c): "
-          f"{json.dumps(by_path)}", flush=True)
+    print(f"# launches on the main paths (phases 15, 13, 16, 17, 18, 19c, "
+          f"20c): {json.dumps(by_path)}", flush=True)
 
     def paths(k):
         return {p: n.get(k, 0) for p, n in by_path.items()}
@@ -2573,9 +2822,9 @@ def main() -> int:
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
-    # the six paths' frames (phases 17 and 19c: the anchor and the B
-    # frames)
-    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h
+    # the seven paths' frames (phases 17 and 19c: the anchor and the B
+    # frames; 20c: the keyframe too)
+    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h + n_l
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],

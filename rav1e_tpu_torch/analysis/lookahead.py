@@ -34,16 +34,13 @@ def _pair_stats_fn(h: int, w: int):
     analog: an upper bound on what intra coding must spend where inter
     prediction fails).
 
-    The SSD is wsq - 2 * corr + sum(blk^2) in f32, formed in that order.
-    Each of the three terms is computed exactly in int32 and rounded to
-    f32 once. At 8 bits each is a sum of integers below 2^24, which the
-    reference's f32 sums give in any order, so only the two f32
-    operations round, as they do in the reference. At 10 bits they pass
-    2^24 (256 x 1023^2) and the reference's f32 orders (its
-    reduce_window, grouped convolution and reduce) are not mirrored: the
-    distortion scales then differ from the reference's by up to about
-    2e-4 relative (tests/test_torch_hbd.py). The first minimum wins
-    (argmin), flat content included."""
+    The SSD is wsq - 2 * corr + sum(blk^2) in f32, formed in that order
+    (_ssd_terms: exact on 8-bit planes; deeper, the reference's orders
+    for wsq and sum(blk^2), not yet for corr). The intra cost follows the
+    reference's fused loop at every depth: the mean, then each
+    (x - mean)^2 fused into its lane's running sum (fma) as
+    _rows_in_lanes adds. The first minimum wins (argmin), flat content
+    included."""
     nby, nbx = h // BLK, w // BLK
     B = nby * nbx
     span = 2 * SEARCH + 1
@@ -51,6 +48,7 @@ def _pair_stats_fn(h: int, w: int):
 
     def stats(cur, prev):
         dev = cur.device
+        exact = cur.dtype == torch.uint8 and prev.dtype == torch.uint8
         cur = cur.to(torch.int32)
         prev = prev.to(torch.int32)
         blks = (cur.reshape(nby, BLK, nbx, BLK).permute(0, 2, 1, 3)
@@ -62,29 +60,74 @@ def _pair_stats_fn(h: int, w: int):
         # each block's search window [B, win, win]: rows by*BLK .. +win
         wins = (pp.unfold(0, win, BLK).unfold(1, win, BLK)
                 .reshape(B, win, win))
-        wsq_rows = wins * wins
-        corr = torch.empty((B, span, span), dtype=torch.int32, device=dev)
-        wsq = torch.empty((B, span, span), dtype=torch.int32, device=dev)
-        bl = blks[:, :, None, :]
-        for dy in range(span):
-            rows = wins[:, dy:dy + BLK]                   # [B, 16, win]
-            corr[:, dy] = (rows.unfold(2, BLK, 1) * bl).sum((1, 3))
-            wsq[:, dy] = wsq_rows[:, dy:dy + BLK].sum(1).unfold(
-                1, BLK, 1).sum(2)
-        bsum = (blks * blks).sum((1, 2))
-        ssd = ((wsq.float() - 2.0 * corr.float())
-               + bsum.float()[:, None, None]).reshape(B, -1)
+        wsq, corr, bsum = _ssd_terms(blks, wins, exact)
+        ssd = ((wsq - 2.0 * corr) + bsum[:, None, None]).reshape(B, -1)
         flat = torch.argmin(ssd, dim=1).to(torch.int32)
         mv = torch.stack([torch.div(flat, span, rounding_mode="floor")
                           - SEARCH, flat % span - SEARCH], 1)
         inter = ssd.min(dim=1).values
         bf = blks.float()
-        mean = bf.mean((1, 2), keepdim=True)
-        intra = ((bf - mean) ** 2).sum((1, 2))
+        # the mean's sum is exact (below 2^24) in any order
+        mean = bf.sum((1, 2)) * (1.0 / (BLK * BLK))
+        d = (bf - mean[:, None, None]).double()
+        intra = _rows_in_lanes(d * d, fused=True)
         return (mv.reshape(nby, nbx, 2), inter.reshape(nby, nbx),
                 intra.reshape(nby, nbx))
 
     return stats
+
+
+def _ssd_terms(blks, wins, exact: bool):
+    """(wsq, corr, sum(blk^2)) as f32 from blks [B, 16, 16] and wins
+    [B, 32, 32] int32. Each is summed exactly in int32 and rounded once,
+    which equals the reference's f32 sums while they stay below 2^24
+    (8-bit planes). Otherwise (exact=False) wsq and sum(blk^2) take the
+    reference's orders: each window's squares added one at a time,
+    row-major, from 0; sum(blk^2) in _rows_in_lanes's. The correlation
+    stays exact: the reference's grouped convolution runs in XLA:CPU's
+    runtime (Eigen), not in the jit's object files, and no order tried
+    matches it (ROADMAP.md section 3)."""
+    B = blks.shape[0]
+    span = 2 * SEARCH + 1
+    wsq_rows = wins * wins
+    corr = torch.empty((B, span, span), dtype=torch.int32,
+                       device=blks.device)
+    wsq = torch.empty_like(corr)
+    bl = blks[:, :, None, :]
+    for dy in range(span):
+        rows = wins[:, dy:dy + BLK]                   # [B, 16, win]
+        corr[:, dy] = (rows.unfold(2, BLK, 1) * bl).sum((1, 3))
+        if exact:
+            wsq[:, dy] = wsq_rows[:, dy:dy + BLK].sum(1).unfold(
+                1, BLK, 1).sum(2)
+    if exact:
+        return (wsq.float(), corr.float(),
+                (blks * blks).sum((1, 2)).float())
+    sq = wsq_rows.float()
+    wsq = torch.zeros((B, span, span), dtype=torch.float32,
+                      device=blks.device)
+    for i in range(BLK):
+        for j in range(BLK):
+            wsq = wsq + sq[:, i:i + span, j:j + span]
+    bf = blks.float()
+    return wsq, corr.float(), _rows_in_lanes(bf * bf)
+
+
+def _rows_in_lanes(x, fused: bool = False):
+    """x [B, 16, 16] summed over each block as XLA:CPU's fused loop sums
+    it: 8 lanes across rows (lane l takes rows l and l + 8, each row's
+    16 terms one at a time), then the lanes folded in halves (8 -> 4 ->
+    2 -> 1). fused: x holds exact f64 squares that the loop adds by fma
+    (one rounding a step), else f32 terms."""
+    acc = torch.zeros((x.shape[0], 8), dtype=torch.float32, device=x.device)
+    for k in range(BLK // 8):
+        for c in range(BLK):
+            t = x[:, 8 * k: 8 * k + 8, c]
+            acc = (t + acc.double()).float() if fused else acc + t
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
 
 
 def compute_importances(stats: list) -> np.ndarray:

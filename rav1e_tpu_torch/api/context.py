@@ -9,13 +9,15 @@ rate controller, and emits packets in coded order. Key names mirror
 rav1e_config_parse where meaningful.
 
 Every frame is coded by the port's device pipelines on the Context's
-device (cuda unless device="cpu"), except 10-bit keyframes, which the
-reference codes on its numpy pipeline (its device keyframe is 8-bit)
-and the port codes on its copy of it (pipeline/intra.py, host numpy);
-the 10-bit P and B frames run on the device. A configuration those
-pipelines do not reach raises NotImplementedError in Context.__init__,
-naming the ROADMAP item that brings it; nothing falls back to another
-path.
+device (cuda unless device="cpu"), except 10-bit keyframes and the
+keyframes of speeds 0-3 (HORZ/VERT partitions), which the reference
+codes on its numpy pipeline (its device keyframe is 8-bit, square) and
+the port codes on its copy of it (pipeline/intra.py, host numpy; an
+8-bit frame's loop-restoration search on the device); the P and B
+frames run on the device, with loop restoration at speeds 0-3. A
+configuration those pipelines do not reach raises NotImplementedError
+in Context.__init__, naming the ROADMAP item that brings it; nothing
+falls back to another path.
 """
 
 from __future__ import annotations
@@ -180,6 +182,9 @@ class Context:
             pass_=int(cfg.extra.get("pass", 0) or 0))
         self._ref_rec = None      # previous reconstruction (numpy int32)
         self._golden_rec = None   # the GOP keyframe's (LAST + GOLDEN P)
+        # the GOP's keyframe enabled loop restoration: every frame of
+        # the GOP then codes its LR parameters
+        self._lr_seq = False
         self._order_hint = 0
         self._cdef_enabled = False
         # sequence-level color/HDR signaling (rav1e C API
@@ -260,13 +265,6 @@ class Context:
             _not_ported("tiles > 1", "item 17 (parallel)")
         if _truthy(cfg.extra.get("aq", "")):
             _not_ported("aq", "item 14 (keyframe variance AQ)")
-        if ss.search_px > 16:
-            _not_ported(f"speed {ss.speed} (the 24-px P search, loop "
-                        "restoration, HORZ/VERT keyframe partitions)",
-                        "items 8c, 13 and 16b")
-        if ss.lr or ss.rect_parts:
-            _not_ported(f"speed {ss.speed} (loop restoration, HORZ/VERT "
-                        "keyframe partitions)", "items 13 and 16b")
         if int(cfg.extra.get("photon_noise", 0) or 0):
             _not_ported("photon_noise (film grain)",
                         "item 16b (the numpy keyframe pipeline)")
@@ -384,7 +382,7 @@ class Context:
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
                     search=ss.search_px, subpel=ss.subpel,
-                    use_split8=ss.partition_split8,
+                    use_split8=ss.partition_split8, lr=self._lr_seq,
                     bit_depth=self.cfg.bit_depth, device=self.device)
 
     def _encode_group(self):
@@ -442,7 +440,8 @@ class Context:
         self._rc.update("INTER", q, len(adata) * 8)
         arec32 = _host32(arec)
         bkw = dict(b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo,
-                   bit_depth=self.cfg.bit_depth, device=self.device)
+                   lr=self._lr_seq, bit_depth=self.cfg.bit_depth,
+                   device=self.device)
 
         # Binary pyramid over the inner frames for ANY group length
         # (rav1e InterConfig pyramid, src/api/internal.rs: depth-2 for
@@ -564,22 +563,27 @@ class Context:
         ftype = "KEY" if is_key else "INTER"
         q = self._rc.select_qi(ftype)
         cdef = self._loop_params(is_key, q)
-        if is_key and cfg.bit_depth == 8:
+        if is_key and cfg.bit_depth == 8 and not ss.rect_parts:
             from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
             data, rec = encode_keyframe_tpu(
                 planes, qindex=q, cdef=cdef, speed=cfg.speed,
                 render_size=self._render,
-                seq_extra=self._seq_extra or None, device=self.device)
+                seq_extra=self._seq_extra or None, lr=ss.lr,
+                device=self.device)
         elif is_key:
-            # the reference's device keyframe is 8-bit: it codes deeper
-            # keyframes on its numpy pipeline, on the host, as here
+            # the reference's device keyframe is 8-bit and has no
+            # HORZ/VERT partitions: it codes deeper keyframes and those of
+            # speeds <= 3 on its numpy pipeline, on the host, as here (an
+            # 8-bit frame's LR search on the device)
             from rav1e_tpu_torch.pipeline.intra import encode_keyframe
             data, rec = encode_keyframe(
                 planes, qindex=q, cdef=cdef, bit_depth=cfg.bit_depth,
                 render_size=self._render,
-                seq_extra=self._seq_extra or None,
-                angle_deltas=ss.angle_deltas)
+                seq_extra=self._seq_extra or None, lr=ss.lr,
+                part_rdo=ss.rect_parts, angle_deltas=ss.angle_deltas,
+                device=self.device)
         if is_key:
+            self._lr_seq = ss.lr
             if self._metadata:
                 # metadata OBUs ride the keyframe temporal unit, after
                 # the 2-byte temporal delimiter and before the frame
@@ -596,7 +600,7 @@ class Context:
             # accumulating re-encode loss along the LAST chain.
             use_mref = (ss.multiref and cfg.bit_depth == 8
                         and self._golden_rec is not None
-                        and self._order_hint >= 2)
+                        and self._order_hint >= 2 and not self._lr_seq)
             if use_mref:
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
                     encode_pframe2_tpu)
@@ -619,7 +623,7 @@ class Context:
                     use_split=ss.partition_split_rdo,
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
-                    use_split8=ss.partition_split8,
+                    use_split8=ss.partition_split8, lr=self._lr_seq,
                     bit_depth=cfg.bit_depth, dscale=dscale,
                     src_dev=src_dev, device=self.device)
         self._ref_rec = _host32(rec)

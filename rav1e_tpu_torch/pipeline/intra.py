@@ -125,18 +125,15 @@ def encode_keyframe(planes: list[np.ndarray], qindex: int = 100,
                     render_size: tuple | None = None,
                     seq_extra: dict | None = None,
                     part_rdo: bool = False,
-                    angle_deltas: bool = True):
+                    angle_deltas: bool = True, device=None):
     """Encode one 8-bit 4:2:0 KEY frame. Returns (packet, recon planes).
 
     planes: [y (h,w), u, v] uint8, dims multiples of 8. Tile counts are
     powers of two (uniform spacing, spec 5.9.15); each tile encodes
-    independently.
+    independently. With lr, the loop-restoration search of an 8-bit
+    frame runs on `device` (cuda unless device="cpu"; pipeline/lr.py),
+    the rest on the host.
     """
-    if lr:
-        # the reference's pipeline/lr.py searches on its device LRF
-        raise NotImplementedError(
-            "loop restoration (lr=True) is not ported to rav1e_tpu_torch "
-            "yet: ROADMAP.md queue 1, item 13 (LRF)")
     y, u, v = planes
     h, w = y.shape
     assert h % 8 == 0 and w % 8 == 0
@@ -196,6 +193,9 @@ def encode_keyframe(planes: list[np.ndarray], qindex: int = 100,
             frame_rec[1][cy0:cy1, cx0:cx1] = recs[1]
             frame_rec[2][cy0:cy1, cx0:cx1] = recs[2]
             skip_mi[mi_r0:mi_r1, mi_c0:mi_c1] = tskip
+    # LR reads the deblocked planes before CDEF beyond each stripe
+    pre = ([p.copy() for p in frame_rec] if lr and cdef is not None
+           else None)
     if cdef is not None:
         from rav1e_tpu_torch.ops.ref.cdef import cdef_filter_frame
         skip8 = skip_mi[::2, ::2] & skip_mi[1::2, ::2] \
@@ -203,6 +203,11 @@ def encode_keyframe(planes: list[np.ndarray], qindex: int = 100,
         cdef_filter_frame(frame_rec, skip8, fp.cdef_y_pri, fp.cdef_y_sec,
                           fp.cdef_uv_pri, fp.cdef_uv_sec,
                           fp.cdef_damping, bd=bit_depth)
+    if lr:
+        from rav1e_tpu_torch.pipeline.lr import apply_lr_frame
+        fp.lr_types = apply_lr_frame(frame_rec, [y, u, v],
+                                     tiles[0][0], bit_depth,
+                                     ss_x, ss_y, device=device, pre=pre)
     tile_bytes = [tw_t.write_tile(p_t, b_t)
                   for tw_t, p_t, b_t in tiles]
     pkt = keyframe_packet(seq, fp, ti, tile_bytes)

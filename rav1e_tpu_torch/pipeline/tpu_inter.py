@@ -30,11 +30,12 @@ dispatches the P steps in order; each worker's device work (fetches into
 pinned buffers, the od_ec kernels) runs on a stream of its own that
 waits only for its frame's step.
 
-This slice ports the speed-3 to 10 P toolsets (api/speed.py) and the
-reference's default P call: single reference, subpel at speeds <= 8, CDEF
-when asked, at speeds <= 7 the PARTITION_SPLIT candidate (per-16 MVs from
-{parent, zero}, or refined in-patch with refine16; TX_16X16 + TX_8X8
-residuals; per-16 skip RD), and at speed 6 SATD in the subpel descent,
+The speed-0 to 10 P toolsets (api/speed.py) and the reference's default
+P call: single reference, subpel at speeds <= 8, a 24-px search at
+speeds <= 2, CDEF when asked, at speeds <= 7 the PARTITION_SPLIT
+candidate (per-16 MVs from {parent, zero}, or refined in-patch with
+refine16; TX_16X16 + TX_8X8 residuals; per-16 skip RD), and at speed 6
+SATD in the subpel descent,
 the 16->8 split (TX_8X8 + TX_4X4 children on 4-tap chroma MC), the 64x64
 merge (TX_64X64) and intra-in-inter (DC_PRED 32x32). The two-reference
 step serves the B frame (encode_bframe_tpu: single-fwd, single-bwd or
@@ -42,7 +43,9 @@ COMPOUND_AVERAGE per block, the cheap {parent, zero} split) and the
 LAST + GOLDEN P frame (encode_pframe2_tpu); both are packed by the
 Python TileWriter, as the reference packs them, its IR coded on the
 device. encode_pframe_tpu and encode_bframe_tpu code 8- and 10-bit
-4:2:0 (bit_depth; 10-bit pixels are int16 on the device, _pix_dtype);
+4:2:0 (bit_depth; 10-bit pixels are int16 on the device, _pix_dtype),
+with loop restoration after CDEF when lr (pipeline/lr.py, the Python
+walk then packs the tile, as in the reference);
 encode_pframe2_tpu and encode_gop_tpu are 8-bit, as the reference's.
 Other options raise NotImplementedError naming the ROADMAP.md item that
 brings them.
@@ -973,17 +976,37 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
         ds32)
     mark("code")
 
+    def mv_bits(mv):
+        # jnp clamps an index past the table; torch would raise
+        a = torch.clamp(torch.abs(mv), max=rd["mv_bits"].shape[0] - 1).long()
+        return rd["mv_bits"][a[..., 0]] + rd["mv_bits"][a[..., 1]]
+
+    def mv_rate(mv):
+        zero = (mv[..., 0] == 0) & (mv[..., 1] == 0)
+        return torch.where(zero, rd["globalmv"], mv_bits(mv) + rd["newmv"])
+
+    # a two-reference block's 32-level rate: its primary MV from zero
+    cost32 = lam * (mv_rate(mv8) if rate32 is None else rate32) + c32
+
     if not use_split:
-        if b64_rdo and nby % 2 == 0 and nbx % 2 == 0:
-            _not_ported("the 64x64 merge without split RDO",
-                        "item 8c (the speed-6 P tools off their presets)")
         split = torch.zeros((B,), dtype=torch.bool, device=dev)
+        skip16_out = skip[:, None].expand(B, 4)
+        b64_map = None
+        if b64_rdo and nby % 2 == 0 and nbx % 2 == 0:
+            # the merge on the 32-level costs, as the reference's
+            (b64_map, _, mv8, rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, skip,
+             split, skip16_out, choice, mvb8) = _merge64_pass(
+                y, u, v, ryp, rup, rvp, rd, code, nby, nbx, mv8, rec_y,
+                rec_u, rec_v, lv_y, lv_u, lv_v, skip, split, skip16_out,
+                choice, mvb8, cost32, bd=bd)
+            mark("merge64")
         zeros = functools.partial(torch.zeros, dtype=i32, device=dev)
         return _finish_outputs(
             y, h, tw, nby, nbx, B, mv8, skip, split,
-            mv8[:, None, :].expand(B, 4, 2), skip[:, None].expand(B, 4),
+            mv8[:, None, :].expand(B, 4, 2), skip16_out,
             lv_y, lv_u, lv_v, zeros((B * 4, 16, 16)), zeros((B * 4, 8, 8)),
-            zeros((B * 4, 8, 8)), rec_y, rec_u, rec_v, choice, mvb8, bd=bd)
+            zeros((B * 4, 8, 8)), rec_y, rec_u, rec_v, choice, mvb8,
+            b64_map=b64_map, bd=bd)
 
     # ---- the PARTITION_SPLIT candidate: per-16 MVs, TX16/TX8
     # residuals, per-16 skip RD ----
@@ -998,17 +1021,6 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
     mv_par = mv8.repeat_interleave(4, 0)
     mv_zero = torch.zeros_like(mv_par)
 
-    def mv_bits(mv):
-        # jnp clamps an index past the table; torch would raise
-        a = torch.clamp(torch.abs(mv), max=rd["mv_bits"].shape[0] - 1).long()
-        return rd["mv_bits"][a[..., 0]] + rd["mv_bits"][a[..., 1]]
-
-    def mv_rate(mv):
-        zero = (mv[..., 0] == 0) & (mv[..., 1] == 0)
-        return torch.where(zero, rd["globalmv"], mv_bits(mv) + rd["newmv"])
-
-    # a two-reference block's 32-level rate: its primary MV from zero
-    cost32 = lam * (mv_rate(mv8) if rate32 is None else rate32) + c32
 
     def cost16_pred(pred, mv):
         return ds16f * sse(pred, blks16) + lam * mv_bits(mv)
@@ -1862,16 +1874,18 @@ def _core(h: int, w: int, use_cdef: bool = False,
           refine16: bool = True, fwd2: bool = False,
           intra_rdo: bool = False, b64_rdo: bool = False,
           search: int = SEARCH, subpel: bool = True,
-          use_split8: bool = False, bd: int = 8):
+          use_split8: bool = False, bd: int = 8, lr: bool = False):
     """Batched P-frame step for an h x w frame, as plain functions (torch
     runs eagerly; nothing is compiled). qindex enters as the dcq/acq
     tensors. Returns (step, (nby, nbx), gather_dense) with
     step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark) ->
     (packed decisions int8, lv_y, lv_u, lv_v (int16, on the device for
-    the overflow gather), recon y, u, v in _pix_dtype(bd)). `mark(name)`
-    runs after each stage: search, cand, code, split, merge64, intra
-    (core; split with use_split, merge64 with b64_rdo on even block
-    counts, intra with intra_rdo), filt (deblock), cdef, pack.
+    the overflow gather), recon y, u, v in _pix_dtype(bd)), and with lr
+    an eighth output: the deblocked planes before CDEF (int32), which
+    loop restoration reads beyond each stripe, or None with CDEF off.
+    `mark(name)` runs after each stage: search, cand, code, split,
+    merge64, intra (core; split with use_split, merge64 with b64_rdo on
+    even block counts, intra with intra_rdo), filt (deblock), cdef, pack.
 
     two_ref=True builds the two-reference step, step(src, ry, ru, rv, ry2,
     ru2, rv2, dcq, acq, cdef_prm, rd, ds, mark): the B frame (fwd, bwd or
@@ -1917,7 +1931,8 @@ def _core(h: int, w: int, use_cdef: bool = False,
         per-64x64-SB CDEF ladder search against the source (damping
         cdef_prm[4], the nb_strengths RD at lam) on the exact 8x8-unit
         skip gate.
-        Returns (lf_lvl, cdef_idx, y, u, v in _pix_dtype(bd))."""
+        Returns (lf_lvl, cdef_idx, y, u, v in _pix_dtype(bd), the planes
+        before CDEF with lr and CDEF on, else None)."""
         from rav1e_tpu_torch.ops.cdef import cdef_search_persb
         from rav1e_tpu_torch.ops.deblock import deblock_search
         y, u, v = _unpack_src(src, h, w)
@@ -1933,6 +1948,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
                 sub_map=(s16g.repeat_interleave(2, 0).repeat_interleave(2, 1)
                          if use_split8 else None))
         mark("filt")
+        pre = planes if lr and use_cdef else None
         if use_cdef:
             cdef_idx, planes = cdef_search_persb(
                 planes, [y, u, v], skip8, cdef_prm[4], lam=lam, bd=bd)
@@ -1942,7 +1958,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
         mark("cdef")
         dt = _pix_dtype(bd)
         return (lf_lvl, cdef_idx, planes[0].to(dt), planes[1].to(dt),
-                planes[2].to(dt))
+                planes[2].to(dt), pre)
 
     def pack(o, lf_lvl, cdef_idx):
         o = list(o)
@@ -1952,13 +1968,14 @@ def _core(h: int, w: int, use_cdef: bool = False,
     def tail(src, o, cdef_prm, rd, mark):
         if not (use_deblock or use_cdef):
             out = (pack(o, o[9], o[10]), o[3], o[4], o[5], o[6], o[7],
-                   o[8])
+                   o[8]) + ((None,) if lr else ())
             mark("pack")
             return out
-        lf_lvl, cdef_idx, fry, fru, frv = filt(
+        lf_lvl, cdef_idx, fry, fru, frv, pre = filt(
             src, o[6], o[7], o[8], rd["base_lf"], cdef_prm, o[11], o[13],
             o[16], rd["lam"], o[17], o[18], mark)
-        out = (pack(o, lf_lvl, cdef_idx), o[3], o[4], o[5], fry, fru, frv)
+        out = (pack(o, lf_lvl, cdef_idx), o[3], o[4], o[5], fry, fru,
+               frv) + ((pre,) if lr else ())
         mark("pack")
         return out
 
@@ -2029,16 +2046,20 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
 
     cdef: None, a 5-tuple (one frame-wide strength), or (5-tuple,
     idx_map): the per-SB form signals the ladder entries the SBs chose
-    (compact_ladder) and a literal index per 64x64 SB in the tile. LR
-    and tile_grid raise NotImplementedError naming their ROADMAP item."""
-    if lr_ctx is not None:
-        _not_ported("loop restoration", "item 13 (LRF)")
+    (compact_ladder) and a literal index per 64x64 SB in the tile.
+    lr_ctx: (lr_types, lr_data) of the frame's loop restoration
+    (pipeline/lr.py::search_lr_frame), which the Python walk codes, as
+    the reference's does. tile_grid raises NotImplementedError naming
+    its ROADMAP item."""
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
+    if lr_ctx is not None:
+        use_native = False
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq, fp, cdef_map, cdef_bits = _inter_headers(
-        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
+        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
+        lr_ctx)
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     intra_map = None if choice is None else np.asarray(choice) == 3
@@ -2073,19 +2094,21 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
             w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, intra_map,
             b64_map, split16, skip8)
         tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
-                            cdef_bits, dev, timings, t_walk)
+                            cdef_bits, dev, timings, t_walk,
+                            lr_data=lr_ctx and lr_ctx[1])
     return interframe_packet(seq, fp, ti, [tile], order_hint,
                              refresh_flags=refresh_flags,
                              ref_idx=[ref_slot] * 7, show_frame=show_frame)
 
 
 def _inter_headers(h, w, qindex, cdef, film_grain, render_size, lf_level,
-                   bit_depth: int):
+                   bit_depth: int, lr_ctx=None):
     """An inter frame's sequence and frame headers, as the reference's
     pack functions set them. cdef: None, a 5-tuple (one frame-wide
     strength) or (5-tuple, idx_map) (the per-SB ladder: the entries used
-    are signalled, compact_ladder). Returns (seq, fp, the compacted index
-    map or None, its bits)."""
+    are signalled, compact_ladder); lr_ctx: None or (lr_types, lr_data),
+    which enables restoration in the sequence. Returns (seq, fp, the
+    compacted index map or None, its bits)."""
     cdef_map = None
     if cdef is not None and isinstance(cdef[1], np.ndarray):
         cdef, cdef_map = cdef
@@ -2098,6 +2121,9 @@ def _inter_headers(h, w, qindex, cdef, film_grain, render_size, lf_level,
                      loop_filter_levels=(lf, lf, lf, lf))
     fp.film_grain = film_grain
     fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
+    if lr_ctx is not None:
+        seq.enable_restoration = True
+        fp.lr_types = lr_ctx[0]
     cdef_bits = 0
     if cdef_map is not None:
         from rav1e_tpu_torch.ops.cdef import compact_ladder
@@ -2267,9 +2293,14 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     a prior call with return_device=True, which skips the upload; src_dev:
     the packed source (pack_src) already on the device. `timings`
     receives each stage's wall time. Returns (packet, [y, u, v] recon
-    int32) and, with return_device, the device recon too."""
-    if lr:
-        _not_ported("loop restoration", "item 13 (LRF)")
+    int32) and, with return_device, the device recon too.
+    lr: loop restoration after CDEF (pipeline/lr.py: at 8 bits the search
+    and apply on the device, above 8 bits on the host at the frame's bit
+    depth), the recon returned filtered; it packs with the Python
+    TileWriter, as the reference does, and cannot return the device
+    recon."""
+    if lr and return_device:
+        raise ValueError("return_device is incompatible with lr")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
     _check_bit_depth(bit_depth)
@@ -2283,7 +2314,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                                      refine16=refine16, intra_rdo=intra_rdo,
                                      b64_rdo=b64_rdo, search=search,
                                      subpel=subpel, use_split8=use_split8,
-                                     bd=bit_depth)
+                                     bd=bit_depth, lr=lr)
     if ref_dev is None:
         ref_dev = _upload(ref_planes, dev, bit_depth)
     if src_dev is None:
@@ -2298,10 +2329,9 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
      cdef_map, choice, _, b64_map, split16, skip8) = _fetch_packed(
         outs, gdense, nby, nbx)
-    rec = [r.cpu().numpy().astype(np.int32) for r in rec_dev]
-    stages.mark("fetch_unpack")
+    rec, lr_ctx = _lr_recon(outs, src_dev, h, w, lr, bit_depth, stages)
     pkt = _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u,
-                       lv_v, use_native=use_native,
+                       lv_v, use_native=use_native, lr_ctx=lr_ctx,
                        cdef=None if cdef is None else (cdef_prm, cdef_map),
                        film_grain=film_grain,
                        render_size=render_size, lf_level=lf_lvl,
@@ -2339,11 +2369,10 @@ def _cdef_prm(cdef):
 def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
                    cdef: tuple | None = None, device=None,
                    timings: list | None = None):
-    """KEY + P chain on the device, at speeds 3-10 (speed 6 is the preset
-    the reference's bench times; speeds 3-4 add refine16; speeds 0-2,
-    whose P frames search 24 px, raise naming ROADMAP.md item 8c; a
-    keyframe alone runs at any speed); 4:2:0 8-bit frames with dims
-    multiples of 32. Runs on
+    """KEY + P chain on the device, at speeds 0-10 (speed 6 is the preset
+    the reference's bench times; speeds 3-4 add refine16, speeds 0-2
+    search 24 px in P frames; like the reference's, the GOP runs no loop
+    restoration); 4:2:0 8-bit frames with dims multiples of 32. Runs on
     `cuda` unless device="cpu" is passed. cdef (None, or (y_pri, y_sec,
     uv_pri, uv_sec, damping)) runs the per-SB CDEF search on every
     frame, with damping cdef[4]; each P frame then references the
@@ -2367,10 +2396,6 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     t_gop = time.perf_counter()
     _check_options(cdef, False, False, frames[0], None)
     ss = SpeedSettings.from_preset(speed)
-    if len(frames) > 1 and ss.search_px > SEARCH:
-        # raised before the keyframe is encoded
-        _not_ported(f"the {ss.search_px}-px P search of speed {speed}",
-                    "item 8c (the speed-6 P tools off their presets)")
     dev = resolve_device(device)
 
     def frame_times():
@@ -2474,10 +2499,9 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     compound block. A split 32-block's four 16x16 children are the
     parent's (ref choice, MV or MV pair) or, where mv16 is zero, single-
     LAST GLOBALMV blocks. `timings` receives tile_walk and the coding
-    stages. LR, tile_grid and merged 64x64 blocks raise
+    stages. lr_ctx: (lr_types, lr_data) of the frame's loop restoration,
+    coded by the walk. tile_grid and merged 64x64 blocks raise
     NotImplementedError."""
-    if lr_ctx is not None:
-        _not_ported("loop restoration", "item 13 (LRF)")
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
     if b64_map is not None and np.asarray(b64_map).any():
@@ -2487,7 +2511,8 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     dev = resolve_device(device)
     t_walk = time.perf_counter()
     seq, fp, cdef_map, cdef_bits = _inter_headers(
-        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
+        h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
+        lr_ctx)
     ti = TileInfo(seq)
     nbx = w // 32
     partitions: dict = {}
@@ -2537,7 +2562,7 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
                         cdef_bits, dev, timings, t_walk,
                         ref_sign_bias={1: False, 7: True},
-                        reference_select=True)
+                        reference_select=True, lr_data=lr_ctx and lr_ctx[1])
     fp.reference_select = True
     fh, bh2 = ref_hints or (0, order_hint + 1)
     fp.ref_order_hints = [fh] * 6 + [bh2]
@@ -2574,11 +2599,9 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     ref_dev_bwd their planes on the device (_pix_dtype); src_dev: the packed
     source (pack_src) on the device. The packet is the reference's
     Python TileWriter walk with its IR coded on the device. `timings`
-    receives each stage's wall time. lr and tile_grid raise
-    NotImplementedError naming their ROADMAP item. Returns (packet,
-    [y, u, v] recon int32)."""
-    if lr:
-        _not_ported("loop restoration", "item 13 (LRF)")
+    receives each stage's wall time. lr: loop restoration after CDEF, as
+    encode_pframe_tpu's. tile_grid raises NotImplementedError naming its
+    ROADMAP item. Returns (packet, [y, u, v] recon int32)."""
     if tile_grid is not None:
         _not_ported("multi-tile frames", "item 17 (parallel)")
     _check_bit_depth(bit_depth)
@@ -2589,7 +2612,7 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=use_split, two_ref=True,
                                      b64_rdo=b64_rdo, search=search,
-                                     subpel=subpel, bd=bit_depth)
+                                     subpel=subpel, bd=bit_depth, lr=lr)
     if ref_dev_fwd is None:
         ref_dev_fwd = _upload(ref_fwd, dev, bit_depth)
     if ref_dev_bwd is None:
@@ -2605,8 +2628,7 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
                 stages.mark)
     (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl, cdef_map,
      choice, mvb8, b64m, _, _) = _fetch_packed(outs, gdense, nby, nbx)
-    rec = [r.cpu().numpy().astype(np.int32) for r in outs[4:7]]
-    stages.mark("fetch_unpack")
+    rec, lr_ctx = _lr_recon(outs, src_dev, h, w, lr, bit_depth, stages)
     pkt = _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
                        lv_y, lv_u, lv_v,
                        cdef=None if cdef is None else (cdef_prm, cdef_map),
@@ -2616,9 +2638,31 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
                        refresh_flags=refresh_flags, show_frame=show_frame,
                        b64_map=b64m if b64_rdo else None,
                        split=split if use_split else None, mv16=mv16,
-                       skip16=skip16, bit_depth=bit_depth, device=dev,
-                       timings=timings)
+                       skip16=skip16, lr_ctx=lr_ctx, bit_depth=bit_depth,
+                       device=dev, timings=timings)
     return pkt, rec
+
+
+def _lr_recon(outs, src_dev, h: int, w: int, lr: bool, bit_depth: int,
+              stages):
+    """A step's recon (outs[4:7]) on the host (int32 planes) and, with lr,
+    its loop restoration (pipeline/lr.py) on the device recon, before the
+    fetch, reading the planes before CDEF (outs[7]) beyond each stripe:
+    returns (recon, (lr_types, lr_data) or None). The reference passes
+    bit depth 8 to its device steps' LR at any depth; the port passes
+    the frame's (ROADMAP.md section 3)."""
+    if not lr:
+        rec = [r.cpu().numpy().astype(np.int32) for r in outs[4:7]]
+        stages.mark("fetch_unpack")
+        return rec, None
+    from rav1e_tpu_torch.pipeline.lr import search_lr_frame
+    stages.mark("fetch_unpack")
+    planes = list(outs[4:7])
+    lr_ctx = search_lr_frame(planes, list(_unpack_src(src_dev, h, w)),
+                             bit_depth, 1, pre=outs[7])
+    rec = [to_host(r).astype(np.int32) for r in planes]
+    stages.mark("lr")
+    return rec, lr_ctx
 
 
 def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,

@@ -39,8 +39,10 @@ speed-6 keyframe:
   - when the source has detail in the 8..16 px band (_detail_band8 >
     256), each quad may split again into four 8x8 luma blocks with 4x4
     joint-uv chroma (the 16->8 split).
-Other options (AQ, LR, bit depth > 8) raise NotImplementedError naming
-the ROADMAP.md item that brings them.
+Loop restoration (lr=True) runs on the device recon (pipeline/lr.py)
+and packs with the Python TileWriter, as the reference does. Other
+options (AQ, bit depth > 8) raise NotImplementedError naming the
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -1189,7 +1191,8 @@ def _kf_skip8(state, split8: bool = False):
 
 def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
                 use_cdef: bool, use_deblock: bool, cdef_rdo: bool = False,
-                mark=_nomark, split_rdo: bool = False, split8: bool = False):
+                mark=_nomark, split_rdo: bool = False, split8: bool = False,
+                keep_pre: bool = False):
     """Keyframe in-loop filters: the deblock level search, then CDEF —
     the per-64x64-SB ladder search against the source (cdef_rdo) or the
     fixed strengths cdef_prm (y_pri, y_sec, uv_pri, uv_sec, damping).
@@ -1198,7 +1201,9 @@ def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
     split quads add their 8-px TX edges (sub_map) and CDEF's skip gate
     is taken per 8x8 child. `mark(name)` runs after each ("filters",
     "cdef"). Returns (lf_lvl 0-d int32, cdef_idx [ceil(bh/2),
-    ceil(bw/2)] int32, rec_packed uint8 [3h/2, w]: y over u|v)."""
+    ceil(bw/2)] int32, rec_packed uint8 [3h/2, w]: y over u|v, and with
+    keep_pre and CDEF on the deblocked planes before CDEF, which loop
+    restoration reads beyond each stripe, else None)."""
     bh, bw = state[8].shape
     planes = [_from_blocks_t(state[i]) for i in range(3)]
     dev = planes[0].device
@@ -1218,6 +1223,7 @@ def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
     mark("filters")
     cdef_idx = torch.zeros(((bh + 1) // 2, (bw + 1) // 2), dtype=torch.int32,
                            device=dev)
+    pre = planes if keep_pre and use_cdef else None
     if use_cdef:
         skip8 = _kf_skip8(state, split8)
         if cdef_rdo:
@@ -1229,7 +1235,7 @@ def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
     mark("cdef")
     u8 = [p.to(torch.uint8) for p in planes]
     return (lf_lvl, cdef_idx,
-            torch.cat([u8[0], torch.cat([u8[1], u8[2]], 1)], 0))
+            torch.cat([u8[0], torch.cat([u8[1], u8[2]], 1)], 0), pre)
 
 
 def _kf_meta(state, lf_lvl, cdef_idx, split8: bool = False):
@@ -1284,8 +1290,9 @@ def _kf_meta(state, lf_lvl, cdef_idx, split8: bool = False):
 class KeyframeDevice(NamedTuple):
     """What the device half of a keyframe encode leaves on the device:
     the unskewed 14-grid state (pre-deblock recon, levels, decisions),
-    the meta buffer, the filtered recon and the int16 level arrays; and
-    the CDEF settings the host half signals."""
+    the meta buffer, the filtered recon and the int16 level arrays; the
+    CDEF settings the host half signals; and, for loop restoration with
+    CDEF on, the deblocked planes before CDEF."""
     state: tuple
     meta: torch.Tensor
     rec_packed: torch.Tensor
@@ -1294,6 +1301,7 @@ class KeyframeDevice(NamedTuple):
     lvv: torch.Tensor
     cdef: tuple | None = None
     cdef_rdo: bool = True
+    pre_cdef: list | None = None
 
 
 def _check_options(cdef, lr, aq, planes, seq_extra):
@@ -1301,8 +1309,6 @@ def _check_options(cdef, lr, aq, planes, seq_extra):
         raise ValueError("cdef is (y_pri, y_sec, uv_pri, uv_sec, damping)")
     if aq:
         _not_ported("variance AQ", "item 14 (keyframe variance AQ)")
-    if lr:
-        _not_ported("loop restoration", "item 13 (LRF)")
     if ((seq_extra or {}).get("bit_depth", 8) > 8
             or any(int(np.max(p)) > 255 for p in planes)):
         # as the reference's: its device keyframe is 8-bit too
@@ -1328,13 +1334,15 @@ def _mode_sets(speed: int):
 def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
                      deblock: bool = True, cdef: tuple | None = None,
                      cdef_rdo: bool = True, device=None,
-                     timings: dict | None = None) -> KeyframeDevice:
+                     timings: dict | None = None,
+                     lr: bool = False) -> KeyframeDevice:
     """The device half of a keyframe encode (steps 1-5 of
     encode_keyframe_tpu): upload, rd, phase 1, phase 2, the deblock and
     CDEF searches and meta packing, with the speed preset's mode sets.
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping); with
     cdef_rdo each 64x64 SB takes its ladder entry (damping cdef[4]),
-    else the tuple is one fixed strength."""
+    else the tuple is one fixed strength. lr keeps the deblocked planes
+    before CDEF (pre_cdef) for loop restoration."""
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     y, u, v = (np.asarray(p) for p in planes)
@@ -1397,13 +1405,14 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
     stages.mark("recon_wavefront")
     state = tuple(unskew(x) for x in rw) + tuple(dec[6:])
     cdef_prm = tuple(cdef) if cdef is not None else (0, 0, 0, 0, 3)
-    lf_lvl, cdef_idx, rec_packed = _kf_filters(
+    lf_lvl, cdef_idx, rec_packed, pre = _kf_filters(
         state, (sy, su, sv), level_from_qindex(qindex), cdef_prm, rd["lam"],
-        cdef is not None, deblock, cdef_rdo, stages.mark, split_rdo, split8)
+        cdef is not None, deblock, cdef_rdo, stages.mark, split_rdo, split8,
+        keep_pre=lr)
     meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx, split8)
     stages.mark("meta")
     return KeyframeDevice(state, meta, rec_packed, lvy, lvu, lvv,
-                          None if cdef is None else cdef_prm, cdef_rdo)
+                          None if cdef is None else cdef_prm, cdef_rdo, pre)
 
 
 def _detail_band8(y: np.ndarray) -> float:
@@ -1451,14 +1460,18 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
     runs the host half (pack_keyframe, on a stream of its own that waits
     for the device half) and returns (packet, recon); rec_dev is the
     filtered recon's three planes on the device (uint8), for P frames to
-    reference meanwhile."""
+    reference meanwhile. lr=True (loop restoration: the search and
+    apply on the device, ops/lrf.py) packs with the Python TileWriter,
+    as the reference does, and cannot be deferred."""
     _check_options(cdef, lr, aq, planes, seq_extra)
+    if deferred and lr:
+        raise ValueError("deferred is incompatible with lr")
     dev = resolve_device(device)
     kd = analyze_keyframe(planes, qindex, speed, deblock, cdef, cdef_rdo,
-                          dev, timings)
+                          dev, timings, lr=lr)
     if not deferred:
         return pack_keyframe(kd, planes, qindex, render_size, seq_extra,
-                             dev, timings)
+                             dev, timings, lr=lr)
     after = SideStream(dev)
 
     def finish():
@@ -1474,15 +1487,18 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
 def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
                   render_size: tuple | None = None,
                   seq_extra: dict | None = None, device=None,
-                  timings: dict | None = None, use_native: bool = True):
+                  timings: dict | None = None, use_native: bool = True,
+                  lr: bool = False):
     """The host half of a keyframe encode (the reference's deferred
     `_finish`): one fetch of the meta buffer and the recon, unpack, the
     overflow gather, the tile walk (its IR range-coded on `device`) and
     the OBU packet. The walk is the C++ packer's write_intra_tile_fast,
     as in the reference; use_native=False walks the blocks in the Python
     TileWriter instead (same IR, row for row), the writer the tests and
-    chip_smoke.py hold the packer against. Returns (packet, [y, u, v]
-    recon int32)."""
+    chip_smoke.py hold the packer against. lr runs loop restoration on
+    the device recon before the fetch (pipeline/lr.py) and walks the
+    Python TileWriter, whose tiles carry the units' parameters, as the
+    reference does. Returns (packet, [y, u, v] recon int32)."""
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     h, w = np.asarray(planes[0]).shape
@@ -1533,10 +1549,23 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     ly = lv_y.reshape(bh, bw, 32, 32)
     lu = lv_u.reshape(bh, bw, 16, 16)
     lvv = lv_v.reshape(bh, bw, 16, 16)
-    rp = to_host(kd.rec_packed)
-    rec = [rp[:h].astype(np.int32), rp[h:, :w // 2].astype(np.int32),
-           rp[h:, w // 2:].astype(np.int32)]
-    stages.mark("fetch_unpack")
+    rp = kd.rec_packed
+    lr_data = None
+    if lr:
+        from rav1e_tpu_torch.pipeline.lr import search_lr_frame
+        use_native = False
+        stages.mark("fetch_unpack")
+        rec_d = [rp[:h], rp[h:, :w // 2], rp[h:, w // 2:]]
+        src_d = [torch.as_tensor(np.asarray(p), device=dev) for p in planes]
+        lr_types, lr_data = search_lr_frame(rec_d, src_d, 8, 1,
+                                            pre=kd.pre_cdef)
+        rec = [to_host(p).astype(np.int32) for p in rec_d]
+        stages.mark("lr")
+    else:
+        rp = to_host(rp)
+        rec = [rp[:h].astype(np.int32), rp[h:, :w // 2].astype(np.int32),
+               rp[h:, w // 2:].astype(np.int32)]
+        stages.mark("fetch_unpack")
 
     # ---- tile walk (host) into IR; the kernel codes the IR ----
     t_walk = time.perf_counter()
@@ -1546,6 +1575,9 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     fp = FrameParams(frame_type=FrameType.KEY, base_q_idx=qindex,
                      loop_filter_levels=(lf, lf, lf, lf),
                      render_size=render_size)
+    if lr:
+        seq.enable_restoration = True
+        fp.lr_types = lr_types
     fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
     cdef_bits = 0
     if cdef_map is not None:
@@ -1570,7 +1602,7 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     ec_times: dict = {}
     tw = TileWriter(mi_rows, mi_cols, qindex,
                     encoder=functools.partial(RecordingEncoder, dev,
-                                              ec_times))
+                                              ec_times), lr_data=lr_data)
     if cdef_bits:
         tw.cdef_bits = cdef_bits
         tw.cdef_idx_map = cdef_map

@@ -418,8 +418,7 @@ def test_bframe_gathers_in_three_groups():
     assert sizes == b_groups
 
 
-@pytest.mark.parametrize("kw", [{"lr": True}, {"tile_grid": (1, 2)},
-                                {"bit_depth": 12}])
+@pytest.mark.parametrize("kw", [{"tile_grid": (1, 2)}, {"bit_depth": 12}])
 def test_bframe_options_beyond_the_slice_raise(kw):
     f = bgroup()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

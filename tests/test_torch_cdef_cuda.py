@@ -106,9 +106,7 @@ def _apply_equal_plain(recd, dirs, var, sk, damping, bd=8, **kw):
     return counts
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("what", ["extremes", "misaligned", "1928x136"])
-def test_dirs_equal_plain_at_the_extremes_on_card(what):
+def _dirs_equal_plain_at_the_extremes_on_card(what):
     """On the card: cdef_dirs (int32 costs, 8 threads a block) equals its
     plain version on blocks at the ends of its range (all 0, the int32
     bound in every direction: dir 0, var 0; all 255; a ramp and stripes
@@ -137,8 +135,16 @@ def test_dirs_equal_plain_at_the_extremes_on_card(what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,h", [(1920, 1088), (1920, 1056), (320, 224)])
-def test_kernels_equal_plain_on_card(w, h):
+def test_dirs_equal_plain_at_the_extremes_on_card():
+    """_dirs_equal_plain_at_the_extremes_on_card on each case: the
+    extreme blocks, them from a misaligned base, a 1928x136 frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for what in ("extremes", "misaligned", "1928x136"):
+        _dirs_equal_plain_at_the_extremes_on_card(what)
+
+
+def _kernels_equal_plain_on_card(w, h):
     """On the card: cdef_dirs, cdef_ladder_sse (both branches where the
     frame is 64-aligned) and cdef_apply (ladder winners, every entry,
     entry 0 everywhere, uniform strengths with chroma's primary 0 and
@@ -180,9 +186,15 @@ def test_kernels_equal_plain_on_card(w, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,h,seed,scale", [(256, 192, 19, 1),
-                                            (160, 96, 11, 4)])
-def test_kernels_past_2_24_on_card(w, h, seed, scale):
+def test_kernels_equal_plain_on_card():
+    """_kernels_equal_plain_on_card at each frame size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for w, h in ((1920, 1088), (1920, 1056), (320, 224)):
+        _kernels_equal_plain_on_card(w, h)
+
+
+def _kernels_past_2_24_on_card(w, h, seed, scale):
     """On the card, on noise at q 255 where a cell's SSE passes 2^24 and
     the f32 order decides: the tables equal the plain version's bit for
     bit, the blocks past 2^24 taking the ordered path (both branches at
@@ -205,8 +217,16 @@ def test_kernels_past_2_24_on_card(w, h, seed, scale):
         _apply_equal_plain(recd, dirs, var, sk, 3, bd, idx=idx)
 
 
-@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
-                                                    marks=pytest.mark.cuda)])
+@pytest.mark.cuda
+def test_kernels_past_2_24_on_card():
+    """_kernels_past_2_24_on_card on both noise frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
+        _kernels_past_2_24_on_card(w, h, seed, scale)
+
+
+@pytest.mark.parametrize("dev", ["cpu"])
 @pytest.mark.parametrize("what", ["dirs", "var"])
 def test_grids_of_another_dtype_raise(dev, what):
     """The kernels read dirs as int8 and var as int32: a grid of another
@@ -228,3 +248,12 @@ def test_grids_of_another_dtype_raise(dev, what):
     with pytest.raises(ValueError, match=f"{what} must be"):
         tc.cdef_apply(p, dirs, var, sk, 4, idx=torch.zeros(
             (1, 1), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+def test_grids_of_another_dtype_raise_on_card():
+    """test_grids_of_another_dtype_raise on the card, for both grids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for what in ("dirs", "var"):
+        test_grids_of_another_dtype_raise("cuda", what)

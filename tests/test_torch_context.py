@@ -3,7 +3,9 @@
 At its defaults (speed 6, the reordered depth-2 pyramid, lookahead depth
 8) the port's Context gives the JAX package's packets, frame types,
 input_framenos and qps byte for byte on 9 frames of 128x96 content with
-a static region and a mover (a KEY and two groups of 4); the JAX
+a static region and a mover (a KEY and two groups of 4), and so do its
+low-latency speed-5 and its speed-2 sessions (loop restoration, the
+numpy keyframe's HORZ/VERT partitions, the 24-px P search); the JAX
 package's run is made once per test run and shared between the runner's
 workers through a locked file. The rest mirrors
 tests/test_api_pipeline.py's session contracts on the port alone, and
@@ -106,9 +108,10 @@ def port_default():
     return _port_session()
 
 
-# the two sessions held against the JAX package's: the default (speed 6,
-# reordered, B frames) and low latency at speed 5 (LAST + GOLDEN P
-# frames, the standard scene detector), both with lookahead 8
+# the sessions held against the JAX package's: the default (speed 6,
+# reordered, B frames), low latency at speed 5 (LAST + GOLDEN P frames,
+# the standard scene detector) and speed 2 with CDEF off, all with
+# lookahead 8
 SESSIONS = {"default": ({}, [
     ("KEY", 0), ("INTER", 4), ("INTER", 2), ("INTER", 1),
     ("SHOW_EXISTING", 2), ("INTER", 3), ("SHOW_EXISTING", 4),
@@ -116,7 +119,18 @@ SESSIONS = {"default": ({}, [
     ("INTER", 7), ("SHOW_EXISTING", 8)]),
     "low_latency_speed5": (dict(speed=5, low_latency=True),
                            [("KEY", 0)] + [("INTER", i) for i in
-                                           range(1, N)])}
+                                           range(1, N)]),
+    # speed 2: the numpy keyframe with HORZ/VERT partitions and loop
+    # restoration, the 24-px anchor P search, LR on every P and B frame;
+    # without CDEF, since with it the JAX package's LR reads the CDEF
+    # output beyond each stripe where decoders read the deblocked frame
+    # (its streams decode to other pixels; the port's is held to its
+    # decode by test_speed2_with_cdef_decodes_to_its_recon)
+    "speed2": (dict(speed=2, extra={"cdef": "off"}), [
+        ("KEY", 0), ("INTER", 4), ("INTER", 2), ("INTER", 1),
+        ("SHOW_EXISTING", 2), ("INTER", 3), ("SHOW_EXISTING", 4),
+        ("INTER", 8), ("INTER", 6), ("INTER", 5), ("SHOW_EXISTING", 6),
+        ("INTER", 7), ("SHOW_EXISTING", 8)])}
 
 
 @pytest.mark.parametrize("name", SESSIONS)
@@ -140,6 +154,47 @@ def test_session_equals_reference(name, port_default, shared_dir):
     assert seen.pop(last) is None
     for ds in seen:
         assert ds.shape == (H // 16, W // 16) and np.ptp(ds) > 0.05
+
+
+def test_speed2_with_cdef_decodes_to_its_recon():
+    """The speed-2 session with CDEF on (its default): loop restoration
+    reads the deblocked planes before CDEF beyond each stripe, so
+    libdav1d decodes every frame to the encoder's recon (each decoded
+    frame's PSNR against the source is its enc_stats' PSNR exactly, the
+    B frames after the restored references included); the LR searches
+    got those planes and filtered some unit."""
+    from rav1e_tpu_torch.pipeline import lr as plr
+    calls, orig = [], plr.search_lr_frame
+
+    def recording(*a, **k):
+        out = orig(*a, **k)
+        n = sum(c is not None for g in (out[1] or {}).get("units", {})
+                .values() for row in g for c in row)
+        calls.append((k.get("pre") is not None, n))
+        return out
+
+    frames = session(W, H, N)
+    plr.search_lr_frame = recording
+    try:
+        pkts = _run(Config(width=W, height=H, speed=2,
+                           extra={"enc_stats": "1"}).new_context(
+                               device="cpu"), frames)
+    finally:
+        plr.search_lr_frame = orig
+    coded = {p.input_frameno: p.enc_stats for p in pkts
+             if p.enc_stats is not None}
+    dec = dav1d.decode_all([p.data for p in pkts])
+    assert len(dec) == N and len(coded) == N
+    for i, (d, f) in enumerate(zip(dec, frames)):
+        got = []
+        for plane, ref in zip(d.planes, f):
+            mse = np.mean((plane.astype(np.float64) - ref) ** 2)
+            got.append(float(10 * np.log10(255.0 ** 2 / mse))
+                       if mse > 0 else 99.0)
+        st = coded[i]
+        assert got == [st.psnr_y, st.psnr_u, st.psnr_v], i
+    assert len(calls) == N and all(pre for pre, _ in calls)
+    assert sum(n for _, n in calls) > 0
 
 
 def test_lookahead_off_changes_packets(port_default):
@@ -377,8 +432,6 @@ NOT_PORTED = {
                  dict(low_latency=True, extra={"error_resilient": "1"})],
     "item 17": [dict(width=512, height=128, tiles=2)],
     "item 14": [dict(extra={"aq": "1"})],
-    "items 13 and 16b": [dict(speed=3)],
-    "items 8c, 13 and 16b": [dict(speed=2), dict(speed=0)],
 }
 
 
@@ -396,10 +449,10 @@ def test_numpy_pipeline_configurations_raise(item):
 
 
 def test_speeds_4_to_10_and_resilience_outside_low_latency():
-    """The other speeds reach the device pipelines (no raise) at 8 and 10
-    bits, and error_resilient without low_latency stays the reference's
-    ValueError."""
-    for speed in range(4, 11):
+    """Every speed, 0 to 10, reaches the port's pipelines (no raise) at 8
+    and 10 bits, and error_resilient without low_latency stays the
+    reference's ValueError."""
+    for speed in range(0, 11):
         for bd in (8, 10):
             Config(width=64, height=64, speed=speed,
                    bit_depth=bd).new_context(device="cpu")

@@ -210,9 +210,7 @@ def test_wrapper_rejects_bad_inputs():
         G.gather_patches_many([(plane, s, s, 8)] * 17)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("P", [23, 39, 43])
-def test_kernel_equals_plain_on_the_card(P):
+def _kernel_equals_plain_on_the_card(P):
     """The CUDA kernel against the plain version on the card, on the
     1080p planes' shapes with clamped starts: through gather_patches (a
     group of one), and through gather_patches_many on a mixed group (P
@@ -246,3 +244,12 @@ def test_kernel_equals_plain_on_the_card(P):
     for g, w in zip(many, want):
         assert torch.equal(g, w)
     assert none[0].shape == (0, 7, 7)
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_the_card():
+    """_kernel_equals_plain_on_the_card at each patch size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for P in (23, 39, 43):
+        _kernel_equals_plain_on_the_card(P)

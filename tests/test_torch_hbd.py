@@ -11,9 +11,9 @@ without the in-loop filters and one encode_bframe_tpu(bit_depth=10)
 frame, packets and recons, each decoded by libdav1d to its recon; the
 10-bit Context at test_context_10bit_gop's settings (packets, types,
 qps) and the CLI on the same frames as a p10 y4m; the lookahead's
-distortion scales at 10 bits (rtol 1e-3: the reference's f32 sums of
-the lookahead SSD's terms pass 2^24 at 10 bits, in orders the port does
-not mirror, ROADMAP.md section 3; 1.9e-4 measured); and the sums
+distortion scales at 10 bits (rtol 1e-3: the reference's correlation
+sums pass 2^24 at 10 bits in an order the port does not mirror,
+ROADMAP.md section 3; 1.4e-5 measured); and the sums
 that pass 2^24 at 10 bits (the CDEF table, SATD's bound, the bf16 SSD
 correlation). No test here compiles a JAX P step beyond
 test_hbd_inter.py's; the B step and the Context take the reference's
@@ -111,8 +111,9 @@ def test_numpy_keyframe_copy_identical():
     """pipeline/intra.py's encode_keyframe, copied from the JAX package's
     with its imports renamed, gives its packet and recon byte for byte:
     at 10 bits (test_hbd_inter.py's two keyframes, with and without
-    CDEF) and at 8 bits 4:2:0 (synth(64, 64), q 100 and q 30); lr=True
-    raises naming ROADMAP item 13 before any work."""
+    CDEF) and at 8 bits 4:2:0 (synth(64, 64), q 100 and q 30, and with
+    lr=True, the loop-restoration search on the port's device route,
+    here the CPU)."""
     from rav1e_tpu.pipeline.intra import encode_keyframe as jkf
     from rav1e_tpu_torch.pipeline.intra import encode_keyframe as tkf
     cases = [(_frames10(1)[0], dict(qindex=Q_P, bit_depth=10, cdef=CDEF_P)),
@@ -126,8 +127,11 @@ def test_numpy_keyframe_copy_identical():
         for a, b in zip(rt, rj):
             np.testing.assert_array_equal(a, b)
     assert max(int(r.max()) for r in rt) <= 255
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tkf(_frames10(1)[0], bit_depth=10, lr=True)
+    pj, rj = jkf(synth(64, 64), qindex=100, lr=True)
+    pt, rt = tkf(synth(64, 64), qindex=100, lr=True, device="cpu")
+    assert pt == pj
+    for a, b in zip(rt, rj):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---- the P and B steps at 10 bits -------------------------------------------
@@ -229,8 +233,9 @@ def test_context_10bit_identical(shared_dir, tmp_path):
     for byte, libdav1d decodes it to 6 frames past the 8-bit range, and
     the CLI on the frames as a p10 y4m writes the same packets. The
     lookahead's distortion scales of 10-bit frames equal the reference's
-    within 1e-3 relative (the port sums each SSD term exactly and rounds
-    it once; the reference's f32 sums pass 2^24 at 10 bits)."""
+    within 1e-3 relative (the port takes the reference's f32 orders for
+    the squares and the intra costs, and sums the correlation exactly,
+    where the reference's order past 2^24 is not mirrored)."""
     from rav1e_tpu_torch.analysis.lookahead import Lookahead
     from rav1e_tpu_torch.api import Config
     from rav1e_tpu_torch.cli import main as cli

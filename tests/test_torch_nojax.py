@@ -122,7 +122,7 @@ def test_context_without_device_and_without_cuda_raises():
         Config().new_context()
 
 
-@pytest.mark.parametrize("opt,value", [("aq", True), ("lr", True)])
+@pytest.mark.parametrize("opt,value", [("aq", True)])
 def test_options_beyond_the_slice_raise(opt, value):
     """Options the ported slices do not reach raise NotImplementedError
     naming their ROADMAP item; none falls through to another path."""
