@@ -69,7 +69,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      gather launches at refine16's patch sizes;
   12-13. encode_gop_tpu at q 100 at 1920x288 (the depth cut, to keep
      the run short; 540 blocks, so the half-resolution search runs): KEY + 1 P at speed 10 (no split, no CDEF: the P
-     frame takes write_inter_tile_fast), then KEY + 2 P at speed 7
+     frame's uniform 32-blocks), then KEY + 2 P at speed 7
      with cdef (0, 0, 0, 0, 3), run as a user calls it (the C++ packer,
      the keyframe's host half and each P frame's fetch + pack on worker
      threads), every kernel's count set to 0 just before and read just
@@ -174,12 +174,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      1920x1088 on cuda, each frame's launches and stage times (lr,
      tile_walk), packets pinned in LR_PINS (the CPU route's, made by
      `python3 chip_smoke.py --lr-pins`), decoded to the recons where
-     libdav1d loads.
+     libdav1d loads;
+  21. tiles, variance AQ and the numpy routes: (a) phase 17's group at
+     1920x1088 after phase 15's keyframe, without intra-in-inter (as a
+     tiled session codes it), untiled and on a 2x2 tile grid on cuda:
+     each tiled frame's recon equal to the untiled one's, each tiled
+     frame one ec_pack launch for its four tiles (each tile's bytes equal
+     to pack_ir_plain + finish on its IR), the anchor's T-tile launch
+     timed against its bytes bound; (b) an AQ keyframe
+     (encode_keyframe_tpu(aq=True), speed 10's mode sets, CDEF) at
+     1920x1088 on cuda, its stages and launches, and the speed-6 AQ
+     keyframe on cuda and on cpu at 256x192: packets identical; (c)
+     Context sessions on cuda and on cpu, packets identical: tiles=4 at
+     256x192, and `aq`, 4:2:2, 4:4:4, 12-bit, photon_noise,
+     switch_frame_interval and error_resilient at 128x96.
 
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
 frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17,
-18c, 19c and 20c together, and each path's own count, every count set to 0
-just before its path; the gather's ms, bound and plain and indexing ms
+18c, 19c, 20c and 21a's tiled group together, and each path's own count,
+every count set to 0 just before its path; ec_pack's tiled_* keys are
+21a's T-tile launch; the gather's ms, bound and plain and indexing ms
 are phase 4's replayed speed-6 P frame, with its launches a P frame,
 and the replayed B frame's beside them; the CDEF kernels' launches per
 frame of those paths and their ms per 1080p frame, their 10-bit ms and
@@ -249,20 +263,26 @@ def fail(msg: str) -> None:
 
 
 class PackerCalls:
-    """While entered, keeps every tile the C++ packer codes (from any
+    """While entered, keeps every tile the C++ packer walks (from any
     thread): (the NativeTileWriter method that walked it, the writer's
-    device, its IR on the host, its bytes)."""
+    device, its IR on the host, its bytes). A tile coded by its writer is
+    kept as it is coded; a tile walked for its frame's one ec_pack launch
+    (ir_only) as tpu_inter's pack_tile_irs codes the frame's tiles."""
 
-    METHODS = ("write_intra_tile_fast", "write_inter_tile_fast",
-               "write_inter_tile_fast2", "write_tile")
+    METHODS = ("write_intra_tile_fast", "write_inter_tile_fast2",
+               "write_tile")
 
     def __init__(self, native):
-        self.W = native.NativeTileWriter
+        from rav1e_tpu_torch.pipeline import tpu_inter
+        self.W, self.tp = native.NativeTileWriter, tpu_inter
         self.got = []
 
     def __enter__(self):
         W, got = self.W, self.got
-        self.saved = {m: W.__dict__[m] for m in self.METHODS + ("code",)}
+        self.saved = {m: W.__dict__[m]
+                      for m in self.METHODS + ("code", "_finish")}
+        self.saved_pack = self.tp.pack_tile_irs
+        walked, lock = {}, threading.Lock()
 
         def walking(m, f):
             def walk(w, *a, **k):
@@ -272,19 +292,40 @@ class PackerCalls:
 
         for m in self.METHODS:
             setattr(W, m, walking(m, self.saved[m]))
-        code = self.saved["code"]
+        code, finish = self.saved["code"], self.saved["_finish"]
 
         def coding(w, ir):
             tile = code(w, ir)
             got.append((w.walked, str(w.device), ir.clone(), tile))
             return tile
 
-        W.code = coding
+        def finishing(w):
+            out = finish(w)
+            if w.ir_only:
+                with lock:
+                    walked[id(out)] = (getattr(w, "walked", None),
+                                       str(w.device), out)
+            return out
+
+        pack = self.saved_pack
+
+        def pack_tiles(irs, *a, **k):
+            tiles = pack(irs, *a, **k)
+            with lock:
+                kept = [walked.pop(id(ir), None) for ir in irs]
+            got.extend((g[0], g[1], ir.clone(), tile)
+                       for g, ir, tile in zip(kept, irs, tiles)
+                       if g is not None)
+            return tiles
+
+        W.code, W._finish = coding, finishing
+        self.tp.pack_tile_irs = pack_tiles
         return self
 
     def __exit__(self, *exc):
         for m, f in self.saved.items():
             setattr(self.W, m, f)
+        self.tp.pack_tile_irs = self.saved_pack
         return False
 
     def by_packet(self, pkts, device=None):
@@ -1521,8 +1562,7 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
              f"{launches['ec_pack']} ec_pack launches for {len(frames)} "
              f"frames (packer calls {methods})")
     if methods[0] != "write_intra_tile_fast" or any(
-            m not in ("write_inter_tile_fast", "write_inter_tile_fast2")
-            for m in methods[1:]):
+            m != "write_inter_tile_fast2" for m in methods[1:]):
         fail(f"the frames took the packer calls {methods}")
     captured = [g[2] for g in calls.by_packet(pkts)]
     for i, (ir, pkt) in enumerate(zip(captured, pkts)):
@@ -1555,8 +1595,11 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
 
 class CapturedIR:
     """While entered, keeps the IR and bytes of every tile the Python
-    TileWriter records (RecordingEncoder.done) through the modules `mods`,
-    in order, in .got."""
+    TileWriter records, in order, in .got: through RecordingEncoder.done
+    in the modules `mods` that code a tile as they walk it (the
+    keyframe's), through pack_tile_irs in those that code a frame's tiles
+    together (the inter frames', which also code their tiled C++ walks
+    there)."""
 
     def __init__(self, ec, *mods):
         self.ec, self.mods, self.got = ec, mods, []
@@ -1570,14 +1613,25 @@ class CapturedIR:
                 got.append((ir, super().done()))
                 return got[-1][1]
 
-        self.saved = [m.RecordingEncoder for m in self.mods]
+        def capturing(pack):
+            def pack_tiles(irs, *a, **k):
+                tiles = pack(irs, *a, **k)
+                got.extend(zip([ir.clone() for ir in irs], tiles))
+                return tiles
+            return pack_tiles
+
+        self.saved = []
         for m in self.mods:
-            m.RecordingEncoder = Capture
+            name = ("RecordingEncoder" if hasattr(m, "RecordingEncoder")
+                    else "pack_tile_irs")
+            self.saved.append((m, name, getattr(m, name)))
+            setattr(m, name, Capture if name == "RecordingEncoder"
+                    else capturing(getattr(m, name)))
         return self
 
     def __exit__(self, *exc):
-        for m, enc in zip(self.mods, self.saved):
-            m.RecordingEncoder = enc
+        for m, name, f in self.saved:
+            setattr(m, name, f)
         return False
 
 
@@ -1788,22 +1842,25 @@ BGROUP_PINS = [(30684, "610e340bbe53fed5"), (5372, "39d31b4932536438"),
 
 
 def reordered_group(tp, frames, krec, device, run=None, bit_depth=8,
-                    speed=6, lr=False):
+                    speed=6, lr=False, tile_grid=None, intra=True):
     """The group api/context.py codes at `speed` (6) with bgroup = 4 after
     a keyframe (frames[0], its recon krec, slot 0, order hint 0), at q 100
     with cdef (0, 0, 0, 0, 3): the non-shown anchor P (frame 4, refreshing
     slot 1; the speed's P tools and search), B0 (frame 2 on KEY and the
     anchor, non-shown, refreshing slot 3), B1 (frame 1 on KEY and B0),
     show-existing 3, B1 (frame 3 on B0 and the anchor), show-existing 1;
-    every frame with loop restoration when lr. run(label, fn, *a, **k)
-    calls each frame's entry point (default: fn(*a, **k)). Returns (the
-    packets in coding order, {frame: recon int32 planes}). bit_depth: the
-    frames' (8 or 10, phase 19)."""
+    every frame with loop restoration when lr; tile_grid (cols_log2,
+    rows_log2) codes every frame in tiles; intra=False turns the anchor's
+    intra-in-inter off (a tiled session's anchor has none). run(label,
+    fn, *a, **k) calls each frame's entry point (default: fn(*a, **k)).
+    Returns (the packets in coding order, {frame: recon int32 planes}).
+    bit_depth: the frames' (8 or 10, phase 19)."""
     from rav1e_tpu_torch.api.speed import SpeedSettings
     from rav1e_tpu_torch.entropy.obu import show_existing_packet
     ss = SpeedSettings.from_preset(speed)
     run = run or (lambda label, fn, *a, **k: fn(*a, **k))
-    kw = dict(cdef=CDEF_SPEED8, device=device, bit_depth=bit_depth, lr=lr)
+    kw = dict(cdef=CDEF_SPEED8, device=device, bit_depth=bit_depth, lr=lr,
+              tile_grid=tile_grid)
     bkw = dict(kw, b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo)
     kref = (krec if bit_depth > 8
             else [np.asarray(r, np.uint8) for r in krec])
@@ -1812,9 +1869,9 @@ def reordered_group(tp, frames, krec, device, run=None, bit_depth=8,
                      order_hint=4, refresh_flags=1 << 1, ref_slot=0,
                      show_frame=False, use_split=ss.partition_split_rdo,
                      use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
-                     intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
-                     search=ss.search_px, subpel=ss.subpel,
-                     use_split8=ss.partition_split8, **kw)
+                     intra_rdo=ss.intra_in_inter and intra,
+                     b64_rdo=ss.b64_merge, search=ss.search_px,
+                     subpel=ss.subpel, use_split8=ss.partition_split8, **kw)
     b0, r0 = run("B0 (frame 2)", tp.encode_bframe_tpu, frames[2], krec, arec, 100,
                  order_hint=2, slot_fwd=0, slot_bwd=1, ref_hints=(0, 4),
                  refresh_flags=1 << 3, show_frame=False, **bkw)
@@ -1937,16 +1994,20 @@ def bgroup_1080p(torch, ec, gp, cd, tp, krec, kpkt):
                      f"{B_LAUNCHES} in {want_b}")
             if d["b64_map"].any():
                 fail(f"{label} merged a 64x64 SB")
-    if len(cap.got) != 3:
-        fail(f"{len(cap.got)} tiles recorded by the Python writer, 3 B "
-             "frames coded")
-    for (ir, tile), pkt in zip(cap.got, (pkts[1], pkts[2], pkts[4])):
+    # the anchor's tile (the C++ walk) and the three B frames' (the
+    # Python walk), each coded by pack_tile_irs
+    coded = (0, 1, 2, 4)
+    ends = sorted(next((i for i in coded if pkts[i].endswith(tile)), -1)
+                  for _, tile in cap.got)
+    if ends != list(coded):
+        fail(f"{len(cap.got)} tiles coded by pack_tile_irs end the packets "
+             f"{ends}, not the anchor's and the 3 B frames' {list(coded)}")
+    for ir, tile in cap.got:
         c_p, st_p = ec.pack_ir_plain(ir)
-        if not (pkt.endswith(tile) and tile == ec.finish(
-                c_p.tolist(), *st_p[:3].tolist())):
-            fail("a B tile's IR coded by pack_ir_plain is not its bytes")
-    print(f"# the B tiles' IR ({[int(ir.shape[0]) for ir, _ in cap.got]} "
-          "rows) re-coded by pack_ir_plain: identical bytes", flush=True)
+        if tile != ec.finish(c_p.tolist(), *st_p[:3].tolist()):
+            fail("a tile's IR coded by pack_ir_plain is not its bytes")
+    print(f"# the group's tiles' IR ({[int(ir.shape[0]) for ir, _ in cap.got]}"
+          " rows) re-coded by pack_ir_plain: identical bytes", flush=True)
     for i, rec in recs.items():
         if [tuple(r.shape) for r in rec] != [p.shape for p in frames[i]] or \
                 any(r.min() < 0 or r.max() > 255 for r in rec):
@@ -2449,26 +2510,29 @@ def lrf_1080p(torch, rec_d, src_d):
     for name, rec, src, ss, bd in (("luma", rec_d[0], src_d[0], 0, 8),
                                    ("U", rec_d[1], src_d[1], 1, 8),
                                    ("luma 10-bit", *y10, 0, 10)):
+        uv = name == "U"
         res = {}
         for d in ("cuda", "cpu"):
             r, s_ = rec.to(d), src.to(d)
             if d == "cuda":
-                lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss)      # warm
+                lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss, chroma=uv)  # warm
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            g, f, used = lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss)
+            g, f, used = lrf_mod.search_lr_plane(r, s_, bd=bd, ss=ss,
+                                                 chroma=uv)
             if d == "cuda":
                 torch.cuda.synchronize()
             res[d] = (g, f.cpu(), used, 1e3 * (time.perf_counter() - t0))
         (g, f, used, wall), (gc, fc, usedc, wall_c) = res["cuda"], res["cpu"]
         rc, sc = (x.cuda().to(torch.int32) for x in (rec, src))
-        summ, _, _, tb = lrf_mod._search_dev(rc, sc, bd, ss)
+        summ, _, _, tb = lrf_mod._search_dev(rc, sc, bd, ss, chroma=uv)
         summ = summ.cpu().numpy()
         t0 = time.perf_counter()
-        lrf_mod._choose(summ, tb, ss > 0)
+        lrf_mod._choose(summ, tb, uv)
         am = 1e3 * (time.perf_counter() - t0)
         _, n_k, dev_ms, n_copy = _device_profile(
-            torch, lambda: lrf_mod.search_lr_plane(rc, sc, bd=bd, ss=ss))
+            torch, lambda: lrf_mod.search_lr_plane(rc, sc, bd=bd, ss=ss,
+                                                   chroma=uv))
         cells = [c for row in g for c in row]
         kinds = {k: sum(1 for c in cells if (c and c[0]) == k)
                  for k in ("W", "S", None)}
@@ -2621,6 +2685,266 @@ def lr_group_1080p(torch, ec, gp, cd, ti, tp):
     return launches, 5
 
 
+# ---- phase 21: tiles, variance AQ, the numpy routes -------------------------
+
+def _decoders():
+    """The decoders that load on this machine: {name: decode_all}, each
+    returning per frame its three planes."""
+    from rav1e_tpu_torch.conform import aom, dav1d
+    out = {}
+    for name, mod, probe in (("libdav1d", dav1d, dav1d.version),
+                             ("libaom", aom, aom._load)):
+        try:
+            probe()
+        except OSError as e:
+            print(f"# {name} does not load here ({e})", flush=True)
+            continue
+
+        def decode(pkts, mod=mod):
+            return [getattr(f, "planes", f) for f in mod.decode_all(pkts)]
+        out[name] = decode
+    return out
+
+
+def tiles_1080p(torch, ec, gp, cd, tp, krec, kpkt):
+    """Phase 21a: phase 17's reordered group after phase 15's keyframe,
+    without the anchor's intra-in-inter (a tiled session's tools), coded
+    untiled and then on a 2x2 tile grid (tile_grid=(1, 1)) on cuda, every
+    kernel's count set to 0 just before the tiled group and read just
+    after it. Each tiled frame's recon must equal the untiled frame's
+    (the decisions are frame-global), each tiled frame must launch
+    ec_pack once for its four tiles (pack_tile_irs), and each tile's bytes
+    must be pack_ir_plain + finish's on its IR. The anchor's T-tile launch
+    is timed (CUDA events, mean of 3) against its bytes bound and the
+    plain version. Where a decoder loads, the KEY + tiled group stream
+    decodes to the recons. Returns ({kernel: launches}, frames, the
+    kernels-line fields of the T-tile launch)."""
+    frames = synth(1920, 1088, n=5)
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    rows, coded = [], []
+    saved = tp.pack_tile_irs
+
+    def keeping(irs, *a, **k):
+        tiles = saved(irs, *a, **k)
+        coded.append(([ir.clone() for ir in irs], tiles))
+        return tiles
+
+    def run(label, fn, *a, **k):
+        before = {n: f.launches for n, f in kern.items()}
+        n_coded = len(coded)
+        t = {}
+        out = fn(*a, timings=t, **k)
+        rows.append((label, {n: f.launches - before[n]
+                             for n, f in kern.items()}, t,
+                     coded[n_coded:]))
+        return out
+
+    untiled_pkts, untiled = reordered_group(tp, frames, krec, "cuda",
+                                            intra=False)
+    tp.pack_tile_irs = keeping
+    try:
+        for f in kern.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        pkts, recs = reordered_group(tp, frames, krec, "cuda", run=run,
+                                     tile_grid=(1, 1), intra=False)
+        wall = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kern.items()}
+    finally:
+        tp.pack_tile_irs = saved
+    print(f"# 1920x1088 reordered group on a 2x2 tile grid (KEY from phase "
+          f"15, anchor P without intra-in-inter, B0, B1, SEF 3, B1, SEF 1; "
+          f"cuda): {wall:.3f} s after the keyframe; packets "
+          f"{[len(p) for p in pkts]} bytes (untiled "
+          f"{[len(p) for p in untiled_pkts]}); launches "
+          f"{json.dumps(launches)}", flush=True)
+    for i, rec in recs.items():
+        if any(not np.array_equal(a, b) for a, b in zip(rec, untiled[i])):
+            fail(f"tiled frame {i}: its recon differs from the untiled "
+                 "frame's")
+    anchor = None
+    for label, n, t, got in rows:
+        if n["ec_pack"] != 1 or len(got) != 1 or len(got[0][0]) != 4:
+            fail(f"tiled {label}: {n['ec_pack']} ec_pack launches for "
+                 f"{[len(g[0]) for g in got]} tiles, not one for 4")
+        irs, tiles = got[0]
+        for ir, tile in zip(irs, tiles):
+            c_p, st_p = ec.pack_ir_plain(ir)
+            if tile != ec.finish(c_p.tolist(), *st_p[:3].tolist()):
+                fail(f"tiled {label}: a tile's bytes are not pack_ir_plain "
+                     "+ finish's on its IR")
+        if label.startswith("anchor"):
+            anchor = irs
+        print(f"# tiled {label}: tile IR rows "
+              f"{[int(ir.shape[0]) for ir in irs]}, tile bytes "
+              f"{[len(x) for x in tiles]}; launches {json.dumps(n)}; stages "
+              f"(s) " + json.dumps({k: round(v, 4) for k, v in t.items()}),
+              flush=True)
+    print("# every tiled frame: recon equal to the untiled frame's; one "
+          "ec_pack launch for its 4 tiles, each tile's bytes pack_ir_plain "
+          "+ finish's", flush=True)
+    # the anchor's T-tile launch, timed and bounded
+    offs = [0]
+    for ir in anchor:
+        offs.append(offs[-1] + int(ir.shape[0]))
+    ir_d = torch.cat(anchor).cuda()
+    off_d = torch.tensor(offs, dtype=torch.int64).cuda()
+    t0 = time.perf_counter()
+    plain, k = [], 0
+    for ir in anchor:
+        c_p, st_p = ec.pack_ir_plain(ir)
+        plain.append(ec.finish(c_p.tolist(), *st_p[:3].tolist()))
+        k += int(st_p[3])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = {}
+
+    def launch():
+        got["r"] = ec.pack_ir(ir_d, off_d)
+
+    ms = time_cuda(torch, launch, 3)
+    err = max(byte_err(a, b) for a, b in zip(
+        ec.fetch_tiles(*got["r"], offs), plain))
+    if err:
+        fail(f"the anchor's T-tile launch differs from the plain version "
+             f"(max |err| {err})")
+    n_rows, T = offs[-1], len(anchor)
+    nbytes = 16 * n_rows + 4 * k + 16 * T + 8 * (T + 1)
+    ops = 24 * n_rows + 5 * k
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"# the tiled anchor's ec_pack launch: {T} tiles, IR rows "
+          f"{[offs[i + 1] - offs[i] for i in range(T)]}, {ms:.5f} ms of "
+          f"device time (mean of 3), bound {bound:.5f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
+          f"{100 * bound / ms:.1f}%), plain {plain_ms:.1f} ms", flush=True)
+    decs = _decoders()
+    for name, decode in decs.items():
+        out = decode([kpkt] + pkts)
+        shown = [krec] + [recs[i] for i in (1, 2, 3, 4)]
+        if len(out) != 5 or any(
+                not np.array_equal(np.asarray(pl)[:r.shape[0], :r.shape[1]],
+                                   np.asarray(r))
+                for f, rec in zip(out, shown) for pl, r in zip(f, rec)):
+            fail(f"{name} does not decode the tiled stream to its recons")
+        print(f"# {name} decoded the KEY + tiled group to its 5 recons",
+              flush=True)
+    return launches, 4, {
+        "tiled_frame_ms": ms, "tiled_frame_plain_ms": plain_ms,
+        "tiled_frame_bound_ms": bound,
+        "tiled_frame_bound_by": "bytes" if t_bytes >= t_ops
+        else "operations", "tiled_frame_tiles": T,
+        "tiled_frame_ir_rows": [offs[i + 1] - offs[i] for i in range(T)],
+        "tiled_frame_max_abs_err": err,
+        "launches_per_tiled_frame": 1}
+
+
+def aq_keyframes(torch, ec, cd, ti):
+    """Phase 21b: a variance-AQ keyframe (speed 10's mode sets, cdef
+    (0, 0, 0, 0, 3)) at 1920x1088 on cuda: its stages (the segment map
+    and the per-block quantizers on the device, then the Python walk),
+    its launches (ec_pack and the three CDEF kernels once each), four
+    segments used and a finite recon in range; then the speed-6 AQ
+    keyframe of a 256x192 frame on cuda and on cpu: packets and recons
+    identical."""
+    planes = synth(1920, 1088, seed=7)[0]
+    kern = {"ec_pack": ec.pack_ir, "cdef_dirs": cd.cdef_dirs,
+            "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    before = {n: f.launches for n, f in kern.items()}
+    t = {}
+    t0 = time.perf_counter()
+    pkt, rec = ti.encode_keyframe_tpu(planes, 100, speed=10, aq=True,
+                                      cdef=CDEF_SPEED8, device="cuda",
+                                      timings=t)
+    wall = time.perf_counter() - t0
+    n = {k: f.launches - before[k] for k, f in kern.items()}
+    seg_map = ti._aq_segments(planes[0], 100)[0]
+    print(f"# 1920x1088 AQ keyframe (speed 10, q 100, cdef {CDEF_SPEED8}, "
+          f"cuda): {len(pkt)} bytes in {wall:.3f} s; segments "
+          f"{np.bincount(seg_map.ravel(), minlength=4).tolist()}; launches "
+          f"{json.dumps(n)}; stages (s) "
+          + json.dumps({k: round(v, 4) for k, v in t.items()}), flush=True)
+    if any(v != 1 for v in n.values()):
+        fail(f"the AQ keyframe launched {n}, not each kernel once")
+    if len(set(seg_map.ravel().tolist())) != 4 or [
+            tuple(r.shape) for r in rec] != [p.shape for p in planes] or any(
+            r.min() < 0 or r.max() > 255 for r in rec):
+        fail("the AQ keyframe used fewer than 4 segments or its recon is "
+             "out of shape or range")
+    small = synth(256, 192, seed=7)[0]
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[d] = ti.encode_keyframe_tpu(small, 100, aq=True,
+                                        cdef=CDEF_SPEED8, device=d)
+        res[d] += (time.perf_counter() - t0,)
+    same = res["cuda"][0] == res["cpu"][0] and all(
+        np.array_equal(a, b) for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    print(f"# 256x192 speed-6 AQ keyframe cuda {res['cuda'][2]:.2f} s vs "
+          f"cpu {res['cpu'][2]:.2f} s: {len(res['cuda'][0])} bytes, packet "
+          f"and recon identical: {same}", flush=True)
+    if not same:
+        fail("the 256x192 AQ keyframe differs between cuda and cpu")
+
+
+def _to_sampling(planes, cs, bd=8):
+    """4:2:0 [y, u, v] as 4:2:2 / 4:4:4 (chroma repeated) at bd bits."""
+    y, u, v = planes
+    if cs != "420":
+        u, v = (np.repeat(p, 2, axis=0) for p in (u, v))
+    if cs == "444":
+        u, v = (np.repeat(p, 2, axis=1) for p in (u, v))
+    if bd == 8:
+        return [y, u, v]
+    return [(p.astype(np.uint16) << (bd - 8)) | (p.astype(np.uint16) & 3)
+            for p in (y, u, v)]
+
+
+def sessions_gpu_vs_cpu():
+    """Phase 21c: Context sessions on cuda and on cpu, packets, frame
+    types, frame numbers and qps identical: tiles=4 (a 2x2 grid) at
+    256x192, 6 frames; and at 128x96, 5 frames each: `aq` (speed 10),
+    4:2:2 and 4:4:4 (low latency), 12-bit, photon_noise (ISO 800),
+    switch frames every 3 and error_resilient (low latency, speed 8)."""
+    from rav1e_tpu_torch.api import Config
+    c = _tests_content()
+    cases = [("tiles=4", c.bgroup(256, 192, n=6), dict(tiles=4))]
+    small = c.bgroup(128, 96, n=5)
+    cases += [
+        ("aq", small, dict(speed=10, extra={"aq": "1"})),
+        ("4:2:2", [_to_sampling(f, "422") for f in small],
+         dict(chroma_sampling="422", low_latency=True)),
+        ("4:4:4", [_to_sampling(f, "444") for f in small],
+         dict(chroma_sampling="444")),
+        ("12-bit", [_to_sampling(f, "420", 12) for f in small],
+         dict(bit_depth=12)),
+        ("photon_noise", small, dict(extra={"photon_noise": 800})),
+        ("switch_frame_interval", small,
+         dict(low_latency=True, extra={"switch_frame_interval": 3})),
+        ("error_resilient", small, dict(speed=8, low_latency=True,
+                                        extra={"error_resilient": "1"}))]
+    for name, frames, cfg in cases:
+        h, w = frames[0][0].shape
+        res = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pkts = _session(Config(width=w, height=h, quantizer=120, **cfg
+                                   ).new_context(device=d), frames)
+            res[d] = ([(p.frame_type, p.input_frameno, p.qp) for p in pkts],
+                      [p.data for p in pkts], time.perf_counter() - t0)
+        (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
+        same = kinds == kinds_c and data == data_c
+        print(f"# {w}x{h} {name} session ({len(frames)} frames) cuda "
+              f"{t_g:.2f} s vs cpu {t_c:.2f} s: packets identical {same}; "
+              f"(type, frame, qp) {kinds}; bytes {[len(b) for b in data]}",
+              flush=True)
+        if not same:
+            fail(f"the {name} session differs between cuda and cpu")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2748,6 +3072,12 @@ def main() -> int:
     lrf_1080p(torch, rec_d, src_d)
     lr_session_gpu_vs_cpu()
     lr_launches, n_l = lr_group_1080p(torch, ec, gp, cd, ti, tp)
+    # phase 21: phase 17's group on a 2x2 tile grid, the AQ keyframe, and
+    # the tiled, AQ and numpy-route sessions on cuda against cpu
+    tile_launches, n_t, tiled = tiles_1080p(torch, ec, gp, cd, tp,
+                                            recs6[0], pkts6[0])
+    aq_keyframes(torch, ec, cd, ti)
+    sessions_gpu_vs_cpu()
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -2806,25 +3136,26 @@ def main() -> int:
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
                "kf6_split8": kf6s_launches, "bgroup6": bg_launches,
                "session_cli": sess_launches, "hbd10": hbd_launches,
-               "lr": lr_launches}
+               "lr": lr_launches, "tiles": tile_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
     print(f"# launches on the main paths (phases 15, 13, 16, 17, 18, 19c, "
-          f"20c): {json.dumps(by_path)}", flush=True)
+          f"20c, 21a): {json.dumps(by_path)}", flush=True)
 
     def paths(k):
         return {p: n.get(k, 0) for p, n in by_path.items()}
 
     ec_entry["launches"] = launches["ec_pack"]
     ec_entry["launches_by_path"] = paths("ec_pack")
+    ec_entry.update(tiled)
     gather_entry["launches"] = launches["gather_patches"]
     gather_entry["launches_by_path"] = paths("gather_patches")
     replaces = {"cdef_dirs": "rav1e_tpu/ops/tpu/cdef.py:58",
                 "cdef_ladder_sse": "rav1e_tpu/ops/tpu/cdef.py:281",
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
-    # the seven paths' frames (phases 17 and 19c: the anchor and the B
-    # frames; 20c: the keyframe too)
-    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h + n_l
+    # the eight paths' frames (phases 17, 19c and 21a: the anchor and the
+    # B frames; 20c: the keyframe too)
+    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h + n_l + n_t
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],

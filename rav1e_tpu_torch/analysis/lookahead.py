@@ -26,7 +26,7 @@ SEARCH = 8       # full-pel lookahead search radius (px)
 
 
 def _pair_stats_fn(h: int, w: int):
-    """(cur, prev) luma [h, w] integer tensors on one device -> (mv
+    """(cur, prev) luma [h, w] uint8 tensors on one device -> (mv
     [nby, nbx, 2] int32, inter_cost, intra_cost [nby, nbx] f32) per 16x16
     block, on that device. inter_cost = the SSD of the best full-pel
     match within +-8 px (the previous frame edge-extended); intra_cost =
@@ -35,12 +35,12 @@ def _pair_stats_fn(h: int, w: int):
     prediction fails).
 
     The SSD is wsq - 2 * corr + sum(blk^2) in f32, formed in that order
-    (_ssd_terms: exact on 8-bit planes; deeper, the reference's orders
-    for wsq and sum(blk^2), not yet for corr). The intra cost follows the
-    reference's fused loop at every depth: the mean, then each
-    (x - mean)^2 fused into its lane's running sum (fma) as
-    _rows_in_lanes adds. The first minimum wins (argmin), flat content
-    included."""
+    (_ssd_terms: each term exact). The intra cost follows the
+    reference's fused loop: the mean, then each (x - mean)^2 fused into
+    its lane's running sum (fma) as _rows_in_lanes adds. The first
+    minimum wins (argmin), flat content included. Deeper planes raise
+    ValueError: the session runs the lookahead on 8-bit 4:2:0 only, as
+    the reference's does."""
     nby, nbx = h // BLK, w // BLK
     B = nby * nbx
     span = 2 * SEARCH + 1
@@ -48,7 +48,9 @@ def _pair_stats_fn(h: int, w: int):
 
     def stats(cur, prev):
         dev = cur.device
-        exact = cur.dtype == torch.uint8 and prev.dtype == torch.uint8
+        if cur.dtype != torch.uint8 or prev.dtype != torch.uint8:
+            raise ValueError("the lookahead takes 8-bit planes, not "
+                             f"{cur.dtype} / {prev.dtype}")
         cur = cur.to(torch.int32)
         prev = prev.to(torch.int32)
         blks = (cur.reshape(nby, BLK, nbx, BLK).permute(0, 2, 1, 3)
@@ -60,7 +62,7 @@ def _pair_stats_fn(h: int, w: int):
         # each block's search window [B, win, win]: rows by*BLK .. +win
         wins = (pp.unfold(0, win, BLK).unfold(1, win, BLK)
                 .reshape(B, win, win))
-        wsq, corr, bsum = _ssd_terms(blks, wins, exact)
+        wsq, corr, bsum = _ssd_terms(blks, wins)
         ssd = ((wsq - 2.0 * corr) + bsum[:, None, None]).reshape(B, -1)
         flat = torch.argmin(ssd, dim=1).to(torch.int32)
         mv = torch.stack([torch.div(flat, span, rounding_mode="floor")
@@ -70,23 +72,18 @@ def _pair_stats_fn(h: int, w: int):
         # the mean's sum is exact (below 2^24) in any order
         mean = bf.sum((1, 2)) * (1.0 / (BLK * BLK))
         d = (bf - mean[:, None, None]).double()
-        intra = _rows_in_lanes(d * d, fused=True)
+        intra = _rows_in_lanes(d * d)
         return (mv.reshape(nby, nbx, 2), inter.reshape(nby, nbx),
                 intra.reshape(nby, nbx))
 
     return stats
 
 
-def _ssd_terms(blks, wins, exact: bool):
+def _ssd_terms(blks, wins):
     """(wsq, corr, sum(blk^2)) as f32 from blks [B, 16, 16] and wins
-    [B, 32, 32] int32. Each is summed exactly in int32 and rounded once,
-    which equals the reference's f32 sums while they stay below 2^24
-    (8-bit planes). Otherwise (exact=False) wsq and sum(blk^2) take the
-    reference's orders: each window's squares added one at a time,
-    row-major, from 0; sum(blk^2) in _rows_in_lanes's. The correlation
-    stays exact: the reference's grouped convolution runs in XLA:CPU's
-    runtime (Eigen), not in the jit's object files, and no order tried
-    matches it (ROADMAP.md section 3)."""
+    [B, 32, 32] int32 of 8-bit planes. Each is summed exactly in int32
+    and rounded once, which equals the reference's f32 sums: they stay
+    below 2^24."""
     B = blks.shape[0]
     span = 2 * SEARCH + 1
     wsq_rows = wins * wins
@@ -97,33 +94,20 @@ def _ssd_terms(blks, wins, exact: bool):
     for dy in range(span):
         rows = wins[:, dy:dy + BLK]                   # [B, 16, win]
         corr[:, dy] = (rows.unfold(2, BLK, 1) * bl).sum((1, 3))
-        if exact:
-            wsq[:, dy] = wsq_rows[:, dy:dy + BLK].sum(1).unfold(
-                1, BLK, 1).sum(2)
-    if exact:
-        return (wsq.float(), corr.float(),
-                (blks * blks).sum((1, 2)).float())
-    sq = wsq_rows.float()
-    wsq = torch.zeros((B, span, span), dtype=torch.float32,
-                      device=blks.device)
-    for i in range(BLK):
-        for j in range(BLK):
-            wsq = wsq + sq[:, i:i + span, j:j + span]
-    bf = blks.float()
-    return wsq, corr.float(), _rows_in_lanes(bf * bf)
+        wsq[:, dy] = wsq_rows[:, dy:dy + BLK].sum(1).unfold(1, BLK, 1).sum(2)
+    return wsq.float(), corr.float(), (blks * blks).sum((1, 2)).float()
 
 
-def _rows_in_lanes(x, fused: bool = False):
-    """x [B, 16, 16] summed over each block as XLA:CPU's fused loop sums
-    it: 8 lanes across rows (lane l takes rows l and l + 8, each row's
-    16 terms one at a time), then the lanes folded in halves (8 -> 4 ->
-    2 -> 1). fused: x holds exact f64 squares that the loop adds by fma
-    (one rounding a step), else f32 terms."""
+def _rows_in_lanes(x):
+    """x [B, 16, 16] exact f64 squares summed over each block as
+    XLA:CPU's fused loop sums them: 8 lanes across rows (lane l takes
+    rows l and l + 8, each row's 16 terms one at a time, each added by
+    fma: one rounding to f32 a step), then the lanes folded in halves
+    (8 -> 4 -> 2 -> 1)."""
     acc = torch.zeros((x.shape[0], 8), dtype=torch.float32, device=x.device)
     for k in range(BLK // 8):
         for c in range(BLK):
-            t = x[:, 8 * k: 8 * k + 8, c]
-            acc = (t + acc.double()).float() if fused else acc + t
+            acc = (x[:, 8 * k: 8 * k + 8, c] + acc.double()).float()
     while acc.shape[1] > 1:
         h = acc.shape[1] // 2
         acc = acc[:, :h] + acc[:, h:]
@@ -201,15 +185,13 @@ def _pair_stats_packed_fn(h: int, w: int):
     """Like _pair_stats_fn but takes two PACKED source buffers
     (pipeline.tpu_inter.pack_src layout, uint8 on the device) so the
     session's single per-frame upload feeds both the lookahead and the
-    encode step; the luma is cropped to the 16-grid."""
-    from rav1e_tpu_torch.pipeline.tpu_inter import _unpack_src
+    encode step; the luma (the buffer's first h rows) is cropped to the
+    16-grid."""
     ch, cw = h // BLK * BLK, w // BLK * BLK
     inner = _pair_stats_fn(ch, cw)
 
     def stats(cur_buf, prev_buf):
-        cur = _unpack_src(cur_buf, h, w)[0][:ch, :cw]
-        prev = _unpack_src(prev_buf, h, w)[0][:ch, :cw]
-        return inner(cur, prev)
+        return inner(cur_buf[:ch, :cw], prev_buf[:ch, :cw])
 
     return stats
 

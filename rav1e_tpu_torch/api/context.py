@@ -8,21 +8,26 @@ lookahead's per-block distortion scales, picks each frame's q by the
 rate controller, and emits packets in coded order. Key names mirror
 rav1e_config_parse where meaningful.
 
-Every frame is coded by the port's device pipelines on the Context's
-device (cuda unless device="cpu"), except 10-bit keyframes and the
-keyframes of speeds 0-3 (HORZ/VERT partitions), which the reference
-codes on its numpy pipeline (its device keyframe is 8-bit, square) and
-the port codes on its copy of it (pipeline/intra.py, host numpy; an
-8-bit frame's loop-restoration search on the device); the P and B
-frames run on the device, with loop restoration at speeds 0-3. A
-configuration those pipelines do not reach raises NotImplementedError
-in Context.__init__, naming the ROADMAP item that brings it; nothing
-falls back to another path.
+Each frame goes where the reference's Context sends it, on the Context's
+device (cuda unless device="cpu"). 8- and 10-bit 4:2:0 P and B frames run
+the device steps (tiled frames too: frame-global decisions, one entropy
+state per tile, all tiles coded in one od_ec launch), with loop
+restoration at speeds 0-3 and film grain. 8-bit 4:2:0 keyframes run the
+device keyframe (variance AQ included) unless they need HORZ/VERT
+partitions (speeds 0-3) or film grain. The rest is the reference's own
+routing onto its numpy pipelines, on the port's copies of them
+(pipeline/intra.py, pipeline/inter.py; host numpy, LR on the device):
+other keyframes, 12-bit, 4:2:2 and 4:4:4 frames, the inter frames of an
+`aq` session, switch frames and error-resilient frames. That routing is
+by configuration and logged once (_warn_slow); nothing catches an error
+to fall back. Loop restoration at 12 bits raises NotImplementedError in
+Context.__init__, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 import enum
+import logging
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -31,6 +36,7 @@ import torch
 
 from rav1e_tpu_torch.device import resolve_device
 
+log = logging.getLogger("rav1e_tpu_torch")
 
 class EncoderStatus(enum.Enum):
     SUCCESS = 0
@@ -117,9 +123,11 @@ class Context:
 
     Reordered mode (the default) buffers groups of `bgroup` frames and
     codes each as a non-shown anchor P, a B pyramid and show-existing
-    packets; low-latency mode codes IPPP (LAST + GOLDEN at speeds <= 5).
-    Scene detection + key_frame_interval place keyframes; rate control
-    picks per-frame qindex when bitrate > 0."""
+    packets; low-latency mode codes IPPP (LAST + GOLDEN at speeds <= 5),
+    with periodic switch frames (switch_frame_interval) or
+    error-resilient inter frames (error_resilient) if asked. Scene
+    detection + key_frame_interval place keyframes; rate control picks
+    per-frame qindex when bitrate > 0."""
 
     def __init__(self, cfg: Config, device=None):
         if cfg.bit_depth not in (8, 10, 12):
@@ -157,13 +165,21 @@ class Context:
         # error-resilience features (rav1e error_resilient +
         # switch_frame_interval) require low-latency mode, like rav1e's
         # "switch frame interval requires low latency mode"
-        switch = int(cfg.extra.get("switch_frame_interval", 0) or 0)
-        resilient = _truthy(cfg.extra.get("error_resilient", ""))
-        if (switch or resilient) and not cfg.low_latency:
+        # S-frames are periodic spec SWITCH_FRAME splice points (integer
+        # MVs, refresh all slots); error_resilient codes every inter frame
+        # with resilient headers. Both code the 8 reference slots' order
+        # hints, tracked in _slot_hints.
+        self._switch_interval = int(
+            cfg.extra.get("switch_frame_interval", 0) or 0)
+        self._error_resilient = _truthy(cfg.extra.get("error_resilient", ""))
+        if (self._switch_interval or self._error_resilient) \
+                and not cfg.low_latency:
             raise ValueError(
                 "switch_frame_interval / error_resilient require "
                 "low_latency mode (rav1e contract)")
-        self._check_ported(switch or resilient)
+        self._slot_hints = [0] * 8
+        self._aq = _truthy(cfg.extra.get("aq", ""))
+        self._check_ported()
         self.device = resolve_device(device)
         self._q: deque = deque()
         self._out: deque = deque()
@@ -187,6 +203,8 @@ class Context:
         self._lr_seq = False
         self._order_hint = 0
         self._cdef_enabled = False
+        self._grain_enabled = False
+        self._warned: set = set()
         # sequence-level color/HDR signaling (rav1e C API
         # rav1e_config_set_color_description / set_content_light /
         # set_mastering_display)
@@ -244,33 +262,34 @@ class Context:
                     else (8 if cfg.speed <= 7 else 0))
         self._lookahead = None
         self._la_depth = 0
-        if la_depth > 0:
+        if (la_depth > 0 and cfg.bit_depth == 8
+                and cfg.chroma_sampling == "420" and not self._tiled):
             from rav1e_tpu_torch.analysis.lookahead import Lookahead
             tune = str(cfg.extra.get("tune", "Psnr")).lower()
             self._lookahead = Lookahead(depth=min(la_depth, 32), tune=tune)
             self._la_depth = min(la_depth, 32)
 
-    def _check_ported(self, resilient: bool):
-        """Raise for each configuration the reference codes on its numpy
-        pipelines (or that the port's device pipelines raise for), before
-        any frame is coded."""
+    @property
+    def _tiled(self) -> bool:
+        return bool(self._tile_cols_log2 or self._tile_rows_log2)
+
+    def _check_ported(self):
+        """Raise, before any frame is coded, for the one configuration the
+        port's pipelines do not reach: loop restoration (speeds 0-3) at 12
+        bits, which the reference searches on the host."""
         cfg, ss = self.cfg, self.speed_settings
-        if cfg.bit_depth == 12:
-            _not_ported("bit_depth 12", "item 16b (the numpy pipelines)")
-        if cfg.chroma_sampling != "420":
-            _not_ported(f"{cfg.chroma_sampling[0]}:{cfg.chroma_sampling[1]}:"
-                        f"{cfg.chroma_sampling[2]} chroma sampling",
-                        "item 16b (the numpy pipelines)")
-        if self._tile_cols_log2 or self._tile_rows_log2:
-            _not_ported("tiles > 1", "item 17 (parallel)")
-        if _truthy(cfg.extra.get("aq", "")):
-            _not_ported("aq", "item 14 (keyframe variance AQ)")
-        if int(cfg.extra.get("photon_noise", 0) or 0):
-            _not_ported("photon_noise (film grain)",
-                        "item 16b (the numpy keyframe pipeline)")
-        if resilient:
-            _not_ported("switch_frame_interval / error_resilient",
-                        "item 16b (the numpy pipelines)")
+        if cfg.bit_depth == 12 and ss.lr:
+            _not_ported("loop restoration (speeds 0-3) at bit_depth 12",
+                        "item 16b (loop restoration at 12 bits)")
+
+    def _warn_slow(self, why: str):
+        """One notice per cause when a configuration routes to the numpy
+        pipelines (the reference's own routing, on the host): no silent
+        performance cliff."""
+        if why not in self._warned:
+            self._warned.add(why)
+            log.warning("rav1e_tpu_torch: %s: coded on the numpy pipeline "
+                        "(host, slow), as the reference routes it", why)
 
     def _pad_planes(self, planes):
         """Edge-replicate planes up to the coded (32-aligned) size."""
@@ -374,31 +393,51 @@ class Context:
         if len(self._gbuf) >= self._bgroup:
             self._encode_group()
 
-    def _pframe_kw(self) -> dict:
+    def _pframe_kw(self, tgrid) -> dict:
         """The speed preset's encode_pframe_tpu tools, as the reference's
-        reordered group passes them."""
+        reordered group passes them (no intra-in-inter in a tiled
+        frame)."""
         ss = self.speed_settings
         return dict(use_split=ss.partition_split_rdo,
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
-                    intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
-                    search=ss.search_px, subpel=ss.subpel,
-                    use_split8=ss.partition_split8, lr=self._lr_seq,
-                    bit_depth=self.cfg.bit_depth, device=self.device)
+                    intra_rdo=ss.intra_in_inter and tgrid is None,
+                    b64_rdo=ss.b64_merge, search=ss.search_px,
+                    subpel=ss.subpel, use_split8=ss.partition_split8,
+                    lr=self._lr_seq, bit_depth=self.cfg.bit_depth,
+                    tile_grid=tgrid, device=self.device)
+
+    def _numpy_kw(self) -> dict:
+        """The numpy pipelines' session arguments."""
+        return dict(lr=self._lr_seq, bit_depth=self.cfg.bit_depth,
+                    chroma_sampling=self.cfg.chroma_sampling,
+                    render_size=self._render, device=self.device)
 
     def _encode_group(self):
         """Code the buffered frames as anchor-P (non-shown) + B pyramid +
         show_existing; reference slots ping-pong between 1 and 2 so the
-        previous anchor stays live as the forward reference. The anchor
-        runs encode_pframe_tpu, the B frames encode_bframe_tpu (per-block
-        fwd / bwd / COMPOUND_AVERAGE RDO)."""
+        previous anchor stays live as the forward reference. 8- and
+        10-bit 4:2:0 groups run on the device steps (the anchor
+        encode_pframe_tpu, the B frames encode_bframe_tpu with per-block
+        fwd / bwd / COMPOUND_AVERAGE RDO; a tiled session's with its tile
+        grid); 12-bit, 4:2:2, 4:4:4 and `aq` groups on the numpy
+        pipelines, one tile a frame, as the reference codes them."""
         from rav1e_tpu_torch.entropy.obu import show_existing_packet
+        from rav1e_tpu_torch.pipeline.inter import encode_bframe, encode_pframe
         from rav1e_tpu_torch.pipeline.tpu_inter import (encode_bframe_tpu,
                                                         encode_pframe_tpu)
         frames = self._gbuf
         self._gbuf = []
         if not frames:
             return
-        ss = self.speed_settings
+        cfg, ss = self.cfg, self.speed_settings
+        fast_ok = (cfg.bit_depth in (8, 10) and cfg.chroma_sampling == "420"
+                   and not self._aq)
+        if not fast_ok:
+            self._warn_slow(
+                f"B-group config (bit_depth={cfg.bit_depth}, "
+                f"chroma={cfg.chroma_sampling}, aq={self._aq})")
+        tgrid = ((self._tile_cols_log2, self._tile_rows_log2)
+                 if self._tiled and fast_ok else None)
         base = self._order_hint
         # per-frame lookahead importance (input-order window) before
         # any pops; coding order below consumes by group index
@@ -408,40 +447,56 @@ class Context:
                 ds[k] = self._lookahead.scales_at(k, _pl[0])
             for _ in frames:
                 self._lookahead.pop()
+
+        def code_p(pl, sd, dsk, **kw):
+            if fast_ok:
+                return encode_pframe_tpu(
+                    pl, self._ref_rec, film_grain=grain,
+                    render_size=self._render, dscale=dsk, src_dev=sd,
+                    **kw, **self._pframe_kw(tgrid))
+            return encode_pframe(pl, self._ref_rec, film_grain=grain, **kw,
+                                 **self._numpy_kw())
+
         if len(frames) == 1:
             fn, pl, sd = frames[0]
             q = self._rc.select_qi("INTER")
-            cdef = self._loop_params(False, q)
+            cdef, grain = self._loop_params(False, q)
             slot_new = 2 if self._cur_slot == 1 else 1
-            data, rec = encode_pframe_tpu(
-                pl, self._ref_rec, qindex=q,
-                order_hint=(base + 1) & 127, cdef=cdef,
-                render_size=self._render,
-                refresh_flags=1 << slot_new, ref_slot=self._cur_slot,
-                dscale=ds[0], src_dev=sd, **self._pframe_kw())
+            data, rec = code_p(pl, sd, ds[0], qindex=q,
+                               order_hint=(base + 1) & 127, cdef=cdef,
+                               refresh_flags=1 << slot_new,
+                               ref_slot=self._cur_slot)
             self._finish(data, fn, "INTER", q, rec, slot_new,
                          base + 1, src=pl)
             return
         afn, apl, asd = frames[-1]
         q = self._rc.select_qi("INTER")
-        cdef = self._loop_params(False, q)
+        cdef, grain = self._loop_params(False, q)
         slot_new = 2 if self._cur_slot == 1 else 1
         ahint = (base + len(frames)) & 127
-        adata, arec = encode_pframe_tpu(
-            apl, self._ref_rec, qindex=q, order_hint=ahint,
-            cdef=cdef, render_size=self._render,
-            refresh_flags=1 << slot_new, ref_slot=self._cur_slot,
-            show_frame=False, dscale=ds[-1], src_dev=asd,
-            **self._pframe_kw())
+        adata, arec = code_p(apl, asd, ds[-1], qindex=q, order_hint=ahint,
+                             cdef=cdef, refresh_flags=1 << slot_new,
+                             ref_slot=self._cur_slot, show_frame=False)
         self._out.append(Packet(data=adata, input_frameno=afn,
                                 frame_type="INTER", qp=q,
                                 enc_stats=self._mk_stats(apl, arec,
                                                          adata, q)))
         self._rc.update("INTER", q, len(adata) * 8)
         arec32 = _host32(arec)
-        bkw = dict(b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo,
-                   lr=self._lr_seq, bit_depth=self.cfg.bit_depth,
-                   device=self.device)
+        if fast_ok:
+            enc_b = encode_bframe_tpu
+            bkw = dict(b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo,
+                       lr=self._lr_seq, bit_depth=cfg.bit_depth,
+                       tile_grid=tgrid, render_size=self._render,
+                       device=self.device)
+        else:
+            enc_b = encode_bframe
+            bkw = self._numpy_kw()
+
+        def dkw(k):
+            """Per-frame lookahead / device-source arguments (device
+            steps)."""
+            return dict(dscale=ds[k], src_dev=frames[k][2]) if fast_ok else {}
 
         # Binary pyramid over the inner frames for ANY group length
         # (rav1e InterConfig pyramid, src/api/internal.rs: depth-2 for
@@ -458,20 +513,19 @@ class Context:
             if i0 >= i1:
                 return
             m = (i0 + i1) // 2
-            fn_m, pl_m, sd_m = frames[m]
+            fn_m, pl_m, _sd = frames[m]
             hint_m = (base + m + 1) & 127
             leaf = (i1 - i0) == 1
             subtype = "B0" if depth == 0 else "B1"
             qm = self._rc.select_qi(subtype)
             bslot = min(3 + depth, 6)
-            bdata, brec = encode_bframe_tpu(
+            bdata, brec = enc_b(
                 pl_m, lo_ctx[0], hi_ctx[0], qindex=qm,
-                order_hint=hint_m, cdef=cdef,
+                order_hint=hint_m, cdef=cdef, film_grain=grain,
                 slot_fwd=lo_ctx[1], slot_bwd=hi_ctx[1],
                 ref_hints=(lo_ctx[2], hi_ctx[2]),
-                render_size=self._render,
                 refresh_flags=0 if leaf else 1 << bslot,
-                show_frame=leaf, dscale=ds[m], src_dev=sd_m, **bkw)
+                show_frame=leaf, **dkw(m), **bkw)
             self._out.append(Packet(data=bdata, input_frameno=fn_m,
                                     frame_type="INTER", qp=qm,
                                     enc_stats=self._mk_stats(
@@ -523,8 +577,8 @@ class Context:
         return EncoderStats(ps[0], ps[1], ps[2], len(data), q)
 
     def _loop_params(self, is_key: bool, q: int):
-        """cdef under the per-GOP seq-level consistency rule (presence
-        fixed at the keyframe)."""
+        """(cdef, film_grain) under the per-GOP seq-level consistency
+        rules (presence fixed at the keyframe)."""
         cdef = None
         if (str(self.cfg.extra.get("cdef", "auto")) != "off"
                 and self.speed_settings.cdef_auto):
@@ -541,7 +595,16 @@ class Context:
             cdef = cdef or (0, 0, 0, 0, 3)
         else:
             cdef = None
-        return cdef
+        grain = None
+        iso = int(self.cfg.extra.get("photon_noise", 0) or 0)
+        if iso:
+            from rav1e_tpu_torch.entropy.obu import photon_noise_params
+            grain = photon_noise_params(iso)
+        if is_key:
+            self._grain_enabled = grain is not None
+        elif not self._grain_enabled:
+            grain = None
+        return cdef, grain
 
     def _encode_frame(self, frameno: int, planes,
                       force_key: bool | None = None,
@@ -562,28 +625,51 @@ class Context:
             self._lookahead.pop()
         ftype = "KEY" if is_key else "INTER"
         q = self._rc.select_qi(ftype)
-        cdef = self._loop_params(is_key, q)
-        if is_key and cfg.bit_depth == 8 and not ss.rect_parts:
-            from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
-            data, rec = encode_keyframe_tpu(
-                planes, qindex=q, cdef=cdef, speed=cfg.speed,
-                render_size=self._render,
-                seq_extra=self._seq_extra or None, lr=ss.lr,
-                device=self.device)
-        elif is_key:
-            # the reference's device keyframe is 8-bit and has no
-            # HORZ/VERT partitions: it codes deeper keyframes and those of
-            # speeds <= 3 on its numpy pipeline, on the host, as here (an
-            # 8-bit frame's LR search on the device)
-            from rav1e_tpu_torch.pipeline.intra import encode_keyframe
-            data, rec = encode_keyframe(
-                planes, qindex=q, cdef=cdef, bit_depth=cfg.bit_depth,
-                render_size=self._render,
-                seq_extra=self._seq_extra or None, lr=ss.lr,
-                part_rdo=ss.rect_parts, angle_deltas=ss.angle_deltas,
-                device=self.device)
+        cdef, grain = self._loop_params(is_key, q)
+        aq = self._aq
+        # the device steps: 8- and 10-bit 4:2:0 (a tiled frame packs per
+        # tile from frame-global decisions); the device keyframe is
+        # 8-bit. Keyframes of tiled sessions code as a single tile
+        # (tile_info is per-frame, spec 5.9.15) so the wavefront stays
+        # whole-frame.
+        fast_ok = cfg.bit_depth in (8, 10) and cfg.chroma_sampling == "420"
+        if not fast_ok:
+            self._warn_slow(f"frame config (bit_depth={cfg.bit_depth}, "
+                            f"chroma={cfg.chroma_sampling})")
+        tgrid = ((self._tile_cols_log2, self._tile_rows_log2)
+                 if self._tiled and fast_ok else None)
+        fast_kf = fast_ok and cfg.bit_depth == 8
+        if is_key and fast_ok and not fast_kf:
+            self._warn_slow("10/12-bit keyframe")
+        if not is_key and aq and fast_ok:
+            self._warn_slow("aq=1 inter frames")
         if is_key:
-            self._lr_seq = ss.lr
+            lr = ss.lr and not self._tiled
+            if fast_kf and grain is None and not ss.rect_parts:
+                from rav1e_tpu_torch.pipeline.tpu_intra import (
+                    encode_keyframe_tpu)
+                data, rec = encode_keyframe_tpu(
+                    planes, qindex=q, cdef=cdef, speed=cfg.speed,
+                    render_size=self._render,
+                    seq_extra=self._seq_extra or None, lr=lr, aq=aq,
+                    device=self.device)
+            else:
+                # the reference's device keyframe is 8-bit 4:2:0 without
+                # film grain or HORZ/VERT partitions: it codes the others
+                # on its numpy pipeline, on the host, as here (LR on the
+                # device)
+                from rav1e_tpu_torch.pipeline.intra import encode_keyframe
+                data, rec = encode_keyframe(
+                    planes, qindex=q, cdef=cdef, film_grain=grain, aq=aq,
+                    bit_depth=cfg.bit_depth,
+                    chroma_sampling=cfg.chroma_sampling,
+                    tile_cols_log2=self._tile_cols_log2,
+                    tile_rows_log2=self._tile_rows_log2, lr=lr,
+                    render_size=self._render,
+                    seq_extra=self._seq_extra or None,
+                    part_rdo=ss.rect_parts, angle_deltas=ss.angle_deltas,
+                    device=self.device)
+            self._lr_seq = lr
             if self._metadata:
                 # metadata OBUs ride the keyframe temporal unit, after
                 # the 2-byte temporal delimiter and before the frame
@@ -591,44 +677,82 @@ class Context:
                 # every keyframe)
                 data = data[:2] + self._metadata + data[2:]
             self._order_hint = 0
+            self._slot_hints = [0] * 8   # KEY refreshes every slot
         else:
             self._order_hint += 1
+            oh = self._order_hint & 127
+            is_sframe = bool(self._switch_interval and self._order_hint
+                             % self._switch_interval == 0)
+            if is_sframe or self._error_resilient:
+                # S-frame / error-resilient inter frame: resilient headers
+                # with the slots' order hints; S-frames code whole-pel MVs
+                # and refresh every reference slot (spec SWITCH_FRAME)
+                from rav1e_tpu_torch.pipeline.inter import encode_pframe
+                data, rec = encode_pframe(
+                    planes, self._ref_rec, qindex=q, order_hint=oh,
+                    cdef=cdef, film_grain=grain, aq=aq,
+                    tile_cols_log2=self._tile_cols_log2,
+                    tile_rows_log2=self._tile_rows_log2,
+                    switch_frame=is_sframe,
+                    error_resilient=self._error_resilient,
+                    slot_order_hints=list(self._slot_hints),
+                    **self._numpy_kw())
+                self._ref_rec = _host32(rec)
+                if is_sframe:
+                    self._slot_hints = [oh] * 8
+                    self._golden_rec = self._ref_rec
+                else:
+                    self._slot_hints[0] = oh
+                self._rc.update(ftype, q, len(data) * 8)
+                return Packet(data=data, input_frameno=frameno,
+                              frame_type=ftype, qp=q,
+                              enc_stats=self._mk_stats(planes, rec, data, q))
             # multi-ref P (rav1e multiref): LAST = previous recon,
             # GOLDEN = the GOP keyframe (KEY refreshes every slot, P
             # only slot 0, so slot 1 still holds the keyframe). Static
             # areas skip against the clean keyframe instead of
             # accumulating re-encode loss along the LAST chain.
-            use_mref = (ss.multiref and cfg.bit_depth == 8
+            use_mref = (fast_ok and cfg.bit_depth == 8 and tgrid is None
+                        and not aq and ss.multiref
                         and self._golden_rec is not None
-                        and self._order_hint >= 2 and not self._lr_seq)
+                        and self._order_hint >= 2 and grain is None
+                        and not self._lr_seq)
             if use_mref:
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
                     encode_pframe2_tpu)
                 data, rec = encode_pframe2_tpu(
                     planes, self._ref_rec, self._golden_rec,
-                    qindex=q, order_hint=self._order_hint & 127,
-                    cdef=cdef, slot_last=0, slot_golden=1,
-                    golden_hint=0, dscale=dscale,
+                    qindex=q, order_hint=oh, cdef=cdef, slot_last=0,
+                    slot_golden=1, golden_hint=0, dscale=dscale,
                     use_satd=ss.satd_subpel,
                     render_size=self._render, device=self.device)
-            else:
+            elif fast_ok and not aq:
                 # the reference's low-latency call: the speed's tools
                 # but encode_pframe_tpu's default search and subpel
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
                     encode_pframe_tpu)
                 data, rec = encode_pframe_tpu(
-                    planes, self._ref_rec, qindex=q,
-                    order_hint=self._order_hint & 127, cdef=cdef,
-                    render_size=self._render,
+                    planes, self._ref_rec, qindex=q, order_hint=oh,
+                    cdef=cdef, film_grain=grain, render_size=self._render,
                     use_split=ss.partition_split_rdo,
                     use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
-                    intra_rdo=ss.intra_in_inter, b64_rdo=ss.b64_merge,
-                    use_split8=ss.partition_split8, lr=self._lr_seq,
-                    bit_depth=cfg.bit_depth, dscale=dscale,
-                    src_dev=src_dev, device=self.device)
+                    intra_rdo=ss.intra_in_inter and tgrid is None,
+                    b64_rdo=ss.b64_merge, use_split8=ss.partition_split8,
+                    lr=self._lr_seq, bit_depth=cfg.bit_depth, dscale=dscale,
+                    src_dev=src_dev, tile_grid=tgrid, device=self.device)
+            else:
+                from rav1e_tpu_torch.pipeline.inter import encode_pframe
+                data, rec = encode_pframe(
+                    planes, self._ref_rec, qindex=q, order_hint=oh,
+                    cdef=cdef, film_grain=grain, aq=aq,
+                    tile_cols_log2=self._tile_cols_log2,
+                    tile_rows_log2=self._tile_rows_log2,
+                    **self._numpy_kw())
         self._ref_rec = _host32(rec)
         if is_key:
             self._golden_rec = self._ref_rec
+        else:
+            self._slot_hints[0] = self._order_hint & 127
         self._rc.update(ftype, q, len(data) * 8)
         return Packet(data=data, input_frameno=frameno, frame_type=ftype,
                       qp=q, enc_stats=self._mk_stats(planes, rec,

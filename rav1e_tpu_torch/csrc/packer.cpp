@@ -385,13 +385,8 @@ int packer_coeffs(void* h, int ptype, int txw, int txh, int tctx,
 }
 
 // ---------------------------------------------------------------------------
-// One-call P-frame tile writer for the uniform 32x32-block pipeline.
-// Ports TileWriter.write_tile + write_inter_block + InterCtx.find_mv_stack
-// (rav1e src/context/block_unit.rs semantics) for the block class the
-// batched TPU pipeline emits: every block 32x32, single LAST ref,
-// GLOBALMV/NEWMV(+NEAREST/NEAR aliasing), TX_32X32 luma / TX_16X16
-// chroma, reduced tx set. Byte-identical to the Python writer
-// (asserted in tests).
+// The inter tile walk's symbol families and MV coding (shared by
+// packer_inter_tile2 below).
 // ---------------------------------------------------------------------------
 
 struct InterTileFams {
@@ -410,134 +405,8 @@ struct InterTileFams {
   int coeff_base_eob, coeff_base, coeff_br, dc_sign;
 };
 
-struct InterTile {
-  int nby, nbx;  // 32-px block grid
-  std::vector<uint8_t> is_set, skip, mode;  // mode: 0 GLOBAL,1 NEW,2 NEAREST,3 NEAR
-  std::vector<int32_t> mvr, mvc;
-  std::vector<uint8_t> above_part, left_part;
-  std::vector<uint8_t> acoef_y, lcoef_y, acoef_u, lcoef_u, acoef_v, lcoef_v;
-  int at(int gr, int gc) const { return gr * nbx + gc; }
-};
-
 static const int MODE_GLOBAL = 0, MODE_NEW = 1, MODE_NEAREST = 2,
                  MODE_NEAR = 3;
-
-struct StackOut {
-  int n_found;
-  int new_ctx, ref_ctx;
-  int drl_ctx[3];
-  int32_t mv[8][2];
-  int32_t weight[8];
-  int n_entries;  // incl. global padding (>= 2)
-};
-
-// Uniform-grid port of InterCtx.find_mv_stack: every set block is
-// 32x32 (bw4 = 8) with ref LAST, so each scan line hits exactly one
-// candidate block; outer rows/cols -3/-5 re-hit the same blocks and
-// grow that mv's weight, exactly as the general code does.
-static void find_stack(const InterTile& t, int gr, int gc, StackOut& o) {
-  struct Ent { int32_t mv[2]; int32_t w; };
-  Ent stack[8];
-  int n = 0;
-  int newmv_count = 0;
-  auto add = [&](int rr, int cc, int weight, bool count_new) -> bool {
-    if (rr < 0 || cc < 0 || rr >= t.nby || cc >= t.nbx) return false;
-    int g = t.at(rr, cc);
-    if (!t.is_set[g]) return false;
-    int32_t mv0 = t.mvr[g], mv1 = t.mvc[g];
-    bool found = false;
-    for (int i = 0; i < n; i++) {
-      if (stack[i].mv[0] == mv0 && stack[i].mv[1] == mv1) {
-        stack[i].w += weight;
-        found = true;
-        break;
-      }
-    }
-    if (!found && n < 8) {
-      stack[n].mv[0] = mv0;
-      stack[n].mv[1] = mv1;
-      stack[n].w = weight;
-      n++;
-    }
-    if (count_new && t.mode[g] == MODE_NEW) newmv_count++;
-    return true;
-  };
-  // close scans: row -1, col -1, top-right point
-  bool found_row = add(gr - 1, gc, 16, true);
-  bool found_col = add(gr, gc - 1, 16, true);
-  bool tr = false;
-  // _has_tr for 32-blocks on the uniform grid: top row of SB, or left
-  // column of the SB's bottom half (sb_c + bw < 16)
-  int sb_r = (gr * 8) % 16, sb_c = (gc * 8) % 16;
-  bool has_tr = (sb_r == 0) ? true : (sb_c + 8 < 16);
-  if (gr > 0 && gc + 1 < t.nbx && has_tr) tr = add(gr - 1, gc + 1, 4, true);
-  int nearest_match = (int)(found_row || tr) + (int)found_col;
-  int n_nearest = n;
-  for (int i = 0; i < n; i++) stack[i].w += 640;
-  // top-left point, then outer rows/cols (-3, -5 mi == same blocks)
-  bool tl = false;
-  if (gr > 0 && gc > 0) tl = add(gr - 1, gc - 1, 4, false);
-  bool far_row = false, far_col = false;
-  for (int k = 0; k < 2; k++) {
-    // mi offsets 3 and 5 both land in the adjacent 8-mi block
-    if (gr > 0) far_row |= add(gr - 1, gc, 16, false);
-    if (gc > 0) far_col |= add(gr, gc - 1, 16, false);
-  }
-  int total_match = (int)(found_row || tr || tl || far_row)
-                    + (int)(found_col || far_col);
-  o.new_ctx = 0;
-  o.ref_ctx = 0;
-  if (nearest_match == 0) {
-    if (total_match >= 1) o.new_ctx = 1;
-    o.ref_ctx = total_match == 1 ? 1 : (total_match >= 2 ? 2 : 0);
-  } else if (nearest_match == 1) {
-    o.new_ctx = newmv_count > 0 ? 2 : 3;
-    o.ref_ctx = total_match == 1 ? 3 : 4;
-  } else {
-    o.new_ctx = newmv_count > 0 ? 4 : 5;
-    o.ref_ctx = 5;
-  }
-  // two-segment stable sort by weight desc
-  auto sort_seg = [&](int lo, int hi) {
-    for (int i = lo + 1; i < hi; i++) {
-      Ent e = stack[i];
-      int j = i;
-      while (j > lo && stack[j - 1].w < e.w) {
-        stack[j] = stack[j - 1];
-        j--;
-      }
-      stack[j] = e;
-    }
-  };
-  sort_seg(0, n_nearest);
-  sort_seg(n_nearest, n);
-  o.n_found = n;
-  int ne = n;
-  while (ne < 2) {
-    stack[ne].mv[0] = 0;
-    stack[ne].mv[1] = 0;
-    stack[ne].w = 0;
-    ne++;
-  }
-  o.n_entries = ne;
-  for (int i = 0; i < ne && i < 8; i++) {
-    o.mv[i][0] = stack[i].mv[0];
-    o.mv[i][1] = stack[i].mv[1];
-    o.weight[i] = stack[i].w;
-  }
-  for (int idx = 0; idx < 3; idx++) {
-    int w0 = idx < ne ? stack[idx].w : 0;
-    int w1 = idx + 1 < ne ? stack[idx + 1].w : 0;
-    if (w0 >= 640 && w1 >= 640)
-      o.drl_ctx[idx] = 0;
-    else if (w0 >= 640)
-      o.drl_ctx[idx] = 1;
-    else if (w1 < 640)
-      o.drl_ctx[idx] = 2;
-    else
-      o.drl_ctx[idx] = 0;
-  }
-}
 
 static void write_mv_comp(Packer* p, const InterTileFams& F, int ci,
                           int d) {
@@ -560,247 +429,6 @@ static void write_mv_comp(Packer* p, const InterTileFams& F, int ci,
       p->symbol_fam(F.mv_bits[ci], i, (o >> (i + 3)) & 1);
     p->symbol_fam(F.mv_fr[ci], 0, (o >> 1) & 3);
   }
-}
-
-// mv8/skip/levels are the batched pipeline outputs; returns the IR rows.
-long packer_inter_tile(void* h, int mi_rows, int mi_cols,
-                       const int32_t* fam_ids, const int32_t* mv8,
-                       const uint8_t* skip_in, const int16_t* lv_y,
-                       const int16_t* lv_u, const int16_t* lv_v) {
-  Packer* p = (Packer*)h;
-  InterTileFams F;
-  {
-    const int32_t* f = fam_ids;
-    F.part_mid = *f++; F.skip = *f++; F.intra_inter = *f++;
-    F.single_ref = *f++; F.newmv = *f++; F.zeromv = *f++;
-    F.refmv = *f++; F.drl = *f++; F.mv_joint = *f++;
-    for (int ci = 0; ci < 2; ci++) {
-      F.mv_sign[ci] = *f++; F.mv_classes[ci] = *f++;
-      F.mv_class0[ci] = *f++; F.mv_class0_fr[ci] = *f++;
-      F.mv_bits[ci] = *f++; F.mv_fr[ci] = *f++;
-    }
-    F.inter_ext_tx3 = *f++;
-    F.eob_pt_256 = *f++; F.eob_pt_1024 = *f++; F.eob_hi_bit = *f++;
-    F.txb_skip = *f++; F.coeff_base_eob = *f++; F.coeff_base = *f++;
-    F.coeff_br = *f++; F.dc_sign = *f++;
-  }
-  int nby = mi_rows / 8, nbx = mi_cols / 8;
-  InterTile t;
-  t.nby = nby;
-  t.nbx = nbx;
-  int B = nby * nbx;
-  t.is_set.assign(B, 0);
-  t.skip.assign(B, 0);
-  t.mode.assign(B, 0);
-  t.mvr.assign(B, 0);
-  t.mvc.assign(B, 0);
-  t.above_part.assign(mi_cols, 0);
-  t.left_part.assign(16, 0);
-  t.acoef_y.assign(mi_cols, 0);
-  t.lcoef_y.assign(mi_rows, 0);
-  t.acoef_u.assign((mi_cols + 1) / 2, 0);
-  t.lcoef_u.assign((mi_rows + 1) / 2, 0);
-  t.acoef_v.assign((mi_cols + 1) / 2, 0);
-  t.lcoef_v.assign((mi_rows + 1) / 2, 0);
-
-  // partition ctx helpers (bit index = width_mi_log2 - 1)
-  auto part_ctx = [&](int r, int c, int bit) {
-    int above = (t.above_part[c] >> bit) & 1;
-    int left = (t.left_part[r & 15] >> bit) & 1;
-    return left * 2 + above;
-  };
-  auto update_part = [&](int r, int c, int sub_wlog, int bw, int bh) {
-    uint8_t aval = (uint8_t)(31 & ~((1 << sub_wlog) - 1));
-    for (int i = 0; i < bw && c + i < mi_cols; i++)
-      t.above_part[c + i] = aval;
-    int lo = r & 15;
-    for (int i = 0; i < bh && lo + i < 16; i++) t.left_part[lo + i] = aval;
-  };
-  auto split_bool = [&](int ctx, int size_idx, bool vert_alike, int bit) {
-    Cdf& cdf = p->fams[F.part_mid][size_idx * 4 + ctx];
-    static const int VSET[6] = {2, 3, 4, 6, 7, 9};
-    static const int HSET[6] = {1, 3, 4, 5, 6, 8};
-    const int* ks = vert_alike ? VSET : HSET;
-    uint32_t psum = 0;
-    for (int i = 0; i < 6; i++) {
-      int k = ks[i];
-      if (k >= cdf.n) continue;
-      uint32_t prev = (k == 0) ? PROB_TOP : cdf.v[k - 1];
-      psum += prev - cdf.v[k];
-    }
-    uint16_t derived[3] = {(uint16_t)psum, 0, 0};
-    p->ec.symbol_raw(bit, derived, 2);
-  };
-
-  auto write_block = [&](int gr, int gc) {
-    int g = t.at(gr, gc);
-    int r = gr * 8, c = gc * 8;
-    int mv0 = mv8[g * 2], mv1 = mv8[g * 2 + 1];
-    int skipf = skip_in[g] ? 1 : 0;
-    // skip ctx from neighbor blocks
-    int above_sk = gr > 0 ? t.skip[t.at(gr - 1, gc)] : 0;
-    int left_sk = gc > 0 ? t.skip[t.at(gr, gc - 1)] : 0;
-    p->symbol_fam(F.skip, above_sk + left_sk, skipf);
-    // intra_inter ctx
-    int ii_ctx;
-    bool has_a = gr > 0, has_l = gc > 0;
-    if (has_a && has_l)
-      ii_ctx = 0;  // both neighbors inter (uniform inter tile)
-    else if (has_a || has_l)
-      ii_ctx = 0;
-    else
-      ii_ctx = 0;
-    p->symbol_fam(F.intra_inter, ii_ctx, 1);
-    // single_ref p1/p3/p4: neighbor refs are all LAST -> counts (k, 0)
-    auto sctx = [&](void) {
-      int k = (int)(has_a) + (int)(has_l);
-      return k == 0 ? 1 : 2;
-    };
-    int sr = sctx();
-    p->symbol_fam(F.single_ref, sr * 6 + 0, 0);
-    p->symbol_fam(F.single_ref, sr * 6 + 2, 0);
-    p->symbol_fam(F.single_ref, sr * 6 + 3, 0);
-    StackOut st;
-    find_stack(t, gr, gc, st);
-    int mode = MODE_GLOBAL;
-    if (mv0 != 0 || mv1 != 0) {
-      mode = MODE_NEW;
-      if (mv0 == st.mv[0][0] && mv1 == st.mv[0][1])
-        mode = MODE_NEAREST;
-      else if (st.n_found >= 2 && mv0 == st.mv[1][0] && mv1 == st.mv[1][1])
-        mode = MODE_NEAR;
-    }
-    if (mode == MODE_NEW) {
-      p->symbol_fam(F.newmv, st.new_ctx, 0);
-      for (int idx = 0; idx < 2; idx++) {
-        if (st.n_found > idx + 1) {
-          p->symbol_fam(F.drl, st.drl_ctx[idx], 0);
-          break;
-        }
-      }
-      // pred mv = stack[0] (lower precision: entries already even)
-      int pr = st.mv[0][0], pc = st.mv[0][1];
-      if (pr & 1) pr += pr < 0 ? 1 : -1;
-      if (pc & 1) pc += pc < 0 ? 1 : -1;
-      int dr = mv0 - pr, dc = mv1 - pc;
-      int joint = (dr != 0 ? 2 : 0) | (dc != 0 ? 1 : 0);
-      p->symbol_fam(F.mv_joint, 0, joint);
-      if (dr != 0) write_mv_comp(p, F, 0, dr);
-      if (dc != 0) write_mv_comp(p, F, 1, dc);
-    } else {
-      p->symbol_fam(F.newmv, st.new_ctx, 1);
-      if (mode == MODE_GLOBAL) {
-        p->symbol_fam(F.zeromv, 0, 0);
-      } else {
-        p->symbol_fam(F.zeromv, 0, 1);
-        p->symbol_fam(F.refmv, st.ref_ctx, mode == MODE_NEAREST ? 0 : 1);
-        if (mode == MODE_NEAR) {
-          for (int idx = 1; idx < 3; idx++) {
-            if (st.n_found > idx + 1) {
-              p->symbol_fam(F.drl, st.drl_ctx[idx], 0);
-              break;
-            }
-          }
-        }
-      }
-    }
-    // residual
-    if (!skipf) {
-      // per-TU coefficient call: (plane, tx dims, ctx...) mirrors the
-      // python NativeTileWriter._write_tu wiring for q-bucket fams
-      auto tu = [&](int plane, const int16_t* lv16, int n, int tctx,
-                    uint8_t* acoef, uint8_t* lcoef, int u_c, int u_r,
-                    int eob_fam) {
-        int un = n / 4;
-        int ptype = plane == 0 ? 0 : 1;
-        int skip_ctx;
-        if (plane == 0)
-          skip_ctx = 0;
-        else {
-          int a = 0, l = 0;
-          for (int i = 0; i < un; i++) {
-            if (acoef[u_c + i]) a = 1;
-            if (lcoef[u_r + i]) l = 1;
-          }
-          skip_ctx = 7 + a + l;
-        }
-        int dcs = 0;
-        for (int i = 0; i < un; i++) {
-          int ca = acoef[u_c + i] >> 6, cl = lcoef[u_r + i] >> 6;
-          dcs += ca == 2 ? 1 : (ca == 1 ? -1 : 0);
-          dcs += cl == 2 ? 1 : (cl == 1 ? -1 : 0);
-        }
-        int dc_ctx = dcs == 0 ? 0 : (dcs < 0 ? 1 : 2);
-        int32_t lv[32 * 32];
-        for (int i = 0; i < n * n; i++) lv[i] = lv16[i];
-        // inter tx type: set3 {IDTX, DCT} -> DCT sym 1, rec = sqr idx
-        int ttf = plane == 0 ? F.inter_ext_tx3 : -1;
-        int ttrec = n == 32 ? 3 : 2;
-        // eob record: [ptype] for >= 512 pels, else [ptype][2d-class 0]
-        int eob_rec = n == 32 ? ptype : ptype * 2;
-        int cul = coeffs_impl(
-            p, ptype, n, n, tctx, imin(tctx, 3), C2D, eob_fam, eob_rec,
-            F.eob_hi_bit, (tctx * 2 + ptype) * 11, F.txb_skip,
-            tctx * 13 + skip_ctx, F.coeff_base_eob,
-            (tctx * 2 + ptype) * 4, F.coeff_base,
-            (tctx * 2 + ptype) * 41, F.coeff_br,
-            (imin(tctx, 3) * 2 + ptype) * 21, F.dc_sign,
-            ptype * 3 + dc_ctx, ttf, ttrec, 1, lv);
-        for (int i = 0; i < un; i++) {
-          acoef[u_c + i] = (uint8_t)cul;
-          lcoef[u_r + i] = (uint8_t)cul;
-        }
-      };
-      tu(0, lv_y + g * 32 * 32, 32, 3, t.acoef_y.data(),
-         t.lcoef_y.data(), c, r, F.eob_pt_1024);
-      tu(1, lv_u + g * 16 * 16, 16, 2, t.acoef_u.data(),
-         t.lcoef_u.data(), c / 2, r / 2, F.eob_pt_256);
-      tu(2, lv_v + g * 16 * 16, 16, 2, t.acoef_v.data(),
-         t.lcoef_v.data(), c / 2, r / 2, F.eob_pt_256);
-    } else {
-      for (int i = 0; i < 8; i++) {
-        t.acoef_y[c + i] = 0;
-        t.lcoef_y[r + i] = 0;
-      }
-      for (int i = 0; i < 4; i++) {
-        t.acoef_u[c / 2 + i] = 0;
-        t.lcoef_u[r / 2 + i] = 0;
-        t.acoef_v[c / 2 + i] = 0;
-        t.lcoef_v[r / 2 + i] = 0;
-      }
-    }
-    t.is_set[g] = 1;
-    t.skip[g] = (uint8_t)skipf;
-    t.mode[g] = (uint8_t)mode;
-    t.mvr[g] = mv0;
-    t.mvc[g] = mv1;
-  };
-
-  // SB walk: 64-node SPLIT -> four 32-node NONE children
-  for (int r = 0; r < mi_rows; r += 16) {
-    std::fill(t.left_part.begin(), t.left_part.end(), 0);
-    for (int c = 0; c < mi_cols; c += 16) {
-      bool rows64 = r + 8 < mi_rows, cols64 = c + 8 < mi_cols;
-      int ctx64 = part_ctx(r, c, 3);
-      if (rows64 && cols64) {
-        p->symbol_fam(F.part_mid, 2 * 4 + ctx64, 3 /* SPLIT */);
-      } else if (cols64) {
-        split_bool(ctx64, 2, true, 1);
-      } else if (rows64) {
-        split_bool(ctx64, 2, false, 1);
-      }  // else: implicit split
-      for (int k = 0; k < 4; k++) {
-        int rr = r + (k >> 1) * 8, cc = c + (k & 1) * 8;
-        if (rr >= mi_rows || cc >= mi_cols) continue;
-        // 32-node: NONE (rows/cols always inside for 32-aligned frame)
-        int ctx32 = part_ctx(rr, cc, 2);
-        p->symbol_fam(F.part_mid, 1 * 4 + ctx32, 0 /* NONE */);
-        write_block(rr / 8, cc / 8);
-        update_part(rr, cc, 3 /* 32 sub wlog2 */, 8, 8);
-      }
-    }
-  }
-  return p->ec.rows();
 }
 
 // ---- v2: mixed 32/16 partition P-frame tile --------------------------------

@@ -103,6 +103,15 @@ class RecordingEncoder:
         return pack_symbols(self.ir_tensor(), self.device, self.timings)
 
 
+class IRRecorder(RecordingEncoder):
+    """RecordingEncoder whose `done()` returns the tile's IR uncoded (int32
+    [n, 4] on the CPU), for pack_tile_irs to code a frame's tiles in one
+    launch."""
+
+    def done(self) -> torch.Tensor:
+        return self.ir_tensor()
+
+
 # ---- the kernels: load, launch, fetch ---------------------------------------
 
 def _bind(lib):
@@ -246,26 +255,46 @@ def fetch_tiles(out: torch.Tensor, lens: torch.Tensor,
 
 def pack_symbols(ir: torch.Tensor, device: torch.device | str | None,
                  timings: dict | None = None) -> bytes:
-    """One tile's IR -> its final bytes: upload (asynchronous from a
-    pinned buffer), code on `device` (the kernels on cuda, on the current
-    stream), fetch the length and then the bytes. `timings` receives
-    ec_kernel (upload, coding and the length's fetch), ir_upload (the
-    upload alone, a part of ec_kernel) and finish."""
+    """One tile's IR -> its final bytes (pack_tile_irs of one tile)."""
+    return pack_tile_irs([ir], device, timings)[0]
+
+
+def pack_tile_irs(irs: list[torch.Tensor],
+                  device: torch.device | str | None,
+                  timings: dict | None = None) -> list[bytes]:
+    """A frame's T tiles' IRs (each int32 [n_t, 4] on the host) -> each
+    tile's final bytes, coded in ONE pack_ir call: each IR uploaded
+    (asynchronously from a pinned buffer) into its rows of one device
+    buffer, with the tiles' row offsets; coded on `device` (the kernels
+    on cuda, on the current stream); then the lengths and the finished
+    bytes fetched. `timings` receives ec_kernel (upload, coding and the
+    lengths' fetch), ir_upload (the upload alone, a part of ec_kernel)
+    and finish."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    ir_d = ir.to(dev, non_blocking=True)
+    offs = [0]
+    for x in irs:
+        offs.append(offs[-1] + x.shape[0])
+    offsets = None
+    if len(irs) == 1:
+        ir_d = irs[0].to(dev, non_blocking=True)
+    else:
+        ir_d = torch.empty((offs[-1], 4), dtype=torch.int32, device=dev)
+        for t, x in enumerate(irs):
+            ir_d[offs[t]:offs[t + 1]].copy_(x, non_blocking=True)
+        offsets = torch.tensor(offs, dtype=torch.int64).to(dev)
     if timings is not None and dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
     t_up = time.perf_counter()
-    out, lens = pack_ir(ir_d)
+    out, lens = pack_ir(ir_d, offsets)
     lens = lens.cpu()
     t1 = time.perf_counter()
-    tile = fetch_tiles(out, lens, [0, ir.shape[0]])[0]
+    tiles = fetch_tiles(out, lens, offs)
     if timings is not None:
         timings["ir_upload"] = t_up - t0
         timings["ec_kernel"] = t1 - t0
         timings["finish"] = time.perf_counter() - t1
-    return tile
+    return tiles
 
 
 # ---- the definition: the recurrence, serial ---------------------------------

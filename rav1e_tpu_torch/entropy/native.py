@@ -72,10 +72,6 @@ def _bind(lib):
                                       _I32P, C.c_int]
     lib.packer_coeffs.restype = C.c_int
     lib.packer_coeffs.argtypes = [C.c_void_p] + [C.c_int] * 23 + [_I32P]
-    lib.packer_inter_tile.restype = C.c_long
-    lib.packer_inter_tile.argtypes = [
-        C.c_void_p, C.c_int, C.c_int, _I32P, _I32P, _U8P, _I16P, _I16P,
-        _I16P]
     lib.packer_inter_tile2.restype = C.c_long
     lib.packer_inter_tile2.argtypes = [
         C.c_void_p, C.c_int, C.c_int, _I32P, _U8P, _I32P, _U8P, _I32P, _U8P,
@@ -160,16 +156,20 @@ class NativeTileWriter(TileWriter):
     """TileWriter with the C++ packer. `device` codes the IR (None:
     cuda, resolved when the tile is coded); `timings`, when given,
     receives tile_walk (the C++ walk and the IR's hand-back), ir_upload,
-    ec_kernel (the upload included) and finish. `ir_cap` sets the IR
-    buffer's rows (None: the tile's own count); a buffer too small for
-    the tile raises ValueError."""
+    ec_kernel (the upload included) and finish. With ir_only the write_*
+    methods return the tile's IR (int32 [n, 4] on the host, pinned for
+    cuda) uncoded, for ec_cuda.pack_tile_irs to code a frame's tiles in
+    one launch. `ir_cap` sets the IR buffer's rows (None: the tile's own
+    count); a buffer too small for the tile raises ValueError."""
 
     ir_cap: int | None = None
 
-    def __init__(self, *a, device=None, timings: dict | None = None, **k):
+    def __init__(self, *a, device=None, timings: dict | None = None,
+                 ir_only: bool = False, **k):
         super().__init__(*a, **k)
         self.device = device
         self.timings = timings
+        self.ir_only = ir_only
         lib = _load()
         self._lib = lib
         self._h = lib.packer_new()
@@ -322,9 +322,10 @@ class NativeTileWriter(TileWriter):
             self._lib.packer_free(self._h)
             self._h = None
 
-    def _finish(self) -> bytes:
+    def _finish(self) -> bytes | torch.Tensor:
         """The recorded IR, handed back into one host buffer, then coded
-        on the writer's device. Frees the C++ state."""
+        on the writer's device (returned uncoded with ir_only). Frees the
+        C++ state."""
         try:
             ir = self._take_ir()
         finally:
@@ -332,7 +333,7 @@ class NativeTileWriter(TileWriter):
             self._h = None
         if self.timings is not None:
             self.timings["tile_walk"] = time.perf_counter() - self._t0
-        return self.code(ir)
+        return ir if self.ir_only else self.code(ir)
 
     def _take_ir(self) -> torch.Tensor:
         n = int(self._lib.packer_rows(self._h))
@@ -349,36 +350,6 @@ class NativeTileWriter(TileWriter):
     def code(self, ir: torch.Tensor) -> bytes:
         """Range-code the tile's IR [n, 4] on the writer's device."""
         return pack_symbols(ir, self.device, self.timings)
-
-    def write_inter_tile_fast(self, mv8: np.ndarray, skip: np.ndarray,
-                              lv_y: np.ndarray, lv_u: np.ndarray,
-                              lv_v: np.ndarray) -> bytes:
-        """One-call C++ walk of a uniform-32x32-block P-frame tile (the
-        batched pipeline's output). Byte-identical to write_tile over
-        the equivalent partitions/blocks dicts."""
-        self._t0 = time.perf_counter()
-        fam = self._fam
-        order = ["partition_mid", "skip", "intra_inter", "single_ref",
-                 "newmv", "zeromv", "refmv", "drl", "mv_joint",
-                 "mv0_sign", "mv0_classes", "mv0_class0",
-                 "mv0_class0_fr", "mv0_bits", "mv0_fr",
-                 "mv1_sign", "mv1_classes", "mv1_class0",
-                 "mv1_class0_fr", "mv1_bits", "mv1_fr",
-                 "inter_ext_tx3", "eob_pt_256", "eob_pt_1024",
-                 "eob_hi_bit", "txb_skip", "coeff_base_eob",
-                 "coeff_base", "coeff_br", "dc_sign"]
-        fam_ids = np.asarray([fam[n].fam for n in order], np.int32)
-        mv8 = np.ascontiguousarray(mv8, np.int32)
-        skip = np.ascontiguousarray(skip, np.uint8)
-        lv_y = np.ascontiguousarray(lv_y, np.int16)
-        lv_u = np.ascontiguousarray(lv_u, np.int16)
-        lv_v = np.ascontiguousarray(lv_v, np.int16)
-        self._lib.packer_inter_tile(
-            self._h, self.mi_rows, self.mi_cols, _ptr(fam_ids, C.c_int32),
-            _ptr(mv8, C.c_int32), _ptr(skip, C.c_uint8),
-            _ptr(lv_y, C.c_int16), _ptr(lv_u, C.c_int16),
-            _ptr(lv_v, C.c_int16))
-        return self._finish()
 
     def write_intra_tile_fast(self, split: np.ndarray,
                               ymodes: np.ndarray, uvmodes: np.ndarray,

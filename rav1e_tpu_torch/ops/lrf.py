@@ -518,13 +518,12 @@ def _sat_i32(x):
 
 # ---- whole-plane search ---------------------------------------------------
 
-def _search_dev(rec, src, bd: int, ss: int, pre=None):
+def _search_dev(rec, src, bd: int, ss: int, pre=None, *, chroma: bool):
     """The reference's jitted step as torch ops on rec's device. rec, src
     [ph, pw] int32; pre the deblocked plane before CDEF (None: rec),
-    whose rows the patches take beyond each stripe. Returns (summary f32
-    [n], the SGR sets' filtered pieces [S, P, H, W], the piece patches
-    p3, the table)."""
-    chroma = ss > 0
+    whose rows the patches take beyond each stripe; chroma pins the
+    Wiener tap 0 to 0. Returns (summary f32 [n], the SGR sets' filtered
+    pieces [S, P, H, W], the piece patches p3, the table)."""
     ph, pw = rec.shape
     tb = _tables(ph, pw, ss, rec.device)
     H, W, P = tb.H, tb.W, tb.P
@@ -602,12 +601,16 @@ def _search_dev(rec, src, bd: int, ss: int, pre=None):
     return summary, fs_all, p3, tb
 
 
-def search_lr_plane(rec, src, bd: int = 8, ss: int = 0, pre=None):
+def search_lr_plane(rec, src, bd: int = 8, ss: int = 0, pre=None, *,
+                    chroma: bool):
     """The reference's search_lr_plane_tpu on rec's device: rec and src
     are [ph, pw] integer tensors on one device (the recon straight from
     the pipeline's device planes), at bit depth bd (8 or 10), ss the
-    plane's vertical subsampling shift (0 luma; above 0 a chroma plane,
-    whose Wiener tap 0 is pinned to 0); pre the deblocked plane before
+    plane's vertical subsampling shift; chroma marks a chroma plane at
+    any subsampling, whose Wiener tap 0 is pinned to 0 (the reference
+    takes ss > 0 for it, and so a 4:2:2 or 4:4:4 chroma plane for luma,
+    a 7-tap Wiener filter that its 5-tap coding cannot carry); pre the
+    deblocked plane before
     CDEF, or None where CDEF is off: the filters read its rows beyond
     each stripe, as the spec's and ops/ref/lrf.py's do (the reference
     reads the CDEF output there, which decoders do not). The search,
@@ -622,8 +625,9 @@ def search_lr_plane(rec, src, bd: int = 8, ss: int = 0, pre=None):
     src = src.to(device=rec.device, dtype=torch.int32)
     if pre is not None:
         pre = pre.to(device=rec.device, dtype=torch.int32)
-    summary, fs_all, p3, tb = _search_dev(rec, src, bd, ss, pre)
-    grid, choice, taps = _choose(to_host(summary), tb, ss > 0)
+    summary, fs_all, p3, tb = _search_dev(rec, src, bd, ss, pre,
+                                          chroma=chroma)
+    grid, choice, taps = _choose(to_host(summary), tb, chroma)
     if not choice.any():
         return grid, rec, False
     return grid, _apply_choice(rec, p3, fs_all, tb, choice, taps, bd), True

@@ -5,9 +5,12 @@ cdef_filter_superblock). The decoder derives the filter direction from
 the pre-CDEF reconstruction, so the encoder must reproduce the whole
 process bit-exactly; the decode oracles arbitrate every detail.
 
-Scope: 8-bit 4:2:0, 64x64 CDEF units. With cdef_bits = 0 the per-SB
-index costs zero bits, so a uniform strength set needs only frame
-header signaling plus this filter.
+Scope: 64x64 CDEF units at 8, 10 and 12 bits. With cdef_bits = 0 the
+per-SB index costs zero bits, so a uniform strength set needs only frame
+header signaling plus this filter. The chroma blocks follow the chroma
+sampling (cdef_filter_frame's ss_x / ss_y, with the spec's 4:2:2
+direction map); the JAX package's copy filters chroma as 4:2:0 at every
+sampling, which decoders do not (ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ CDEF_DIRECTIONS = [
     [(1, 0), (2, 0)],
     [(1, 0), (2, -1)],
 ]
+
+# the chroma direction of a 4:2:2 block from its luma direction (the
+# spec's Cdef_Uv_Dir; dav1d's uv_dirs[1])
+UV_DIR_422 = [7, 0, 2, 4, 5, 6, 6, 6]
 
 PRI_TAPS = [[4, 2], [3, 3]]   # [pri_strength & 1][k]
 SEC_TAPS = [2, 1]
@@ -93,11 +100,13 @@ def constrain(diff, strength: int, damping: int):
 
 def cdef_filter_block(padded: np.ndarray, py: int, px: int, n: int,
                       pri: int, sec: int, damping: int, direction: int,
-                      var: int, is_luma: bool, bd: int = 8) -> np.ndarray:
-    """Filter one n x n block. `padded` holds the pre-CDEF plane padded
-    by >= 2 px with the LARGE sentinel; (py, px) is the block origin in
-    padded coordinates. Returns the filtered block."""
-    x = padded[py: py + n, px: px + n].astype(np.int64)
+                      var: int, is_luma: bool, bd: int = 8,
+                      nw: int | None = None) -> np.ndarray:
+    """Filter one n x nw block (nw None: n). `padded` holds the pre-CDEF
+    plane padded by >= 2 px with the LARGE sentinel; (py, px) is the
+    block origin in padded coordinates. Returns the filtered block."""
+    nw = n if nw is None else nw
+    x = padded[py: py + n, px: px + nw].astype(np.int64)
     if is_luma and pri:
         # spec: luma primary strength scales with direction variance;
         # flat blocks (var == 0) get no primary filtering
@@ -115,13 +124,13 @@ def cdef_filter_block(padded: np.ndarray, py: int, px: int, n: int,
     sdamp = pdamp
     # tap weights follow the (variance-adjusted) strength parity
     taps = PRI_TAPS[(pri_adj >> (bd - 8)) & 1]
-    out = np.zeros((n, n), np.int64)
+    out = np.zeros((n, nw), np.int64)
     mx = x.copy()
     mn = x.copy()
 
     def tap(dy, dx, t, strength, damp):
         nonlocal out, mx, mn
-        p = padded[py + dy: py + dy + n, px + dx: px + dx + n] \
+        p = padded[py + dy: py + dy + n, px + dx: px + dx + nw] \
             .astype(np.int64)
         valid = p != LARGE
         out = out + np.where(valid,
@@ -146,12 +155,15 @@ def cdef_filter_block(padded: np.ndarray, py: int, px: int, n: int,
 
 def cdef_filter_frame(planes, skip_8x8: np.ndarray, y_pri: int,
                       y_sec: int, uv_pri: int, uv_sec: int,
-                      damping: int, bd: int = 8):
+                      damping: int, bd: int = 8, ss_x: int = 1,
+                      ss_y: int = 1):
     """Apply CDEF to reconstruction planes in place.
 
     planes: [y, u, v] int32 (post-deblock recon). skip_8x8: bool
     [h/8, w/8], True where ALL coded blocks covering that luma 8x8 are
-    skip (such blocks are not filtered)."""
+    skip (such blocks are not filtered). ss_x / ss_y: the chroma
+    subsampling; a luma 8x8 block's chroma block is (8 >> ss_y) x
+    (8 >> ss_x), at 4:2:2 filtered along UV_DIR_422's direction."""
     # spec 7.15.3 CoeffShift: the 8-bit-scale header strengths scale
     # by << shift and the damping by + shift above 8-bit
     shift = bd - 8
@@ -190,12 +202,12 @@ def cdef_filter_frame(planes, skip_8x8: np.ndarray, y_pri: int,
                                       True, bd)
             if pu is not None and (uv_pri or uv_sec):
                 duv = d if uv_pri else 0
-                planes[1][by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = \
-                    cdef_filter_block(pu, by * 4 + pad, bx * 4 + pad, 4,
-                                      uv_pri, uv_sec, damping, duv, 0,
-                                      False, bd)
-                planes[2][by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = \
-                    cdef_filter_block(pv, by * 4 + pad, bx * 4 + pad, 4,
-                                      uv_pri, uv_sec, damping, duv, 0,
-                                      False, bd)
+                if ss_x != ss_y:
+                    duv = UV_DIR_422[duv] if uv_pri else 0
+                ch, cw = 8 >> ss_y, 8 >> ss_x
+                cy, cx = by * ch, bx * cw
+                for pl, pp in ((planes[1], pu), (planes[2], pv)):
+                    pl[cy:cy + ch, cx:cx + cw] = cdef_filter_block(
+                        pp, cy + pad, cx + pad, ch, uv_pri, uv_sec,
+                        damping, duv, 0, False, bd, nw=cw)
     return planes

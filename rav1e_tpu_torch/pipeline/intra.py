@@ -49,7 +49,11 @@ class PlaneState:
 def _edges(ps: PlaneState, x: int, y: int, w: int, h: int, bd: int = 8):
     """Spec 7.11.2 edge assembly: above/left extended to w+h with
     above-right / below-left availability from the decoded map, frame
-    clamping, and replication."""
+    clamping, and replication. The above-right pixels read stop at
+    x + 2w - 1 and the below-left ones at y + 2h - 1 (the spec's
+    aboveLimit / leftLimit), within the w + h of each edge; the JAX
+    package's copy reads h above-right and w below-left pixels, which
+    decoders do not on rectangular (4:2:2 chroma) blocks."""
     ph, pw = ps.src.shape
     have_a, have_l = y > 0, x > 0
     above = left = None
@@ -63,7 +67,7 @@ def _edges(ps: PlaneState, x: int, y: int, w: int, h: int, bd: int = 8):
         uy, ux = y // 4 - 1, (x + w) // 4
         has_tr = (ux < ps.dec.shape[1] and ps.dec[uy, ux])
         if has_tr:
-            n2 = min(h, pw - (x + w))
+            n2 = min(w, h, pw - (x + w))
             if n2 > 0:
                 a = np.concatenate(
                     [a, ps.rec[y - 1, x + w: x + w + n2]])
@@ -77,7 +81,7 @@ def _edges(ps: PlaneState, x: int, y: int, w: int, h: int, bd: int = 8):
         uy, ux = (y + h) // 4, x // 4 - 1
         has_bl = (uy < ps.dec.shape[0] and ps.dec[uy, ux])
         if has_bl:
-            n2 = min(w, ph - (y + h))
+            n2 = min(w, h, ph - (y + h))
             if n2 > 0:
                 ll = np.concatenate(
                     [ll, ps.rec[y + h: y + h + n2, x - 1]])
@@ -202,7 +206,8 @@ def encode_keyframe(planes: list[np.ndarray], qindex: int = 100,
             & skip_mi[::2, 1::2] & skip_mi[1::2, 1::2]
         cdef_filter_frame(frame_rec, skip8, fp.cdef_y_pri, fp.cdef_y_sec,
                           fp.cdef_uv_pri, fp.cdef_uv_sec,
-                          fp.cdef_damping, bd=bit_depth)
+                          fp.cdef_damping, bd=bit_depth, ss_x=ss_x,
+                          ss_y=ss_y)
     if lr:
         from rav1e_tpu_torch.pipeline.lr import apply_lr_frame
         fp.lr_types = apply_lr_frame(frame_rec, [y, u, v],

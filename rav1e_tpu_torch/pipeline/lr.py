@@ -39,7 +39,7 @@ def search_lr_frame(frame_rec, srcs, bit_depth: int, ss_y: int,
         grid, filtered, used = search_lr_plane(
             _on(rec, dev), _on(src, dev), bd=bit_depth,
             ss=0 if pi == 0 else ss_y,
-            pre=None if pre is None else _on(pre[pi], dev))
+            pre=None if pre is None else _on(pre[pi], dev), chroma=pi > 0)
         if used:
             types[pi] = 1          # RESTORE_SWITCHABLE
             units[pi] = grid

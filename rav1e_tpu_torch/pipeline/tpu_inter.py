@@ -45,7 +45,11 @@ Python TileWriter, as the reference packs them, its IR coded on the
 device. encode_pframe_tpu and encode_bframe_tpu code 8- and 10-bit
 4:2:0 (bit_depth; 10-bit pixels are int16 on the device, _pix_dtype),
 with loop restoration after CDEF when lr (pipeline/lr.py, the Python
-walk then packs the tile, as in the reference);
+walk then packs the tile, as in the reference), and in tiles with
+tile_grid: frame-global decisions, each tile walked in tile-local
+coordinates with its own entropy state (a P frame's on the C++ packer, on
+worker threads; a B frame's on the Python TileWriter), every tile of the
+frame range-coded in one od_ec launch (ec_cuda.pack_tile_irs);
 encode_pframe2_tpu and encode_gop_tpu are 8-bit, as the reference's.
 Other options raise NotImplementedError naming the ROADMAP.md item that
 brings them.
@@ -79,7 +83,7 @@ from rav1e_tpu_torch.core.constants import (
     TxType,
 )
 from rav1e_tpu_torch.device import SideStream, resolve_device, to_host
-from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
+from rav1e_tpu_torch.entropy.ec_cuda import IRRecorder, pack_tile_irs
 from rav1e_tpu_torch.entropy.native import NativeTileWriter
 from rav1e_tpu_torch.entropy.obu import (
     FrameParams,
@@ -2028,11 +2032,12 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     """Entropy-pack one P frame (single ref) from the batched outputs:
     the C++ packer (use_native, the reference's default) or the Python
     TileWriter walks the blocks on the host into od_ec symbol IR, which
-    is range-coded on `device` (the od_ec kernels on cuda). As in the
-    reference, the packer takes write_inter_tile_fast when there is no
-    split map, no CDEF index, no intra, 64x64 or 16->8 block, and
-    write_inter_tile_fast2 otherwise; a packer error raises. `timings`
-    receives tile_walk, ir_upload, ec_kernel and finish.
+    is range-coded on `device` (the od_ec kernels on cuda). The packer
+    walks every P frame with write_inter_tile_fast2 (the reference takes
+    its uniform-grid write_inter_tile_fast where there is no split map,
+    no CDEF index, no intra, 64x64 or 16->8 block: the same IR); a
+    packer error raises. `timings` receives tile_walk, ir_upload,
+    ec_kernel and finish.
 
     split/mv16/skip16 (optional) describe PARTITION_SPLIT 32-blocks: four
     16x16 inter blocks with their own MVs and skips, their TX_16X16 luma
@@ -2049,10 +2054,14 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     (compact_ladder) and a literal index per 64x64 SB in the tile.
     lr_ctx: (lr_types, lr_data) of the frame's loop restoration
     (pipeline/lr.py::search_lr_frame), which the Python walk codes, as
-    the reference's does. tile_grid raises NotImplementedError naming
-    its ROADMAP item."""
-    if tile_grid is not None:
-        _not_ported("multi-tile frames", "item 17 (parallel)")
+    the reference's does.
+
+    tile_grid (cols_log2, rows_log2): a multi-tile frame, as the
+    reference packs it: the decisions stay frame-global; each tile's
+    blocks walk in tile-local coordinates (its own entropy state, MV
+    stacks and contexts), write_inter_tile_fast2's tiles on worker
+    threads (the C++ walk runs without the GIL), and the tiles' IRs are
+    coded in ONE ec_pack launch (pack_tile_irs)."""
     if lr_ctx is not None:
         use_native = False
     dev = resolve_device(device)
@@ -2060,8 +2069,11 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     seq, fp, cdef_map, cdef_bits = _inter_headers(
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
         lr_ctx)
-    ti = TileInfo(seq)
-    mi_rows, mi_cols = h >> 2, w >> 2
+    if tile_grid is not None and lr_ctx is not None:
+        _not_ported("loop restoration in a multi-tile frame",
+                    "item 17 (parallel)")
+    ti = (TileInfo(seq) if tile_grid is None
+          else TileInfo(seq, tile_grid[0], tile_grid[1]))
     intra_map = None if choice is None else np.asarray(choice) == 3
     if intra_map is not None and not intra_map.any():
         intra_map = None
@@ -2069,34 +2081,19 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         b64_map = None
     if split16 is not None and not np.asarray(split16).any():
         split16 = skip8 = None
-    if use_native:
-        tw = NativeTileWriter(mi_rows, mi_cols, qindex, inter_frame=True,
-                              device=dev, timings=timings)
-        if (split is None and cdef_bits == 0 and intra_map is None
-                and b64_map is None and split16 is None):
-            tile = tw.write_inter_tile_fast(mv8, skip, lv_y, lv_u, lv_v)
-        else:
-            if split is None:
-                B = mv8.shape[0]
-                split = np.zeros(B, bool)
-                mv16 = np.repeat(mv8[:, None, :], 4, axis=1)
-                skip16 = np.repeat(np.asarray(skip).reshape(B, 1), 4,
-                                   axis=1)
-            # 8x8 children inherit the parent 16's MV
-            mvq8 = (None if split16 is None else
-                    np.repeat(np.asarray(mv16)[:, :, None, :], 4, axis=2))
-            tile = tw.write_inter_tile_fast2(
-                split, mv8, skip, mv16, skip16, lv_y, lv_u, lv_v,
-                cdef_idx=cdef_map, cdef_bits=cdef_bits, intra32=intra_map,
-                b64=b64_map, split16=split16, mvq8=mvq8, skip8=skip8)
-    else:
+    if not use_native:
         partitions, blocks = _pframe_tile_dicts(
             w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, intra_map,
             b64_map, split16, skip8)
-        tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
-                            cdef_bits, dev, timings, t_walk,
-                            lr_data=lr_ctx and lr_ctx[1])
-    return interframe_packet(seq, fp, ti, [tile], order_hint,
+        tiles = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
+                             cdef_bits, dev, timings, t_walk,
+                             lr_data=lr_ctx and lr_ctx[1])
+    else:
+        tiles = _pack_pframe_tiles(
+            ti, h, w, qindex, mv8, skip, lv_y, lv_u, lv_v, split, mv16,
+            skip16, cdef_map, cdef_bits, intra_map, b64_map, split16, skip8,
+            dev, timings)
+    return interframe_packet(seq, fp, ti, tiles, order_hint,
                              refresh_flags=refresh_flags,
                              ref_idx=[ref_slot] * 7, show_frame=show_frame)
 
@@ -2135,26 +2132,104 @@ def _inter_headers(h, w, qindex, cdef, film_grain, render_size, lf_level,
     return seq, fp, cdef_map, cdef_bits
 
 
-def _python_walk(h, w, qindex, partitions, blocks, cdef_map, cdef_bits,
+def _tile_spans(ti, h: int, w: int):
+    """The tiles of TileInfo ti in raster order, each (row0, row1, col0,
+    col1) in 64x64 superblocks, clipped to the frame."""
+    sbr, sbc = -(-h // 64), -(-w // 64)
+    return [(min(ti.row_starts[tr], sbr), min(ti.row_starts[tr + 1], sbr),
+             min(ti.col_starts[tc], sbc), min(ti.col_starts[tc + 1], sbc))
+            for tr in range(ti.n_rows) for tc in range(ti.n_cols)]
+
+
+def _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map, cdef_bits,
                  device, timings, t_walk, **writer):
-    """One tile walked by the Python TileWriter (keyword arguments
-    `writer`) and recorded by RecordingEncoder, its IR coded on `device`
-    (the od_ec kernels on cuda). `timings` receives tile_walk (the walk
-    since t_walk, the coding stages taken out) and the coding stages."""
-    ec_times: dict = {}
-    tw = TileWriter(h >> 2, w >> 2, qindex, inter_frame=True,
-                    encoder=functools.partial(RecordingEncoder, device,
-                                              ec_times), **writer)
-    if cdef_bits:
-        tw.cdef_bits = cdef_bits
-        tw.cdef_idx_map = cdef_map
-    tile = tw.write_tile(partitions, blocks)
+    """The tiles of TileInfo ti walked by the Python TileWriter (keyword
+    arguments `writer`), each in tile-local coordinates with its own
+    entropy state and its slice of the CDEF index map, into od_ec IR;
+    the tiles' IRs are coded in one launch on `device` (pack_tile_irs:
+    the od_ec kernels on cuda). `timings` receives tile_walk (the walks
+    since t_walk) and the coding stages. Returns the tiles' bytes."""
+    irs = []
+    for r0, r1, c0, c1 in _tile_spans(ti, h, w):
+        m0, m1 = r0 * 16, min(r1 * 16, h >> 2)
+        n0, n1 = c0 * 16, min(c1 * 16, w >> 2)
+        tw = TileWriter(m1 - m0, n1 - n0, qindex, inter_frame=True,
+                        encoder=IRRecorder, **writer)
+        if cdef_bits:
+            tw.cdef_bits = cdef_bits
+            tw.cdef_idx_map = cdef_map[r0:r1, c0:c1]
+        tparts = {(r - m0, c - n0, bs): p
+                  for (r, c, bs), p in partitions.items()
+                  if m0 <= r < m1 and n0 <= c < n1}
+        tblocks = {(r - m0, c - n0): d for (r, c), d in blocks.items()
+                   if m0 <= r < m1 and n0 <= c < n1}
+        irs.append(tw.write_tile(tparts, tblocks))
+    return _code_tiles(irs, device, timings, t_walk)
+
+
+def _code_tiles(irs, device, timings, t_walk):
+    """A frame's tile IRs coded in one launch; `timings` gets tile_walk,
+    the time since t_walk before it, and the coding stages."""
     if timings is not None:
-        timings["tile_walk"] = (time.perf_counter() - t_walk
-                                - ec_times["ec_kernel"]
-                                - ec_times["finish"])
-        timings.update(ec_times)
-    return tile
+        timings["tile_walk"] = time.perf_counter() - t_walk
+    return pack_tile_irs(irs, device, timings)
+
+
+def _pack_pframe_tiles(ti, h, w, qindex, mv8, skip, lv_y, lv_u, lv_v, split,
+                       mv16, skip16, cdef_map, cdef_bits, intra_map, b64_map,
+                       split16, skip8, device, timings):
+    """The tiles of a P frame (one, or a multi-tile frame as the
+    reference's _pack_pframe(tile_grid=...) packs it): each tile's
+    32-blocks (index set bidx) and its slices of the CDEF and 64x64 maps
+    through the C++ packer's write_inter_tile_fast2 in tile-local
+    coordinates, the walks of several tiles on up to 8 worker threads;
+    then their IRs in one ec_pack launch. `timings` gets tile_walk (from
+    the first walk's start to the last IR's hand-back) and the coding
+    stages."""
+    B = mv8.shape[0]
+    nbx = w // 32
+    if split is None:
+        split = np.zeros(B, bool)
+        mv16 = np.repeat(mv8[:, None, :], 4, axis=1)
+        skip16 = np.repeat(np.asarray(skip).reshape(B, 1), 4, axis=1)
+    # 8x8 children inherit the parent 16's MV
+    mvq8 = (None if split16 is None else
+            np.repeat(np.asarray(mv16)[:, :, None, :], 4, axis=2))
+
+    spans = _tile_spans(ti, h, w)
+
+    def walk(span):
+        r0, r1, c0, c1 = span
+        brow = np.arange(r0 * 2, min(r1 * 2, h // 32))
+        bcol = np.arange(c0 * 2, min(c1 * 2, w // 32))
+        bidx = (brow[:, None] * nbx + bcol[None, :]).reshape(-1)
+        whole = len(spans) == 1         # bidx is arange(B), the maps whole
+
+        def sel(a):
+            return a if a is None or whole else a[bidx]
+
+        def sb(a):
+            return a if a is None or whole else a[r0:r1, c0:c1]
+
+        args = [sel(a) for a in (split, mv8, skip, mv16, skip16, lv_y, lv_u,
+                                 lv_v)]
+        kw = dict(cdef_idx=sb(cdef_map), cdef_bits=cdef_bits,
+                  intra32=sel(intra_map), b64=sb(b64_map),
+                  split16=sel(split16), mvq8=sel(mvq8), skip8=sel(skip8))
+        tw = NativeTileWriter(min(r1 * 16, h >> 2) - r0 * 16,
+                              min(c1 * 16, w >> 2) - c0 * 16, qindex,
+                              inter_frame=True, device=device, ir_only=True)
+        t0 = time.perf_counter()
+        return t0, tw.write_inter_tile_fast2(*args, **kw)
+
+    if len(spans) == 1:
+        walked = [walk(spans[0])]
+    else:
+        with ThreadPoolExecutor(min(len(spans), 8)) as ex:
+            walked = list(ex.map(walk, spans))
+    t_walk = min(t for t, _ in walked)
+    irs = [ir for _, ir in walked]
+    return _code_tiles(irs, device, timings, t_walk)
 
 
 def _pframe_tile_dicts(w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
@@ -2284,8 +2359,10 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     speed-7 toolset is refine16=False, search=8; speed 8 adds
     use_split=False, and speeds 9-10 take subpel=False. use_native: the
     C++ packer walks the tile (the reference's default), else the Python
-    TileWriter (the same IR and bytes). lr and tile_grid raise
-    NotImplementedError naming their ROADMAP item.
+    TileWriter (the same IR and bytes). tile_grid (cols_log2, rows_log2)
+    codes a multi-tile frame from the same frame-global decisions (the
+    C++ packer a tile, every tile coded in one ec_pack launch; with lr it
+    raises NotImplementedError naming its ROADMAP item).
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
@@ -2301,8 +2378,9 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     recon."""
     if lr and return_device:
         raise ValueError("return_device is incompatible with lr")
-    if tile_grid is not None:
-        _not_ported("multi-tile frames", "item 17 (parallel)")
+    if lr and tile_grid is not None:
+        _not_ported("loop restoration in a multi-tile frame",
+                    "item 17 (parallel)")
     _check_bit_depth(bit_depth)
     y, u, v = planes
     h, w = y.shape[0], y.shape[1]
@@ -2342,7 +2420,8 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
                        b64_map=b64_map if b64_rdo else None,
                        split16=split16 if use_split8 else None,
                        skip8=skip8 if use_split8 else None,
-                       bit_depth=bit_depth, device=dev, timings=timings)
+                       bit_depth=bit_depth, tile_grid=tile_grid, device=dev,
+                       timings=timings)
     if return_device:
         return pkt, rec, rec_dev
     return pkt, rec
@@ -2350,8 +2429,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
 
 def _split_args(use_split: bool, split, mv16, skip16) -> dict:
     """_pack_pframe's split arguments: the fetched maps, or None for a
-    step without split RDO (the packer then takes write_inter_tile_fast
-    when nothing else needs write_inter_tile_fast2)."""
+    step without split RDO (every 32-block whole)."""
     if not use_split:
         return dict(split=None, mv16=None, skip16=None)
     return dict(split=split, mv16=mv16, skip16=skip16)
@@ -2394,7 +2472,7 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     from rav1e_tpu_torch.pipeline.tpu_intra import (_check_options,
                                                     encode_keyframe_tpu)
     t_gop = time.perf_counter()
-    _check_options(cdef, False, False, frames[0], None)
+    _check_options(cdef, frames[0], None)
     ss = SpeedSettings.from_preset(speed)
     dev = resolve_device(device)
 
@@ -2492,18 +2570,21 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
                  tile_grid: tuple | None = None, device=None,
                  timings: dict | None = None):
     """Entropy-pack one B frame from the two-reference step's outputs, as
-    the reference does: the Python TileWriter walks the blocks (recorded by
-    RecordingEncoder, the IR coded on `device`). choice[b]: 0 single-LAST
+    the reference does: the Python TileWriter walks the blocks into od_ec
+    IR (_python_walk), coded on `device`. choice[b]: 0 single-LAST
     (fwd), 1 single-ALTREF (bwd), 2 COMPOUND_AVERAGE (LAST, ALTREF); mv8 is
     the primary MV (fwd for 0 and 2, bwd for 1), mvb8 the bwd MV of a
     compound block. A split 32-block's four 16x16 children are the
     parent's (ref choice, MV or MV pair) or, where mv16 is zero, single-
     LAST GLOBALMV blocks. `timings` receives tile_walk and the coding
     stages. lr_ctx: (lr_types, lr_data) of the frame's loop restoration,
-    coded by the walk. tile_grid and merged 64x64 blocks raise
-    NotImplementedError."""
-    if tile_grid is not None:
-        _not_ported("multi-tile frames", "item 17 (parallel)")
+    coded by the walk. tile_grid (cols_log2, rows_log2): a multi-tile
+    frame, as the reference packs it: one Python TileWriter a tile in
+    tile-local coordinates, the tiles' IRs coded in one ec_pack launch.
+    Merged 64x64 blocks raise NotImplementedError."""
+    if tile_grid is not None and lr_ctx is not None:
+        _not_ported("loop restoration in a multi-tile frame",
+                    "item 17 (parallel)")
     if b64_map is not None and np.asarray(b64_map).any():
         raise NotImplementedError(
             "merged 64x64 blocks in a B frame: the two-reference 64x64 "
@@ -2513,7 +2594,8 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     seq, fp, cdef_map, cdef_bits = _inter_headers(
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
         lr_ctx)
-    ti = TileInfo(seq)
+    ti = (TileInfo(seq) if tile_grid is None
+          else TileInfo(seq, tile_grid[0], tile_grid[1]))
     nbx = w // 32
     partitions: dict = {}
     blocks: dict = {}
@@ -2559,14 +2641,15 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
         partitions[(r, c, int(BlockSize.B32X32))] = PartitionType.NONE
         blocks[(r, c)] = block(mv8[b], mvb8[b], ch, skip[b], lv_y[b],
                                lv_u[b], lv_v[b])
-    tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
-                        cdef_bits, dev, timings, t_walk,
-                        ref_sign_bias={1: False, 7: True},
-                        reference_select=True, lr_data=lr_ctx and lr_ctx[1])
+    tiles = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
+                         cdef_bits, dev, timings, t_walk,
+                         ref_sign_bias={1: False, 7: True},
+                         reference_select=True,
+                         lr_data=lr_ctx and lr_ctx[1])
     fp.reference_select = True
     fh, bh2 = ref_hints or (0, order_hint + 1)
     fp.ref_order_hints = [fh] * 6 + [bh2]
-    return interframe_packet(seq, fp, ti, [tile], order_hint,
+    return interframe_packet(seq, fp, ti, tiles, order_hint,
                              refresh_flags=refresh_flags,
                              ref_idx=[slot_fwd] * 6 + [slot_bwd],
                              show_frame=show_frame)
@@ -2600,10 +2683,14 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     source (pack_src) on the device. The packet is the reference's
     Python TileWriter walk with its IR coded on the device. `timings`
     receives each stage's wall time. lr: loop restoration after CDEF, as
-    encode_pframe_tpu's. tile_grid raises NotImplementedError naming its
-    ROADMAP item. Returns (packet, [y, u, v] recon int32)."""
-    if tile_grid is not None:
-        _not_ported("multi-tile frames", "item 17 (parallel)")
+    encode_pframe_tpu's. tile_grid (cols_log2, rows_log2) codes a
+    multi-tile frame from the same decisions (one Python TileWriter a
+    tile, every tile coded in one ec_pack launch; with lr it raises
+    NotImplementedError naming its ROADMAP item). Returns (packet, [y, u,
+    v] recon int32)."""
+    if lr and tile_grid is not None:
+        _not_ported("loop restoration in a multi-tile frame",
+                    "item 17 (parallel)")
     _check_bit_depth(bit_depth)
     h, w = planes[0].shape[0], planes[0].shape[1]
     assert h % 32 == 0 and w % 32 == 0
@@ -2639,7 +2726,7 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
                        b64_map=b64m if b64_rdo else None,
                        split=split if use_split else None, mv16=mv16,
                        skip16=skip16, lr_ctx=lr_ctx, bit_depth=bit_depth,
-                       device=dev, timings=timings)
+                       tile_grid=tile_grid, device=dev, timings=timings)
     return pkt, rec
 
 
@@ -2702,9 +2789,9 @@ def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,
         if not d.skip:
             d.coeffs = {0: lv_y[b], 1: lv_u[b], 2: lv_v[b]}
         blocks[(r, c)] = d
-    tile = _python_walk(h, w, qindex, partitions, blocks, cdef_map,
-                        cdef_bits, dev, timings, t_walk,
-                        ref_sign_bias={1: False, 4: False})
+    tile, = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
+                         cdef_bits, dev, timings, t_walk,
+                         ref_sign_bias={1: False, 4: False})
     ref_idx = [slot_last] * 7
     ref_idx[3] = slot_golden
     fp.ref_order_hints = [0] * 7

@@ -40,9 +40,11 @@ speed-6 keyframe:
     256), each quad may split again into four 8x8 luma blocks with 4x4
     joint-uv chroma (the 16->8 split).
 Loop restoration (lr=True) runs on the device recon (pipeline/lr.py)
-and packs with the Python TileWriter, as the reference does. Other
-options (AQ, bit depth > 8) raise NotImplementedError naming the
-ROADMAP.md item that brings them.
+and packs with the Python TileWriter, as the reference does; so does
+variance AQ (aq=True: a segment a 32-block by its luma variance
+quartile, each block quantized at its segment's qindex in both phases).
+A bit depth above 8 raises NotImplementedError naming the ROADMAP.md
+item (the reference codes it on its numpy keyframe, pipeline/intra.py).
 """
 
 from __future__ import annotations
@@ -90,7 +92,6 @@ from rav1e_tpu_torch.ops.ref.deblock import level_from_qindex
 from rav1e_tpu_torch.ops.ref.quant import ac_q, chroma_dq, dc_q, tx_scale
 from rav1e_tpu_torch.pipeline.tpu_inter import (
     _nomark,
-    _not_ported,
     _Stages,
     gather_dense,
     nnz_stream,
@@ -325,9 +326,13 @@ def _dc_grids(tx_size: TxSize, device: torch.device):
 
 
 def _q_dyn(cf, tx_size, dcq, acq):
-    """Quantize with quantizer scalars (0-d int32 tensors)."""
+    """Quantize with quantizer scalars (0-d int32 tensors) or per-block
+    quantizers ([n] int32, one per leading block of cf: variance AQ,
+    each block at its segment's qindex, spec get_qidx)."""
     shift = tx_scale(tx_size)
     m, bias = _dc_grids(tx_size, cf.device)
+    if dcq.dim():
+        dcq, acq = dcq[:, None, None], acq[:, None, None]
     q = torch.where(m, dcq, acq).to(torch.int32)
     a = torch.abs(cf) << shift
     lv = torch.clamp(
@@ -339,6 +344,8 @@ def _q_dyn(cf, tx_size, dcq, acq):
 def _dq_dyn(lv, tx_size, dcq, acq):
     shift = tx_scale(tx_size)
     m, _ = _dc_grids(tx_size, lv.device)
+    if dcq.dim():
+        dcq, acq = dcq[:, None, None], acq[:, None, None]
     q = torch.where(m, dcq, acq).to(torch.int32)
     dqv = ((torch.abs(lv) * q) & 0xFFFFFF) >> shift
     return torch.sign(lv) * dqv
@@ -347,7 +354,8 @@ def _dq_dyn(lv, tx_size, dcq, acq):
 def _cand_eval(preds, srcb, tx_size, dqs, tts, maxpx=255, approx=False):
     """Evaluate K prediction candidates: returns (rec, lv, sse) stacked
     [K, N, h, w] / [K, N]; tts: per-candidate TxType list (one batched
-    chain when all candidates share a type, else one chain each).
+    chain when all candidates share a type, else one chain each); dqs:
+    the (dc, ac) quantizers, scalars or per-block [N].
 
     approx=True swaps the spec-exact integer inverse for the float
     inverse — for mode RANKING only; callers reconstruct survivors
@@ -356,6 +364,8 @@ def _cand_eval(preds, srcb, tx_size, dqs, tts, maxpx=255, approx=False):
     K, n, blkh, blkw = preds.shape
     dq0, dq1 = dqs
     if len(set(tts)) == 1:
+        if dq0.dim():
+            dq0, dq1 = dq0.repeat(K), dq1.repeat(K)
         resid = (srcb[None] - preds).reshape(K * n, blkh, blkw)
         cf = T.forward_transform(resid, tx_size, tts[0])
         lv = _q_dyn(cf, tx_size, dq0, dq1)
@@ -415,6 +425,12 @@ def _sub_edge(cur, ea, el, etl, has_a, has_l, r0: int, c0: int, half: int):
 
 
 QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))   # TL, TR, BL, BR (row, col)
+
+KF_SEG_ALT_Q = (-18, -6, 6, 18)     # variance-AQ segment q deltas
+# rd's quantizer keys, their per-block variance-AQ grids [bh, bw] and
+# those grids skewed [D, S] (the reference's names)
+_AQ_KEYS = (("qdc", "qdc_g", "qdc_sk"), ("qac", "qac_g", "qac_sk"),
+            ("qdc_c", "qdc_cg", "qdc_csk"), ("qac_c", "qac_cg", "qac_csk"))
 
 # luma TX16 intra tx-type candidates: symbols 1..4 of INTRA_TX_SET2
 # (IDTX excluded: a screen-content tool)
@@ -511,7 +527,9 @@ def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False,
     modes: above-right pixels where block (i-1, j+1) is decoded first,
     D203 only where the decoder replicates below-left), "cfl_bits" (the
     CfL candidate), "ytxb" (the quads' TX type search) and "y8" (the
-    16->8 split)."""
+    16->8 split). With "qdc_g" (variance AQ: the per-block quantizers
+    qdc_g / qac_g / qdc_cg / qac_cg [bh, bw]) each block quantizes at its
+    segment's qindex."""
     lam = rd["lam"]
     ry, ru, rv = edges
     dev = ry.device
@@ -530,6 +548,10 @@ def wavefront_frame(edges, srcs, rd, modes_y, modes_uv, approx=False,
 
     def blk(arr):
         return arr.reshape((-1,) + tuple(arr.shape[2:]))
+
+    if "qdc_g" in rd:
+        # variance AQ: the blocks' segment quantizers, in block order
+        rd = rd | {k: blk(rd[g]) for k, g, _ in _AQ_KEYS}
 
     def gather_edges(rec, blkh, blkw):
         above = blk(_dn(rec))[:, blkh - 1, :]
@@ -916,11 +938,15 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
     of blocks whose chroma mode is UV_CFL_PRED; ytx_sk each luma quad's
     intra_ext_tx2 symbol (1..4 -> QUAD_TXS); s16_sk the quads coded as
     four 8x8 luma blocks (modes ym8_sk [D, S, 4, 4]) with 4x4 chroma
-    (uvm8_sk). Returns skewed (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v)."""
+    (uvm8_sk). With "qdc_sk" in rd (variance AQ: the per-block
+    quantizers skewed, qdc_sk / qac_sk / qdc_csk / qac_csk [D, S]) each
+    diagonal quantizes its blocks at their segments' qindex. Returns
+    skewed (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v)."""
     D, S = has_l_tab.shape
     dev = sy_sk.device
     qdc, qac = rd["qdc"], rd["qac"]
     qdc_c, qac_c = rd["qdc_c"], rd["qac_c"]
+    aq = "qdc_sk" in rd
     if modes_quad is None:
         modes_quad = modes_y
     ext = tr_tab is not None
@@ -1016,6 +1042,10 @@ def recon_wavefront(sy_sk, su_sk, sv_sk, ym_sk, uvm_sk, has_l_tab, rd,
         uvm_d = rows(uvm_sk, d).long()
         sy_d = rows(sy_sk, d)
         s16_d = rows(s16_sk, d) if s16_sk is not None else None
+        if aq:
+            # variance AQ: the diagonal's per-block segment quantizers
+            qdc, qac, qdc_c, qac_c = (rows(rd[sk], d)
+                                      for _, _, sk in _AQ_KEYS)
 
         # ---- luma 32 (single chosen mode) ----
         ed_y = edges(ry_sk, LB, row)
@@ -1291,8 +1321,9 @@ class KeyframeDevice(NamedTuple):
     """What the device half of a keyframe encode leaves on the device:
     the unskewed 14-grid state (pre-deblock recon, levels, decisions),
     the meta buffer, the filtered recon and the int16 level arrays; the
-    CDEF settings the host half signals; and, for loop restoration with
-    CDEF on, the deblocked planes before CDEF."""
+    CDEF settings the host half signals; for loop restoration with CDEF
+    on, the deblocked planes before CDEF; and with variance AQ the
+    segment map [bh, bw] and the segments' q deltas."""
     state: tuple
     meta: torch.Tensor
     rec_packed: torch.Tensor
@@ -1302,13 +1333,13 @@ class KeyframeDevice(NamedTuple):
     cdef: tuple | None = None
     cdef_rdo: bool = True
     pre_cdef: list | None = None
+    seg_map: np.ndarray | None = None
+    seg_alt_q: list | None = None
 
 
-def _check_options(cdef, lr, aq, planes, seq_extra):
+def _check_options(cdef, planes, seq_extra):
     if cdef is not None and len(cdef) != 5:
         raise ValueError("cdef is (y_pri, y_sec, uv_pri, uv_sec, damping)")
-    if aq:
-        _not_ported("variance AQ", "item 14 (keyframe variance AQ)")
     if ((seq_extra or {}).get("bit_depth", 8) > 8
             or any(int(np.max(p)) > 255 for p in planes)):
         # as the reference's: its device keyframe is 8-bit too
@@ -1335,14 +1366,15 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
                      deblock: bool = True, cdef: tuple | None = None,
                      cdef_rdo: bool = True, device=None,
                      timings: dict | None = None,
-                     lr: bool = False) -> KeyframeDevice:
+                     lr: bool = False, aq: bool = False) -> KeyframeDevice:
     """The device half of a keyframe encode (steps 1-5 of
     encode_keyframe_tpu): upload, rd, phase 1, phase 2, the deblock and
     CDEF searches and meta packing, with the speed preset's mode sets.
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping); with
     cdef_rdo each 64x64 SB takes its ladder entry (damping cdef[4]),
     else the tuple is one fixed strength. lr keeps the deblocked planes
-    before CDEF (pre_cdef) for loop restoration."""
+    before CDEF (pre_cdef) for loop restoration. aq: variance AQ, each
+    32-block quantized at its segment's qindex (_aq_segments)."""
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     y, u, v = (np.asarray(p) for p in planes)
@@ -1371,6 +1403,11 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
     rd = build_rd(qindex, modes_y, modes_uv, modes_quad=modes_quad,
                   device=dev, use_cfl=ss.cfl, tx_search=tx_search,
                   split8=split8)
+    seg_map = seg_alt_q = None
+    if aq:
+        seg_map, seg_alt_q, qgrids = _aq_segments(y, qindex)
+        for k, g in qgrids.items():
+            rd[k] = torch.as_tensor(g, device=dev)
     ii_sk, jj_sk, has_l_sk, valid_sk, un_d, un_s = _skew_tables(bh, bw, ext)
     tr_sk = None
     if ext:
@@ -1389,6 +1426,11 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
 
     def unskew(sk):
         return sk[ud, us]
+
+    if aq:
+        # phase 2 reads the quantizers per skewed diagonal
+        for _, g, sk in _AQ_KEYS:
+            rd[sk] = skew(rd[g])
 
     # ---- phase 1: mode decisions from SOURCE edges, fully batched
     dec = wavefront_frame((sy, su, sv), (sy, su, sv), rd, modes_y,
@@ -1412,7 +1454,37 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
     meta, lvy, lvu, lvv = _kf_meta(state, lf_lvl, cdef_idx, split8)
     stages.mark("meta")
     return KeyframeDevice(state, meta, rec_packed, lvy, lvu, lvv,
-                          None if cdef is None else cdef_prm, cdef_rdo, pre)
+                          None if cdef is None else cdef_prm, cdef_rdo, pre,
+                          seg_map, seg_alt_q)
+
+
+def _aq_segments(y: np.ndarray, qindex: int):
+    """Variance AQ, host numpy as in the reference: each 32-block's luma
+    variance (f64), its quartile segment (np.quantile, np.digitize), the
+    segments' q deltas KF_SEG_ALT_Q clamped so base + delta stays in [1,
+    255] (qindex 0 would make the segment lossless), and each block's
+    quantizers at its segment's qindex (spec get_qidx; rav1e
+    src/segmentation.rs). The rate tables and lambda stay at the base q:
+    the CDFs depend only on base_q_idx. Returns (seg_map [bh, bw] int8,
+    seg_alt_q for FrameParams and TileWriter, {rd key: [bh, bw] int32})."""
+    from rav1e_tpu_torch.entropy.cdf import tables
+    h, w = y.shape
+    bh, bw = h // LB, w // LB
+    yb = (np.asarray(y).reshape(bh, LB, bw, LB).transpose(0, 2, 1, 3)
+          .astype(np.float64))
+    var = yb.var(axis=(2, 3))
+    qs = (np.quantile(var, (0.25, 0.5, 0.75)) if var.size > 1
+          else (var.flat[0],) * 3)
+    seg_map = np.digitize(var, qs).astype(np.int8)
+    alt = np.clip(np.asarray(KF_SEG_ALT_Q, np.int32), 1 - qindex,
+                  255 - qindex)
+    qi_b = (qindex + alt[seg_map]).astype(np.int32)
+    qi_cb = np.clip(qi_b + chroma_dq(qindex), 0, 255)
+    t_ = tables()
+    grids = {"qdc_g": t_["dc_q_8"][qi_b], "qac_g": t_["ac_q_8"][qi_b],
+             "qdc_cg": t_["dc_q_8"][qi_cb], "qac_cg": t_["ac_q_8"][qi_cb]}
+    return (seg_map, [int(a) for a in alt] + [None] * 4,
+            {k: g.astype(np.int32) for k, g in grids.items()})
 
 
 def _detail_band8(y: np.ndarray) -> float:
@@ -1462,13 +1534,17 @@ def encode_keyframe_tpu(planes: list[np.ndarray], qindex: int = 100,
     filtered recon's three planes on the device (uint8), for P frames to
     reference meanwhile. lr=True (loop restoration: the search and
     apply on the device, ops/lrf.py) packs with the Python TileWriter,
-    as the reference does, and cannot be deferred."""
-    _check_options(cdef, lr, aq, planes, seq_extra)
+    as the reference does, and cannot be deferred. aq=True (variance AQ:
+    four segments by each 32-block's luma variance quartile, q deltas
+    KF_SEG_ALT_Q, each block quantized at its segment's qindex on the
+    device) signals segmentation and packs with the Python TileWriter,
+    as the reference does."""
+    _check_options(cdef, planes, seq_extra)
     if deferred and lr:
         raise ValueError("deferred is incompatible with lr")
     dev = resolve_device(device)
     kd = analyze_keyframe(planes, qindex, speed, deblock, cdef, cdef_rdo,
-                          dev, timings, lr=lr)
+                          dev, timings, lr=lr, aq=aq)
     if not deferred:
         return pack_keyframe(kd, planes, qindex, render_size, seq_extra,
                              dev, timings, lr=lr)
@@ -1498,7 +1574,9 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     chip_smoke.py hold the packer against. lr runs loop restoration on
     the device recon before the fetch (pipeline/lr.py) and walks the
     Python TileWriter, whose tiles carry the units' parameters, as the
-    reference does. Returns (packet, [y, u, v] recon int32)."""
+    reference does; so does a variance-AQ keyframe (kd.seg_map), whose
+    blocks carry their segment ids. Returns (packet, [y, u, v] recon
+    int32)."""
     dev = resolve_device(device)
     stages = _Stages(dev, timings)
     h, w = np.asarray(planes[0]).shape
@@ -1578,6 +1656,9 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     if lr:
         seq.enable_restoration = True
         fp.lr_types = lr_types
+    if kd.seg_map is not None:
+        fp.seg_alt_q = kd.seg_alt_q
+        use_native = False
     fp.delta_q_u_dc = fp.delta_q_u_ac = chroma_dq(qindex)
     cdef_bits = 0
     if cdef_map is not None:
@@ -1602,12 +1683,14 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     ec_times: dict = {}
     tw = TileWriter(mi_rows, mi_cols, qindex,
                     encoder=functools.partial(RecordingEncoder, dev,
-                                              ec_times), lr_data=lr_data)
+                                              ec_times), lr_data=lr_data,
+                    seg_alt_q=kd.seg_alt_q)
     if cdef_bits:
         tw.cdef_bits = cdef_bits
         tw.cdef_idx_map = cdef_map
     partitions, blocks = _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8,
-                                        uvm8, ly, lu, lvv, mi_rows, mi_cols)
+                                        uvm8, ly, lu, lvv, mi_rows, mi_cols,
+                                        kd.seg_map)
     tile = tw.write_tile(partitions, blocks)
     pkt = keyframe_packet(seq, fp, ti, [tile])
     if timings is not None:
@@ -1619,18 +1702,20 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
 
 
 def _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8, uvm8, ly, lu, lvv,
-                   mi_rows: int, mi_cols: int):
+                   mi_rows: int, mi_cols: int, seg_map=None):
     """The keyframe's blocks, from pack_keyframe's grids ([bh, bw, ...]),
     as TileWriter.write_tile's partitions and blocks dicts (the Python
-    writer's walk, use_native=False)."""
+    writer's walk, use_native=False); seg_map [bh, bw] gives each
+    32-block's blocks their segment id (variance AQ)."""
     bh, bw = sp.shape
     partitions: dict = {}
     blocks: dict = {}
+    seg = 0
 
     def intra_block(y_mode, uv_mode, yl, ul, vl, y_tx_type, cfl=None):
         d = BlockDecision(y_mode=PredictionMode(int(y_mode)),
                           uv_mode=PredictionMode(int(uv_mode)),
-                          skip=False, seg_id=0)
+                          skip=False, seg_id=seg)
         if d.uv_mode == PredictionMode.UV_CFL_PRED:
             d.cfl_alpha_idx = (int(cfl[0]), int(cfl[1]))
         if not yl.any() and not ul.any() and not vl.any():
@@ -1643,6 +1728,8 @@ def _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8, uvm8, ly, lu, lvv,
         for bj in range(bw):
             r, c = bi * 8, bj * 8
             yl, ul, vl = ly[bi, bj], lu[bi, bj], lvv[bi, bj]
+            if seg_map is not None:
+                seg = int(seg_map[bi, bj])
             if not sp[bi, bj]:
                 blocks[(r, c)] = intra_block(my[bi, bj, 0], mu[bi, bj, 0],
                                              yl, ul, vl, TxType.DCT_DCT,

@@ -134,16 +134,6 @@ def _dirs_equal_plain_at_the_extremes_on_card(what):
             assert int(d[0, 0]) == 0 and int(v[0, 0]) == 0
 
 
-@pytest.mark.cuda
-def test_dirs_equal_plain_at_the_extremes_on_card():
-    """_dirs_equal_plain_at_the_extremes_on_card on each case: the
-    extreme blocks, them from a misaligned base, a 1928x136 frame."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for what in ("extremes", "misaligned", "1928x136"):
-        _dirs_equal_plain_at_the_extremes_on_card(what)
-
-
 def _kernels_equal_plain_on_card(w, h):
     """On the card: cdef_dirs, cdef_ladder_sse (both branches where the
     frame is 64-aligned) and cdef_apply (ladder winners, every entry,
@@ -185,15 +175,6 @@ def _kernels_equal_plain_on_card(w, h):
                                   strengths=(0, 0, 0, 0)) == [0, 3 * nsb]
 
 
-@pytest.mark.cuda
-def test_kernels_equal_plain_on_card():
-    """_kernels_equal_plain_on_card at each frame size."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for w, h in ((1920, 1088), (1920, 1056), (320, 224)):
-        _kernels_equal_plain_on_card(w, h)
-
-
 def _kernels_past_2_24_on_card(w, h, seed, scale):
     """On the card, on noise at q 255 where a cell's SSE passes 2^24 and
     the f32 order decides: the tables equal the plain version's bit for
@@ -215,15 +196,6 @@ def _kernels_past_2_24_on_card(w, h, seed, scale):
         idx = tc._choose(tc._sse_sb(sses, sampled, (nby + 1) // 2,
                                     (nbx + 1) // 2), None)
         _apply_equal_plain(recd, dirs, var, sk, 3, bd, idx=idx)
-
-
-@pytest.mark.cuda
-def test_kernels_past_2_24_on_card():
-    """_kernels_past_2_24_on_card on both noise frames."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
-        _kernels_past_2_24_on_card(w, h, seed, scale)
 
 
 @pytest.mark.parametrize("dev", ["cpu"])
@@ -251,9 +223,20 @@ def test_grids_of_another_dtype_raise(dev, what):
 
 
 @pytest.mark.cuda
-def test_grids_of_another_dtype_raise_on_card():
-    """test_grids_of_another_dtype_raise on the card, for both grids."""
+def test_kernels_equal_plain_on_card():
+    """Every card case of this file, in one function (the cases skip
+    together here): _dirs_equal_plain_at_the_extremes_on_card on the
+    extreme blocks, them from a misaligned base and a 1928x136 frame;
+    _kernels_equal_plain_on_card at 1920x1088, 1920x1056 and 320x224;
+    _kernels_past_2_24_on_card on both noise frames; and
+    test_grids_of_another_dtype_raise on the card, for both grids."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    for what in ("extremes", "misaligned", "1928x136"):
+        _dirs_equal_plain_at_the_extremes_on_card(what)
+    for w, h in ((1920, 1088), (1920, 1056), (320, 224)):
+        _kernels_equal_plain_on_card(w, h)
+    for w, h, seed, scale in ((256, 192, 19, 1), (160, 96, 11, 4)):
+        _kernels_past_2_24_on_card(w, h, seed, scale)
     for what in ("dirs", "var"):
         test_grids_of_another_dtype_raise("cuda", what)

@@ -287,10 +287,52 @@ def _pack_ir_kernel_matches_plain_on_cuda(L):
     assert ec_cuda.fetch_tiles(out, lens, [0, ir.shape[0]]) == [ref]
 
 
+def _tiled_1080p_irs():
+    """The IRs of a 1920x1088 P frame's four tiles (a 2x2 grid), walked by
+    the C++ packer as tpu_inter._pack_pframe(tile_grid=...) walks them, on
+    random decisions (tests/test_torch_packer.py's grids: split, 16->8,
+    intra and merged blocks), the top-right tile all skipped: a flat tile
+    codes almost nothing."""
+    from test_torch_packer import _inter_grid
+    from rav1e_tpu_torch.entropy.obu import Sequence, TileInfo
+    from rav1e_tpu_torch.pipeline import tpu_inter
+    nby, nbx = 34, 60
+    g = _inter_grid(np.random.default_rng(41), nby, nbx, split=True,
+                    split8=True, intra=True, merge=True)
+    flat = np.zeros((nby, nbx), bool)
+    flat[:18, 30:] = True
+    flat = flat.reshape(-1)
+    g["skip"][flat], g["split"][flat], g["intra32"][flat] = True, False, False
+    for k in ("lv_y", "lv_u", "lv_v"):
+        g[k][flat] = 0
+    g["b64"][:9, 15:] = False
+    ti = TileInfo(Sequence(width=1920, height=1088), 1, 1)
+    saved = tpu_inter._code_tiles
+    tpu_inter._code_tiles = lambda irs, *a: irs
+    try:
+        return tpu_inter._pack_pframe_tiles(
+            ti, 1088, 1920, 100, g["mv8"], g["skip"], g["lv_y"], g["lv_u"],
+            g["lv_v"], g["split"], g["mv16"], g["skip16"], None, 0,
+            g["intra32"], g["b64"], g["split16"], g["skip8"], "cpu", None)
+    finally:
+        tpu_inter._code_tiles = saved
+
+
 @pytest.mark.cuda
 def test_pack_ir_kernel_matches_plain_on_cuda():
-    """_pack_ir_kernel_matches_plain_on_cuda at each chunk length."""
+    """_pack_ir_kernel_matches_plain_on_cuda at each chunk length; then a
+    tiled 1080p P frame's four tile IRs (_tiled_1080p_irs, lengths far
+    apart) coded by pack_tile_irs in one pack_ir launch give each tile
+    pack_ir_plain + finish's bytes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for L in (5, 16, 1024):
         _pack_ir_kernel_matches_plain_on_cuda(L)
+    irs = _tiled_1080p_irs()
+    n = [int(ir.shape[0]) for ir in irs]
+    assert len(irs) == 4 and min(n) * 20 < max(n), n
+    before = ec_cuda.pack_ir.launches
+    tiles = ec_cuda.pack_tile_irs(irs, "cuda")
+    assert ec_cuda.pack_ir.launches == before + 1
+    for ir, tile in zip(irs, tiles):
+        assert tile == _plain_bytes(ir)

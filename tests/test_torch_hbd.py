@@ -10,20 +10,14 @@ bits and at 8 bits 4:2:0; encode_pframe_tpu(bit_depth=10) with and
 without the in-loop filters and one encode_bframe_tpu(bit_depth=10)
 frame, packets and recons, each decoded by libdav1d to its recon; the
 10-bit Context at test_context_10bit_gop's settings (packets, types,
-qps) and the CLI on the same frames as a p10 y4m; the lookahead's
-distortion scales at 10 bits (rtol 1e-3: the reference's correlation
-sums pass 2^24 at 10 bits in an order the port does not mirror,
-ROADMAP.md section 3; 1.4e-5 measured); and the sums
+qps) and the CLI on the same frames as a p10 y4m; and the sums
 that pass 2^24 at 10 bits (the CDEF table, SATD's bound, the bf16 SSD
 correlation). No test here compiles a JAX P step beyond
-test_hbd_inter.py's; the B step and the Context take the reference's
-upload at the frames' bit depth (see test_context_10bit_identical).
-The CDEF kernels at 10 bits are held to their plain versions on the
-card by tests/test_torch_cdef_cuda.py."""
+test_hbd_inter.py's. The CDEF kernels at 10 bits are held to their
+plain versions on the card by tests/test_torch_cdef_cuda.py."""
 
 import ctypes
 import gc
-from contextlib import contextmanager
 
 import jax
 import jax.numpy as jnp
@@ -81,28 +75,6 @@ def _decodes_to(pkts, recs):
         for j in range(3):
             np.testing.assert_array_equal(
                 np.asarray(fr.planes[j], np.int32), rec[j])
-
-
-@contextmanager
-def _reference_upload_at_bit_depth(bd):
-    """The JAX Context's send_frame packs each frame for its device
-    upload with pack_src(padded), at pack_src's default bd=8, which
-    casts 10-bit planes to uint8 (the values mod 256) and codes every
-    inter frame of a 10-bit session from that source. The port packs at
-    the session's bit depth; so the reference compared here packs at it
-    too (the JAX package is not edited: its module attribute is swapped
-    for the call and put back)."""
-    from rav1e_tpu.pipeline import tpu_inter as jinter
-    orig = jinter.pack_src
-
-    def at_bd(planes, bd=bd):
-        return orig(planes, bd=bd)
-
-    jinter.pack_src = at_bd
-    try:
-        yield
-    finally:
-        jinter.pack_src = orig
 
 
 # ---- the numpy keyframe -----------------------------------------------------
@@ -211,18 +183,9 @@ def _session(cfg_cls, frames, **kw):
 
 
 def _reference_session():
-    """The JAX Context at test_context_10bit_gop's settings, uploading at
-    the frames' bit depth; and its lookahead's scales at 10 bits."""
-    from rav1e_tpu.analysis.lookahead import Lookahead
+    """The JAX Context at test_context_10bit_gop's settings."""
     from rav1e_tpu.api import Config as JConfig
-    from rav1e_tpu.pipeline.tpu_inter import pack_src
-    frames = _frames10(6, seed=33)
-    with _reference_upload_at_bit_depth(10):
-        rows = _session(JConfig, frames)
-    la = Lookahead(depth=8)
-    for f in frames:
-        la.push_packed(jnp.asarray(pack_src(f, bd=10)), 64, 96)
-    return rows, [la.scales_at(k) for k in range(3)]
+    return _session(JConfig, _frames10(6, seed=33))
 
 
 def test_context_10bit_identical(shared_dir, tmp_path):
@@ -231,18 +194,13 @@ def test_context_10bit_identical(shared_dir, tmp_path):
     reordered group's anchor P and B frames on the device steps) gives
     the JAX Context's packets, frame types, frame numbers and qps byte
     for byte, libdav1d decodes it to 6 frames past the 8-bit range, and
-    the CLI on the frames as a p10 y4m writes the same packets. The
-    lookahead's distortion scales of 10-bit frames equal the reference's
-    within 1e-3 relative (the port takes the reference's f32 orders for
-    the squares and the intra costs, and sums the correlation exactly,
-    where the reference's order past 2^24 is not mirrored)."""
-    from rav1e_tpu_torch.analysis.lookahead import Lookahead
+    the CLI on the frames as a p10 y4m writes the same packets. Neither
+    session runs the lookahead (8-bit sessions only)."""
     from rav1e_tpu_torch.api import Config
     from rav1e_tpu_torch.cli import main as cli
     from rav1e_tpu_torch.cli.ivf import read_ivf
     from rav1e_tpu_torch.cli.y4m import write_y4m
-    want, want_scales = _once(shared_dir, "hbd_context_96x64",
-                              _reference_session)
+    want = _once(shared_dir, "hbd_context_96x64", _reference_session)
     frames = _frames10(6, seed=33)
     got = _session(Config, frames, device="cpu")
     assert [r[:3] for r in got] == [r[:3] for r in want]
@@ -256,12 +214,6 @@ def test_context_10bit_identical(shared_dir, tmp_path):
     cli.main([str(src), "-o", str(out), "--quantizer", "130", "--device",
               "cpu"])
     assert [d for _, d in read_ivf(str(out))] == [r[3] for r in got]
-    la = Lookahead(depth=8)
-    for f in frames:
-        la.push_packed(torch.from_numpy(tinter.pack_src(f, bd=10)), 64, 96)
-    for k, ws in enumerate(want_scales):
-        assert ws is not None
-        np.testing.assert_allclose(la.scales_at(k), ws, rtol=1e-3)
 
 
 # ---- sums past 2^24 at 10 bits ----------------------------------------------

@@ -482,10 +482,12 @@ def test_noise_pframe_takes_the_overflow_gather():
 
 
 @pytest.mark.parametrize("kw", [{"bit_depth": 12},
-                                {"tile_grid": (1, 2)}])
+                                {"tile_grid": (1, 2), "lr": True}])
 def test_pframe_options_beyond_the_slice_raise(kw):
     """On top of the speed-7 toolset, each option the port does not reach
-    yet (bit depth 12, tiles) raises NotImplementedError naming its
+    yet (bit depth 12, which the reference codes on its numpy pipeline;
+    loop restoration in a multi-tile frame, which the reference's
+    Context never asks for) raises NotImplementedError naming its
     ROADMAP item; so does each on top of the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]

@@ -4,8 +4,8 @@ on the CPU, with the same numpy-made frames.
 The pair stats' mv and inter cost are bit-exact: the SSD's three terms
 are exact integer sums and its two f32 operations are formed in the
 reference's order. The intra cost (the DC residual's f32 sum of squares,
-in the reference's fused lane order) is bit-exact too, at 8 and 10 bits;
-the distortion-scale grids it feeds are held to a relative 1e-5 (the
+in the reference's fused lane order) is bit-exact too; the
+distortion-scale grids it feeds are held to a relative 1e-5 (the
 importance walk divides by it and takes powers)."""
 
 import jax.numpy as jnp
@@ -96,30 +96,37 @@ def test_packed_pair_stats_crop_to_the_grid():
     _same_stats(ref, [x.numpy() for x in got])
 
 
-def test_intra_cost_exact_at_10_bits():
-    """At 10 bits (pack_src(bd=10) buffers, the Context's route) the
-    intra cost equals the reference's bit for bit on pan and smooth
-    content (its sums of squares pass 2^24 on pan), where a plain
-    torch.sum of the same squares differs in some blocks; the mv and
-    inter cost take the correlation's exact sum, which the reference's
-    order is not (ROADMAP.md section 3), so they are not held here."""
+def test_intra_cost_order_and_the_8_bit_gate():
+    """On pack_src buffers of pan and smooth content the intra cost
+    equals the reference's bit for bit where a plain torch.sum of the
+    same squares differs in some blocks (the fused lane order matters
+    at 8 bits). The lookahead runs, as the reference's, on 8-bit 4:2:0
+    untiled sessions only: a 10-bit, 4:4:4 or tiled Context builds
+    none, and the pair stats of 10-bit buffers raise ValueError."""
+    from rav1e_tpu_torch.api import Config
     h, w = 96, 128
-    peak = 0.0
     for kind in ("pan", "smooth"):
-        cur, prev = (p.astype(np.uint16) << 2 | 3 for p in _pair(kind, h, w))
+        cur, prev = _pair(kind, h, w)
         ref = jl._pair_stats_packed_fn(h, w)(
-            *(jnp.asarray(jpack_src(_planes(p), bd=10)) for p in (cur, prev)))
+            *(jnp.asarray(jpack_src(_planes(p))) for p in (cur, prev)))
         got = tl._pair_stats_packed_fn(h, w)(
-            *(torch.from_numpy(pack_src(_planes(p), bd=10))
-              for p in (cur, prev)))
+            *(torch.from_numpy(pack_src(_planes(p))) for p in (cur, prev)))
         intra = got[2].numpy()
         np.testing.assert_array_equal(intra, np.asarray(ref[2]))
         blks = torch.from_numpy(cur.astype(np.float32)).reshape(
             h // 16, 16, w // 16, 16).permute(0, 2, 1, 3).reshape(-1, 16, 16)
         d = blks - (blks.sum((1, 2)) * (1.0 / 256))[:, None, None]
         assert ((d * d).sum((1, 2)).numpy() != intra.ravel()).any()
-        peak = max(peak, float(intra.max()))
-    assert peak > 2 ** 24
+        with pytest.raises(ValueError, match="8-bit"):
+            tl._pair_stats_packed_fn(h, w)(
+                *(torch.from_numpy(pack_src(_planes(p.astype(np.uint16) << 2),
+                                            bd=10)) for p in (cur, prev)))
+    base = dict(width=128, height=128, speed=6)
+    assert Config(**base).new_context(device="cpu")._lookahead is not None
+    for kw in (dict(bit_depth=10), dict(chroma_sampling="444"),
+               dict(tiles=4)):
+        ctx = Config(**base, **kw).new_context(device="cpu")
+        assert ctx._lookahead is None, kw
 
 
 def _window_frames(h=96, w=128, n=10, seed=21):

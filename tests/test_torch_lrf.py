@@ -155,7 +155,7 @@ def _unit_results(rec, src, ss, chroma):
 def _port_units(rec, src, ss):
     summ, _, _, tb = tlrf._search_dev(torch.from_numpy(rec),
                                       torch.from_numpy(src.astype(np.int32)),
-                                      8, ss)
+                                      8, ss, chroma=ss > 0)
     s = summ.numpy()
     n = 13 * tb.n_units
     return s[:n], s[n:]
@@ -180,7 +180,7 @@ def test_search_lr_plane_equals_reference(plane, shared_dir):
         shared_dir, f"lrf_search_{plane}", reference)
     grid, filt, used = tlrf.search_lr_plane(torch.from_numpy(rec),
                                             torch.from_numpy(src), bd=8,
-                                            ss=ss)
+                                            ss=ss, chroma=ss > 0)
     assert used and used_j
     assert grid == grid_j
     assert np.array_equal(filt.numpy(), filt_j)
@@ -217,7 +217,7 @@ def test_10bit_search_applies_the_unit_filters():
         assert (rec[:70, :70].astype(np.int64) ** 2).sum() > 2 ** 31
         grid, filt, used = tlrf.search_lr_plane(
             torch.from_numpy(rec), torch.from_numpy(src), bd=10, ss=ss,
-            pre=torch.from_numpy(pre))
+            pre=torch.from_numpy(pre), chroma=ss > 0)
         filt = filt.numpy()
         assert used and filt.max() <= 1023
         off, sh = 8 >> ss, 64 >> ss
@@ -257,7 +257,8 @@ def _sgr_sums(rec, src, ss):
     tlrf._unit_sum = keep
     try:
         tlrf._search_dev(torch.from_numpy(rec),
-                         torch.from_numpy(src.astype(np.int32)), 8, ss)
+                         torch.from_numpy(src.astype(np.int32)), 8, ss,
+                         chroma=ss > 0)
     finally:
         tlrf._unit_sum = orig
     return got[1].numpy()
@@ -296,13 +297,14 @@ def test_sums_past_2_24_take_the_reference_order(shared_dir):
     assert np.abs(_sgr_sums(rec, src, 0)).max() > 2 ** 24
     assert np.array_equal(sse, sse_j) and np.array_equal(dec, dec_j)
     grid, filt, _ = tlrf.search_lr_plane(torch.from_numpy(rec),
-                                         torch.from_numpy(src))
+                                         torch.from_numpy(src), chroma=False)
     assert grid == grid_j and np.array_equal(filt.numpy(), filt_j)
     orig = tlrf._xla_sum_hw
     tlrf._xla_sum_hw = lambda x: x.sum((-2, -1))
     try:
         grid_p, _, _ = tlrf.search_lr_plane(torch.from_numpy(rec),
-                                            torch.from_numpy(src))
+                                            torch.from_numpy(src),
+                                            chroma=False)
         sse_p, _ = _port_units(rec, src, 0)
     finally:
         tlrf._xla_sum_hw = orig

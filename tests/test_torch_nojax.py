@@ -36,7 +36,9 @@ pkts6, _ = encode_gop_tpu(chip_smoke.synth(64, 64, n=2), 100, speed=6,
                           cdef=(0, 0, 0, 0, 3), device="cpu")
 assert len(pkts6) == 2 and len(pkts6[1]) > 0
 import rav1e_tpu_torch.cli.main
+import rav1e_tpu_torch.conform.aom
 import rav1e_tpu_torch.conform.dav1d
+import rav1e_tpu_torch.pipeline.inter
 from rav1e_tpu_torch.api import Config
 ctx = Config(width=64, height=64).new_context(device="cpu")   # speed 6
 assert ctx._la_depth == 8 and ctx._bgroup == 4
@@ -68,8 +70,9 @@ def test_port_runs_with_jax_and_reference_blocked():
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
     KEY + P GOP on the CPU, at speed 7 with CDEF, the default (speed-6)
     keyframe and a speed-6 KEY + P GOP with CDEF; the session API, the
-    CLI and the dav1d shim import, and a default Context (speed 6,
-    reordered, lookahead 8) codes 5 frames."""
+    CLI, the numpy inter pipeline and the dav1d and libaom shims import,
+    and a default Context (speed 6, reordered, lookahead 8) codes 5
+    frames."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -84,6 +87,9 @@ def test_source_scan_no_jax_no_reference_imports():
     C++/CUDA sources name the JAX package's packer library
     (`rav1e_tpu/native`, `libpacker`): the port builds its own."""
     files = sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
+    for copied in ("pipeline/inter.py", "pipeline/intra.py",
+                   "conform/aom.py", "conform/dav1d.py"):
+        assert ROOT / "rav1e_tpu_torch" / copied in files, copied
     files.append(ROOT / "chip_smoke.py")
     jax_imp = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     ref_mod = re.compile(r"\brav1e_tpu(?!_torch|/)\b")
@@ -122,16 +128,19 @@ def test_context_without_device_and_without_cuda_raises():
         Config().new_context()
 
 
-@pytest.mark.parametrize("opt,value", [("aq", True)])
-def test_options_beyond_the_slice_raise(opt, value):
-    """Options the ported slices do not reach raise NotImplementedError
-    naming their ROADMAP item; none falls through to another path."""
+def test_options_beyond_the_slice_raise():
+    """A device keyframe asked for a bit depth above 8 raises
+    NotImplementedError naming its ROADMAP item even where the planes'
+    values fit in 8 bits (seq_extra's bit_depth; planes above 255 raise
+    in test_high_bit_depth_raises), rather than coding a stream whose
+    header says 10 bits from the 8-bit path."""
     from rav1e_tpu_torch.pipeline.tpu_intra import encode_keyframe_tpu
-    planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
-              np.zeros((32, 32), np.uint8)]
+    planes = [np.full((64, 64), 200, np.uint16),
+              np.full((32, 32), 200, np.uint16),
+              np.full((32, 32), 200, np.uint16)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        encode_keyframe_tpu(planes, 100, device="cpu",
-                            **{"speed": 7, opt: value})
+        encode_keyframe_tpu(planes, 100, speed=7, device="cpu",
+                            seq_extra={"bit_depth": 10})
 
 
 def test_deferred_keyframe_finish_equals_the_direct_call():

@@ -62,11 +62,14 @@ def _python(mi_rows, mi_cols, q, inter, dicts, cdef_map=None, cdef_bits=0):
 
 
 def _check(mi_rows, mi_cols, q, inter, method, args, kwargs, dicts,
-           cdef_map=None, cdef_bits=0):
+           cdef_map=None, cdef_bits=0, ref_call=None):
+    """ref_call: (method, args) of the reference's writer where it takes
+    another walk than the port's."""
     port_w = _port(mi_rows, mi_cols, q, inter)
     port = getattr(port_w, method)(*args, **kwargs)
-    ref = getattr(_reference(mi_rows, mi_cols, q, inter), method)(
-        *args, **kwargs)
+    ref_method, ref_args = ref_call or (method, args)
+    ref = getattr(_reference(mi_rows, mi_cols, q, inter), ref_method)(
+        *ref_args, **kwargs)
     py, py_ir = _python(mi_rows, mi_cols, q, inter, dicts, cdef_map,
                         cdef_bits)
     assert port_w.ir.shape == py_ir.shape, (port_w.ir.shape, py_ir.shape)
@@ -242,21 +245,37 @@ def _dicts(g, w, uniform=False):
         g["split16"] if g["split16"].any() else None, g["skip8"])
 
 
+def _uniform_args(g):
+    """write_inter_tile_fast2's arguments for a grid of whole 32-blocks
+    (no split: each block's four quads carry its MV and skip)."""
+    B = g["mv8"].shape[0]
+    return (np.zeros(B, bool), g["mv8"], g["skip"],
+            np.repeat(g["mv8"][:, None, :], 4, axis=1),
+            np.repeat(g["skip"][:, None], 4, axis=1), g["lv_y"], g["lv_u"],
+            g["lv_v"])
+
+
 def _check_fast(rng, q, nby=BH, nbx=BW, all_skip=False):
+    """A grid of whole 32-blocks with no CDEF index (a P step without
+    split RDO) through the port's write_inter_tile_fast2 and through the
+    reference's write_inter_tile_fast, the walk the reference takes for
+    such a frame."""
     g = _inter_grid(rng, nby, nbx)
     if all_skip:
         g["skip"][:] = True
         for k in ("lv_y", "lv_u", "lv_v"):
             g[k][:] = 0
-    args = (g["mv8"], g["skip"], g["lv_y"], g["lv_u"], g["lv_v"])
-    return _check(nby * 8, nbx * 8, q, True, "write_inter_tile_fast", args,
-                  {}, _dicts(g, nbx * 32, uniform=True))
+    ref_args = (g["mv8"], g["skip"], g["lv_y"], g["lv_u"], g["lv_v"])
+    return _check(nby * 8, nbx * 8, q, True, "write_inter_tile_fast2",
+                  _uniform_args(g), {}, _dicts(g, nbx * 32, uniform=True),
+                  ref_call=("write_inter_tile_fast", ref_args))
 
 
 @pytest.mark.parametrize("seed,q", [(10, 100), (11, 30)])
 def test_inter_tile_fast(seed, q):
-    """write_inter_tile_fast: uniform 32-blocks, NEWMV and GLOBALMV,
-    skipped and coded blocks."""
+    """Uniform 32-blocks, NEWMV and GLOBALMV, skipped and coded blocks:
+    the port's write_inter_tile_fast2 gives the reference's
+    write_inter_tile_fast bytes (the port has no uniform-grid walk)."""
     assert _check_fast(np.random.default_rng(seed), q) > 500
 
 
@@ -322,14 +341,13 @@ def test_ir_buffer_too_small_raises():
     """An IR buffer smaller than the tile raises; it never truncates. The
     writer's C++ state is freed either way."""
     rng = np.random.default_rng(50)
-    g = _inter_grid(rng, BH, BW)
-    args = (g["mv8"], g["skip"], g["lv_y"], g["lv_u"], g["lv_v"])
+    args = _uniform_args(_inter_grid(rng, BH, BW))
     w = _port(BH * 8, BW * 8, 100, True)
     w.ir_cap = 16
     with pytest.raises(ValueError, match="IR has .* rows; the buffer "
                                          "holds 16"):
-        w.write_inter_tile_fast(*args)
+        w.write_inter_tile_fast2(*args)
     assert w._h is None
     ok = _port(BH * 8, BW * 8, 100, True)
-    ok.write_inter_tile_fast(*args)
+    ok.write_inter_tile_fast2(*args)
     assert ok.ir.shape[0] > 16
