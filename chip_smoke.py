@@ -136,13 +136,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      frame types, frame numbers and qps identical, the cut a KEY; (b) the
      lookahead's pair stats at 1920x1088 on panning content, cuda against
      cpu: mv and inter cost identical, intra within 1e-6 relative; device
-     ms a frame pair; (c) synth(1920, 1080, n=9) written as y4m and
+     ms a frame pair; (c) synth(1920, 540, n=5) written as y4m and
      encoded by rav1e_tpu_torch.cli.main at its defaults on cuda with
-     enc_stats (the 32-padding to 1088 and render_size): each packet's
+     enc_stats (the 32-padding to 544 and render_size): each packet's
      type, frame, qp and bytes, each coded frame's wall seconds and
      launches (ec_pack and the CDEF kernels in every frame, the gather in
      every inter frame); where the port's dav1d shim loads libdav1d, the
-     IVF decodes to 9 frames whose PSNR against the source is each
+     IVF decodes to 5 frames whose PSNR against the source is each
      packet's enc_stats (else a line says the decode was not run);
   19. 10-bit 4:2:0: (a) the three CDEF kernels on 10-bit planes (int16,
      read as uint16) against their plain versions as in phase 6, on
@@ -167,7 +167,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and device ms (torch.profiler) and the host argmin's ms; (b) a
      speed-2 Context (the numpy keyframe with HORZ/VERT partitions and
      LR, the 24-px anchor search, LR on every P and B frame) on cuda and
-     on cpu at 256x192, 9 frames: packets, frame types, frame numbers
+     on cpu at 256x192, 5 frames: packets, frame types, frame numbers
      and qps identical; (c) a
      keyframe with LR (encode_keyframe_tpu(lr=True)) and phase 17's group
      at speed 2 with lr on every frame (the anchor's 24-px search) at
@@ -186,18 +186,43 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      1920x1088 on cuda, its stages and launches, and the speed-6 AQ
      keyframe on cuda and on cpu at 256x192: packets identical; (c)
      Context sessions on cuda and on cpu, packets identical: tiles=4 at
-     256x192, and `aq`, 4:2:2, 4:4:4, 12-bit, photon_noise,
-     switch_frame_interval and error_resilient at 128x96.
+     256x192 (5 frames), and `aq`, 4:2:2, 4:4:4, 12-bit, photon_noise,
+     switch_frame_interval and error_resilient at 128x96 (4 frames);
+  22. the multi-device layer, the C API and 12-bit LR: (a) the table and
+     the filter with a column halo (the tiled CDEF search's) on phase
+     5's recon in 2 tile columns, each shard against the plain versions
+     and the shards against the unsharded table and cdef_apply, their
+     device ms and bounds; then phase 15's frame 1 as a P frame in 2
+     tile columns (parallel/tile_encode.py::encode_pframe_tiled, two
+     shards on two cards where there are two, else both on cuda:0, each
+     on its own thread and stream) on phase 15's keyframe recon: packet
+     and recon against TILED_PINS (the CPU route's, made by `python3
+     chip_smoke.py --tiled-pins`), the gather and each CDEF kernel
+     launched by each shard and ONE ec_pack launch for both tiles, the
+     wall and each kernel's device ms (torch.profiler); the same at
+     256x192 on cuda against the CPU route; (b) GopScheduler over two
+     workers encoding two GOPs, each phase 15's frames 0-1 at speed 6:
+     phase 15's first two packets each (two workers of one card take
+     turns), the wall beside phase 15's GOP; (c) the C API (capi/capi.c, built with g++ in
+     the run; it fails if Python.h is missing) through ctypes on cuda at
+     256x192: packets equal to Config(...).new_context()'s; (d) a 12-bit
+     speed-2 Context (LR searched on the host) at 256x192, cuda against
+     cpu (KEY + P); (e) parallel/dryrun.py::dryrun_multichip over every
+     card. Phases 18c (1920x540, 5 frames), 20b (5 frames) and 21c (5
+     and 4 frames) are cut in depth to make room for it.
 
+Each phase group prints the seconds since the start when it is done.
 Phases 5, 7-16 print the packer call (NativeTileWriter method) each
 frame took. Prints a kernels JSON line (launches: phases 15, 13, 16, 17,
-18c, 19c, 20c and 21a's tiled group together, and each path's own count,
+18c, 19c, 20c, 21a's tiled group, 22a's tiled P frame and 22b's GOPs
+together, and each path's own count,
 every count set to 0 just before its path; ec_pack's tiled_* keys are
 21a's T-tile launch; the gather's ms, bound and plain and indexing ms
 are phase 4's replayed speed-6 P frame, with its launches a P frame,
 and the replayed B frame's beside them; the CDEF kernels' launches per
 frame of those paths and their ms per 1080p frame, their 10-bit ms and
-bounds from phase 19a beside them), then, as the last line,
+bounds from phase 19a and their halo forms' from phase 22a beside
+them), then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or without the
 rav1e_tpu_torch package beside it.
@@ -213,7 +238,12 @@ does the same for phase 19c's 10-bit group and prints HBD_PINS, and
 
     python3 chip_smoke.py --lr-pins
 
-for phase 20c's LR keyframe and group, LR_PINS.
+for phase 20c's LR keyframe and group, LR_PINS, and
+
+    python3 chip_smoke.py --tiled-pins
+
+for phase 22a's tiled P frame (the keyframe on cuda, the frame on two
+CPU shards), TILED_PINS.
 """
 
 from __future__ import annotations
@@ -2149,15 +2179,16 @@ def lookahead_gpu_vs_cpu(torch, w: int = 1920, h: int = 1088):
 
 
 def session_cli_1080p(torch, kern: dict):
-    """Phase 18c: synth(1920, 1080, n=9) written as y4m and encoded by
+    """Phase 18c: synth(1920, 540, n=5) (its depth cut from 1920x1080 and
+    9 frames, to keep the run short) written as y4m and encoded by
     rav1e_tpu_torch.cli.main at its defaults (cuda, speed 6, reordered,
     lookahead 8) with enc_stats on, every kernel's count set to 0 just
     before and read just after. Prints each packet's type, frame, qp and
     bytes, each coded frame's wall seconds and launches; every frame
     launches ec_pack and the three CDEF kernels, every inter frame the
     gather. Where the port's dav1d shim loads libdav1d, the IVF decodes to
-    9 frames, each frame's PSNR against the (edge-padded) source equal to
-    its packet's enc_stats. Returns ({kernel: launches}, coded frames)."""
+    its frames, each frame's PSNR against the (edge-padded) source equal
+    to its packet's enc_stats. Returns ({kernel: launches}, coded frames)."""
     import tempfile
     from pathlib import Path
 
@@ -2168,7 +2199,7 @@ def session_cli_1080p(torch, kern: dict):
     from rav1e_tpu_torch.cli.ivf import read_ivf
     from rav1e_tpu_torch.cli.y4m import write_y4m
     from rav1e_tpu_torch.conform import dav1d
-    w, h, n = 1920, 1080, 9
+    w, h, n = 1920, 540, 5
     frames = synth(w, h, n=n)
     pkts, calls = [], []
     saved_rp = Context.receive_packet
@@ -2215,7 +2246,7 @@ def session_cli_1080p(torch, kern: dict):
                 setattr(mod, m, fn)
         stream = list(read_ivf(str(ivf)))
     coded = [p for p in pkts if p.frame_type != "SHOW_EXISTING"]
-    print(f"# 1920x1080 y4m -> IVF through rav1e_tpu_torch.cli.main (cuda, "
+    print(f"# {w}x{h} y4m -> IVF through rav1e_tpu_torch.cli.main (cuda, "
           f"speed 6, reordered, lookahead 8, enc_stats): {wall:.3f} s for "
           f"{n} frames ({n / wall:.4f} frames/s), the pipelines "
           f"{sum(c[1] for c in calls):.3f} s of it; launches "
@@ -2559,10 +2590,11 @@ def lr_session_gpu_vs_cpu(w: int = 256, h: int = 192):
     """Phase 20b: the port's Context at speed 2 (the numpy keyframe with
     HORZ/VERT partitions and loop restoration, the 24-px anchor P search,
     loop restoration in every P and B frame) on cuda and on cpu at w x h,
-    9 frames of tests/_torch_content.py's session content: packets, frame
-    types, frame numbers and qps identical."""
+    5 frames (the depth cut from 9 to keep the run short) of
+    tests/_torch_content.py's session content: packets, frame types,
+    frame numbers and qps identical."""
     from rav1e_tpu_torch.api import Config
-    frames = _tests_content().session(w, h, 9)
+    frames = _tests_content().session(w, h, 5)
     res = {}
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2572,7 +2604,7 @@ def lr_session_gpu_vs_cpu(w: int = 256, h: int = 192):
                   [p.data for p in pk], time.perf_counter() - t0)
     (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
     same = [a == b for a, b in zip(data, data_c)]
-    print(f"# {w}x{h} speed-2 session (9 frames, loop restoration, HORZ/VERT "
+    print(f"# {w}x{h} speed-2 session (5 frames, loop restoration, HORZ/VERT "
           f"keyframe, 24-px anchor search) cuda {t_g:.2f} s vs cpu "
           f"{t_c:.2f} s: packets identical {same}; (type, frame, qp) "
           f"{kinds}; bytes {[len(b) for b in data]}", flush=True)
@@ -2906,13 +2938,14 @@ def _to_sampling(planes, cs, bd=8):
 def sessions_gpu_vs_cpu():
     """Phase 21c: Context sessions on cuda and on cpu, packets, frame
     types, frame numbers and qps identical: tiles=4 (a 2x2 grid) at
-    256x192, 6 frames; and at 128x96, 5 frames each: `aq` (speed 10),
+    256x192, 5 frames; and at 128x96, 4 frames each: `aq` (speed 10),
     4:2:2 and 4:4:4 (low latency), 12-bit, photon_noise (ISO 800),
-    switch frames every 3 and error_resilient (low latency, speed 8)."""
+    switch frames every 3 and error_resilient (low latency, speed 8)
+    (their depth cut from 6 and 5 frames to keep the run short)."""
     from rav1e_tpu_torch.api import Config
     c = _tests_content()
-    cases = [("tiles=4", c.bgroup(256, 192, n=6), dict(tiles=4))]
-    small = c.bgroup(128, 96, n=5)
+    cases = [("tiles=4", c.bgroup(256, 192, n=5), dict(tiles=4))]
+    small = c.bgroup(128, 96, n=4)
     cases += [
         ("aq", small, dict(speed=10, extra={"aq": "1"})),
         ("4:2:2", [_to_sampling(f, "422") for f in small],
@@ -2945,6 +2978,465 @@ def sessions_gpu_vs_cpu():
             fail(f"the {name} session differs between cuda and cpu")
 
 
+# ---- phase 22: the multi-device layer, the C API, 12-bit LR -----------------
+
+# phase 22a's 2-shard tiled P frame (phase 15's frame 1 on its keyframe's
+# recon, q 100): ((packet bytes, SHA-256 prefix), the recon's SHA-256
+# prefix), from the CPU route (["cpu", "cpu"]), made by
+# `python3 chip_smoke.py --tiled-pins`
+TILED_PINS = ((4423, "d7e311d609864413"), "85d462313a4b1965")
+
+# the profiler's kernel names of each hand-written kernel (phase 22a)
+KERNEL_NAMES = {
+    "gather_patches": ("gather_patches_kernel",),
+    "ec_pack": ("boundaries_kernel", "speculate_kernel", "compose_kernel",
+                "resolve_kernel", "code_kernel", "carry_kernel"),
+    "cdef_dirs": ("cdef_dirs_kernel",),
+    "cdef_ladder_sse": ("cdef_ladder_sse_kernel",),
+    "cdef_apply": ("cdef_apply_kernel",)}
+
+
+def _rec_hash(rec) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for p in rec:
+        h.update(np.ascontiguousarray(np.asarray(p, np.int32)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _shard_devices(torch):
+    """Two shards or workers: on two cards where there are two, else both
+    on cuda:0 (each on a stream of its own)."""
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def tiled_pins(torch, ti):
+    """`--tiled-pins`: phase 15's keyframe on cuda (its packet must be
+    GOP6_BYTES[0] bytes), then phase 22a's tiled P frame on the CPU route
+    (two CPU shards). Prints TILED_PINS."""
+    from rav1e_tpu_torch.parallel.tile_encode import encode_pframe_tiled
+    frames = synth(1920, 1088, n=2)
+    kpkt, krec = ti.encode_keyframe_tpu(frames[0], 100, cdef=CDEF_SPEED8,
+                                        device="cuda")
+    if len(kpkt) != GOP6_BYTES[0]:
+        fail(f"the keyframe took {len(kpkt)} bytes, not {GOP6_BYTES[0]}")
+    t0 = time.perf_counter()
+    pkt, rec = encode_pframe_tiled(
+        frames[1], [np.asarray(r, np.uint8) for r in krec], 100,
+        ["cpu", "cpu"])
+    print(f"# the tiled P frame on the CPU route in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"TILED_PINS = {(_pins([pkt])[0], _rec_hash(rec))}", flush=True)
+    return 0
+
+
+def _halo_planes(torch, planes, t, T):
+    """Shard t of T's [y, u, v] columns with 8 (4 chroma) columns of each
+    neighbour on either side (zeros outside the frame, which the kernels
+    read as out of frame), contiguous."""
+    out = []
+    for p, e in zip(planes, (8, 4, 4)):
+        w = p.shape[1] // T
+        lo, hi = t * w, (t + 1) * w
+        z = torch.zeros_like(p[:, :e])
+        out.append(torch.cat([p[:, lo - e:lo] if t else z, p[:, lo:hi],
+                              p[:, hi:hi + e] if t < T - 1 else z],
+                             1).contiguous())
+    return out
+
+
+def halo_cdef(torch, cd, rec_d, src_d, skip8, floor_ms, T: int = 2):
+    """Phase 22a's kernels: the table and the filter with a column halo
+    (the tiled CDEF search's), on phase 5's deblocked 1080p recon cut
+    into T tile columns (the full branch, every 32-block, as the tiled
+    search evaluates): each shard's halo table and applied planes (the
+    winners of the unsharded table with the nb_strengths RD, and every
+    entry) equal to their plain versions; the shards' tables equal the
+    unsharded table's columns and their applied planes, assembled, the
+    unsharded cdef_apply at the same indices. Device ms (CUDA events,
+    mean of 3) of the T launches a frame, the plain versions' and the
+    bound (the least work of each shard's inputs, summed). Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by)} of one frame."""
+    h, w = rec_d[0].shape
+    tw = w // T
+    damping = CDEF_SPEED8[4]
+    dirs, var = cd.cdef_dirs(rec_d[0])
+    table = cd.cdef_ladder_sse(rec_d, src_d, dirs, var, skip8, damping,
+                               False)
+    nby, nbx = h // 32, w // 32
+    nr, nc = (nby + 1) // 2, (nbx + 1) // 2
+    idx = cd._choose(cd._sse_sb(table, False, nr, nc),
+                     torch.tensor(60.0, device=dirs.device))
+    every = (torch.arange(nr * nc, device=dirs.device) % 8).reshape(nr, nc)
+    shards = []
+    for t in range(T):
+        g = slice(t * tw // 8, (t + 1) * tw // 8)
+        sb = slice(t * tw // 64, (t + 1) * tw // 64)
+        shards.append(dict(
+            ext=_halo_planes(torch, rec_d, t, T),
+            src=[p[:, t * (tw >> s):(t + 1) * (tw >> s)].contiguous()
+                 for p, s in zip(src_d, (0, 1, 1))],
+            dirs=dirs[:, g].contiguous(), var=var[:, g].contiguous(),
+            skip8=skip8[:, g].contiguous(), sb=sb,
+            outside=(t == 0, t == T - 1), t=t))
+    for sh in shards:
+        got = cd.cdef_ladder_sse(sh["ext"], sh["src"], sh["dirs"], sh["var"],
+                                 sh["skip8"], damping, False, halo=8,
+                                 outside=sh["outside"])
+        t = sh["t"]
+        if not torch.equal(got, table[..., t * tw // 32:(t + 1) * tw // 32]):
+            fail(f"shard {t}: the halo table differs from the unsharded "
+                 "table's columns")
+        for i, (p, s) in enumerate(zip(sh["ext"], sh["src"])):
+            want = cd.cdef_ladder_sse_plain(p, s, sh["dirs"], sh["var"],
+                                            sh["skip8"], damping, i > 0,
+                                            False, 8, 8, sh["outside"])
+            if not torch.equal(got[i], want):
+                fail(f"shard {t} plane {i}: the halo cdef_ladder_sse kernel "
+                     "and its plain version differ")
+    for name, m in (("winners", idx), ("every", every)):
+        full = cd.cdef_apply(rec_d, dirs, var, skip8, damping, idx=m)
+        parts = []
+        for sh in shards:
+            got = cd.cdef_apply(sh["ext"], sh["dirs"], sh["var"], sh["skip8"],
+                                damping, idx=m[:, sh["sb"]], halo=8,
+                                outside=sh["outside"])
+            want = [cd.cdef_apply_plain(p, sh["dirs"], sh["var"], sh["skip8"],
+                                        damping, i > 0, m[:, sh["sb"]],
+                                        halo=8, outside=sh["outside"])
+                    for i, p in enumerate(sh["ext"])]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"shard {sh['t']}: the halo cdef_apply kernel and its "
+                     f"plain version differ on the {name} map")
+            parts.append(got)
+        for j in range(3):
+            if not torch.equal(torch.cat([p[j] for p in parts], 1), full[j]):
+                fail(f"the {T} shards' halo cdef_apply on the {name} map, "
+                     f"assembled, differ from the unsharded cdef_apply "
+                     f"(plane {j})")
+    px = rec_d[0].element_size()
+
+    def ladder(sh):
+        return cd.cdef_ladder_sse(sh["ext"], sh["src"], sh["dirs"],
+                                  sh["var"], sh["skip8"], damping, False,
+                                  halo=8, outside=sh["outside"])
+
+    def ladder_plain(sh):
+        return [cd.cdef_ladder_sse_plain(p, s, sh["dirs"], sh["var"],
+                                         sh["skip8"], damping, i > 0, False,
+                                         8, 8, sh["outside"])
+                for i, (p, s) in enumerate(zip(sh["ext"], sh["src"]))]
+
+    def apply(sh):
+        return cd.cdef_apply(sh["ext"], sh["dirs"], sh["var"], sh["skip8"],
+                             damping, idx=every[:, sh["sb"]], halo=8,
+                             outside=sh["outside"])
+
+    def apply_plain(sh):
+        return [cd.cdef_apply_plain(p, sh["dirs"], sh["var"], sh["skip8"],
+                                    damping, i > 0, every[:, sh["sb"]],
+                                    halo=8, outside=sh["outside"])
+                for i, p in enumerate(sh["ext"])]
+
+    res = {}
+    lo = lb = ao = ab = 0.0
+    for sh in shards:
+        ent = cd._upsample(every[:, sh["sb"]], 8)[:h // 8, :tw // 8]
+        for i, (p, s) in enumerate(zip(sh["ext"], sh["src"])):
+            lo += _cdef_ladder_ops(torch, cd, sh["var"], sh["skip8"], i > 0,
+                                   None) / H100_INT_OPS_PER_S * 1e3
+            lb += (px * (p.numel() + s.numel())
+                   + 32 * (s.numel() // ((16 if i else 32) ** 2))
+                   ) / H100_BYTES_PER_S * 1e3
+            ao += _cdef_ops(torch, cd, sh["var"], sh["skip8"], i > 0,
+                            ent) / H100_INT_OPS_PER_S * 1e3
+            ab += px * (p.numel() + s.numel()) / H100_BYTES_PER_S * 1e3
+    res["cdef_ladder_sse"] = [
+        sum(time_cuda(torch, lambda sh=sh: ladder(sh), 3) for sh in shards),
+        sum(time_cuda(torch, lambda sh=sh: ladder_plain(sh), 3)
+            for sh in shards), max(lo, lb),
+        "operations" if lo >= lb else "bytes"]
+    res["cdef_apply"] = [
+        sum(time_cuda(torch, lambda sh=sh: apply(sh), 3) for sh in shards),
+        sum(time_cuda(torch, lambda sh=sh: apply_plain(sh), 3)
+            for sh in shards), max(ao, ab),
+        "operations" if ao >= ab else "bytes"]
+    print(f"# CDEF with a column halo at {w}x{h} in {T} tile columns (full "
+          f"branch; idx used {sorted(set(idx.flatten().tolist()))}): each "
+          "shard's table and applied planes (winners, every entry) equal to "
+          "the plain versions; the tables equal the unsharded table's "
+          "columns, the assembled planes the unsharded cdef_apply's; per "
+          "frame ms (the T launches; kernel, plain, bound, bound by; "
+          "cdef_apply on the map of every entry): "
+          + json.dumps({k: [round(v, 5) if isinstance(v, float) else v
+                            for v in r] for k, r in res.items()})
+          + f"; the empty launch {floor_ms:.5f} ms", flush=True)
+    beaten = [k for k, r in res.items() if r[0] < r[2]]
+    if beaten:
+        fail(f"halo {beaten} ran in less than its bound: the count is no "
+             "floor")
+    return res
+
+
+def _kernel_device_ms(torch, prof) -> dict:
+    """Device ms and launches by hand-written kernel from a torch.profiler
+    run's device events ((None, 0) where it saw none), and the names of
+    the other device kernels it saw."""
+    evs = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    out, seen = {}, set()
+    for k, names in KERNEL_NAMES.items():
+        mine = [e for e in evs if any(nm in e.name for nm in names)]
+        seen.update(id(e) for e in mine)
+        tot = sum((getattr(e, "device_time", None)
+                   or getattr(e, "cuda_time", 0)) for e in mine)
+        out[k] = (round(tot / 1e3, 5) if mine else None, len(mine))
+    other = sorted({e.name[:60] for e in evs if id(e) not in seen})
+    return out, other
+
+
+def tiled_1080p(torch, ec, gp, cd, tp, ti, krec):
+    """Phase 22a: phase 15's frame 1 as a P frame in 2 tile columns
+    (parallel/tile_encode.py::encode_pframe_tiled), each a shard on its
+    own thread and stream, on phase 15's keyframe recon, every kernel's
+    count set to 0 just before and read just after: the packet and recon
+    must be TILED_PINS (the CPU route's); the launches: the gather, each
+    CDEF kernel once a shard (the table and the filter with their column
+    halo) and ONE ec_pack launch for both tiles. The frame's wall time
+    and stages, and each kernel's device ms in a second, profiled call.
+    Then the same at 256x192 on cuda against the CPU route within the
+    phase: packet and recon identical. Returns ({kernel: launches}, the
+    profiled device ms)."""
+    import rav1e_tpu_torch.parallel.tile_encode as te
+    from torch.profiler import ProfilerActivity, profile
+    devs = _shard_devices(torch)
+    frames = synth(1920, 1088, n=2)
+    kref = [np.asarray(r, np.uint8) for r in krec]
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    coded, saved = [], te.pack_tile_irs
+
+    def counting(irs, *a, **k):
+        coded.append(len(irs))
+        return saved(irs, *a, **k)
+
+    te.pack_tile_irs = counting
+    try:
+        for f in kern.values():
+            f.launches = 0
+        t = {}
+        t0 = time.perf_counter()
+        pkt, rec = te.encode_pframe_tiled(frames[1], kref, 100, devs,
+                                          timings=t)
+        wall = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kern.items()}
+    finally:
+        te.pack_tile_irs = saved
+    pins = (_pins([pkt])[0], _rec_hash(rec))
+    print(f"# 1920x1088 P frame in 2 tile columns on {devs}: {wall:.3f} s "
+          f"of wall; {len(pkt)} bytes; pins {pins}; launches "
+          f"{json.dumps(launches)}; pack_tile_irs calls {coded} (tiles); "
+          f"stages (s) {json.dumps({k: round(v, 4) for k, v in t.items()})}",
+          flush=True)
+    if pins != TILED_PINS:
+        fail(f"the tiled P frame {pins} is not TILED_PINS {TILED_PINS} (the "
+             "CPU route's)")
+    want = {"ec_pack": 1, "cdef_dirs": 2, "cdef_ladder_sse": 2,
+            "cdef_apply": 2}
+    if coded != [2] or any(launches[k] != n for k, n in want.items()) \
+            or launches["gather_patches"] < 2:
+        fail(f"the tiled P frame launched {launches} with tiles coded "
+             f"{coded}: not one ec_pack launch for 2 tiles, each CDEF kernel "
+             "once a shard and the gather in each shard")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pkt2, _ = te.encode_pframe_tiled(frames[1], kref, 100, devs)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    dev_ms, other = _kernel_device_ms(torch, prof)
+    print(f"# the tiled P frame again under torch.profiler: {wall2:.3f} s "
+          f"of wall; device ms and launches by kernel {json.dumps(dev_ms)}; "
+          f"other device work: {other}", flush=True)
+    if pkt2 != pkt:
+        fail("the tiled P frame's second call gave another packet")
+    small = synth(256, 192, n=2)
+    kp, kr = ti.encode_keyframe_tpu(small[0], 100, speed=10, device="cpu")
+    kr = [np.asarray(r, np.uint8) for r in kr]
+    got = {}
+    for name, d in (("cuda", devs), ("cpu", ["cpu", "cpu"])):
+        t0 = time.perf_counter()
+        got[name] = te.encode_pframe_tiled(small[1], kr, 100, d)
+        got[name + "_s"] = time.perf_counter() - t0
+    same = got["cuda"][0] == got["cpu"][0] and all(
+        np.array_equal(a, b) for a, b in zip(got["cuda"][1], got["cpu"][1]))
+    print(f"# 256x192 P frame in 2 tile columns: cuda {got['cuda_s']:.2f} s "
+          f"vs cpu {got['cpu_s']:.2f} s, {len(got['cuda'][0])} bytes: packet "
+          f"and recon identical {same}", flush=True)
+    if not same:
+        fail("the 256x192 tiled P frame differs between cuda and cpu")
+    return launches, dev_ms
+
+
+def gop_scheduler_1080p(torch, ec, gp, cd, pkts6, gop6_wall: float):
+    """Phase 22b: GopScheduler over two workers (each a thread and a
+    stream, on this card or two) encoding two GOPs, each phase 15's
+    frames 0-1 (KEY + P at speed 6, cdef (0, 0, 0, 0, 3)), every kernel's
+    count set to 0 just before and read just after: each GOP must give
+    phase 15's first two packets exactly, in order. Two workers of one
+    card take turns (GopScheduler's lock per device), so on one card the
+    two GOPs run one after the other; the wall is printed beside phase
+    15's (its KEY + 2 P GOP of the same frames, gop6_wall, which holds
+    the run's first 1080p speed-6 keyframe). Returns {kernel:
+    launches}."""
+    from rav1e_tpu_torch.parallel.gop_encode import GopScheduler
+    devs = _shard_devices(torch)
+    frames = synth(1920, 1088, n=2)
+    kern = {"gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
+            "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
+            "cdef_apply": cd.cdef_apply}
+    for f in kern.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    pkts = GopScheduler(devs).encode(frames + frames, key_interval=2,
+                                     qindex=100, speed=6, cdef=CDEF_SPEED8)
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kern.items()}
+    want = list(pkts6[:2]) * 2
+    turns = " (taking turns on one card)" if devs[0] == devs[1] else ""
+    print(f"# GopScheduler over {devs}{turns}: two 1920x1088 GOPs (KEY + P, "
+          f"speed 6) in {wall:.3f} s of wall, {wall / 2:.3f} s a GOP; phase "
+          f"15's KEY + 2 P GOP of the same frames {gop6_wall:.3f} s; packets "
+          f"{[len(p) for p in pkts]} bytes; launches {json.dumps(launches)}",
+          flush=True)
+    if pkts != want:
+        fail(f"the GOPs gave {[len(p) for p in pkts]} bytes, not phase 15's "
+             f"{[len(p) for p in want]}")
+    return launches
+
+
+def capi_phase(torch, w: int = 256, h: int = 192):
+    """Phase 22c: the C API (capi/capi.c, built with g++ against this
+    Python's headers) loaded with ctypes in this process, on cuda (the
+    default device) at 256x192: 5 frames of the fade + occluding-mover
+    group at q 100, speed 10; its packets and frame numbers must equal
+    Config(...).new_context()'s at the same settings."""
+    import ctypes as ct
+    from rav1e_tpu_torch.api import Config
+    from rav1e_tpu_torch.capi.build import build
+    try:
+        so = build()
+    except RuntimeError as e:
+        fail(f"the C API shim does not build here: {e}")
+
+    class RaPacket(ct.Structure):
+        _fields_ = [("data", ct.POINTER(ct.c_uint8)), ("len", ct.c_size_t),
+                    ("input_frameno", ct.c_uint64), ("frame_type", ct.c_int),
+                    ("opaque", ct.c_void_p)]
+
+    lib = ct.CDLL(str(so))
+    vp = ct.c_void_p
+    lib.rav1e_config_default.restype = vp
+    lib.rav1e_config_parse.argtypes = [vp, ct.c_char_p, ct.c_char_p]
+    lib.rav1e_context_new.argtypes = [vp]
+    lib.rav1e_context_new.restype = vp
+    lib.rav1e_frame_new.argtypes = [vp]
+    lib.rav1e_frame_new.restype = vp
+    lib.rav1e_frame_fill_plane.argtypes = [vp, ct.c_int, ct.c_char_p,
+                                           ct.c_size_t, ct.c_ssize_t,
+                                           ct.c_int]
+    lib.rav1e_send_frame.argtypes = [vp, vp]
+    lib.rav1e_receive_packet.argtypes = [vp, ct.POINTER(ct.POINTER(RaPacket))]
+    for f in ("rav1e_packet_unref", "rav1e_frame_unref",
+              "rav1e_context_unref", "rav1e_config_unref"):
+        getattr(lib, f).argtypes = [vp]
+    lib.rav1e_version_full.restype = ct.c_char_p
+    frames = _tests_content().bgroup(w, h, n=5)
+    kv = {"width": w, "height": h, "quantizer": 100, "speed": 10}
+    t0 = time.perf_counter()
+    cfg = lib.rav1e_config_default()
+    for k, v in kv.items():
+        lib.rav1e_config_parse(cfg, k.encode(), str(v).encode())
+    ctx = lib.rav1e_context_new(cfg)
+    if not ctx:
+        fail("rav1e_context_new returned NULL on cuda")
+    for f in frames:
+        fr = lib.rav1e_frame_new(ctx)
+        for i, p in enumerate(f):
+            data = np.ascontiguousarray(p).tobytes()
+            lib.rav1e_frame_fill_plane(fr, i, data, len(data), p.shape[1], 1)
+        if lib.rav1e_send_frame(ctx, fr) != 0:
+            fail("rav1e_send_frame failed")
+        lib.rav1e_frame_unref(fr)
+    lib.rav1e_send_frame(ctx, None)
+    got = []
+    while True:
+        pp = ct.POINTER(RaPacket)()
+        st = lib.rav1e_receive_packet(ctx, ct.byref(pp))
+        if st == 0 and pp:
+            got.append((ct.string_at(pp.contents.data, pp.contents.len),
+                        pp.contents.input_frameno))
+            lib.rav1e_packet_unref(pp)
+        elif st in (1, 3):
+            break
+        else:
+            fail(f"rav1e_receive_packet returned status {st}")
+    lib.rav1e_context_unref(ctx)
+    lib.rav1e_config_unref(cfg)
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [(p.data, p.input_frameno) for p in _session(
+        Config.parse(kv).new_context(), frames)]
+    t_p = time.perf_counter() - t0
+    print(f"# C API ({lib.rav1e_version_full().decode()}) through ctypes on "
+          f"cuda at {w}x{h}, 5 frames: {t_c:.2f} s, {len(got)} packets "
+          f"{[len(d) for d, _ in got]} bytes; Config(...).new_context() "
+          f"{t_p:.2f} s: identical {got == want}", flush=True)
+    if got != want:
+        fail("the C API's packets differ from the Context's")
+
+
+def lr12_session(w: int = 256, h: int = 192):
+    """Phase 22d: a 12-bit speed-2 Context (the numpy pipelines, loop
+    restoration searched on the host at 12 bits) on cuda and on cpu at
+    256x192, KEY + P (low latency) of the fade + occluding-mover group
+    (its depth cut to 2 frames to keep the run short): packets, frame
+    types, frame numbers and qps identical."""
+    from rav1e_tpu_torch.api import Config
+    frames = [_to_sampling(f, "420", 12)
+              for f in _tests_content().bgroup(w, h, n=3)[:2]]
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pkts = _session(Config(width=w, height=h, bit_depth=12, speed=2,
+                               quantizer=120, low_latency=True
+                               ).new_context(device=d), frames)
+        res[d] = ([(p.frame_type, p.input_frameno, p.qp) for p in pkts],
+                  [p.data for p in pkts], time.perf_counter() - t0)
+    (kinds, data, t_g), (kinds_c, data_c, t_c) = res["cuda"], res["cpu"]
+    same = kinds == kinds_c and data == data_c
+    print(f"# {w}x{h} 12-bit speed-2 session (LR on the host) cuda "
+          f"{t_g:.2f} s vs cpu {t_c:.2f} s: packets identical {same}; "
+          f"(type, frame, qp) {kinds}; bytes {[len(b) for b in data]}",
+          flush=True)
+    if not same:
+        fail("the 12-bit LR session differs between cuda and cpu")
+
+
+def multichip_dryrun(torch):
+    """Phase 22e: dryrun_multichip over every card (parallel/dryrun.py):
+    the tiled P frame and the GOP streams equal to the CPU route's."""
+    from rav1e_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    out = dryrun_multichip(torch.cuda.device_count())
+    print(f"# dryrun_multichip({torch.cuda.device_count()}): "
+          f"{json.dumps(out)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if not out["cpu_route_equal"]:
+        fail("dryrun_multichip did not hold its streams to the CPU route")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2963,6 +3455,8 @@ def main() -> int:
         return hbd_pins(torch, ti, tp)
     if sys.argv[1:] == ["--lr-pins"]:
         return lr_pins(torch, ti, tp)
+    if sys.argv[1:] == ["--tiled-pins"]:
+        return tiled_pins(torch, ti)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2970,6 +3464,12 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"# [{time.perf_counter() - t_start:.1f} s] {what} done",
+              flush=True)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
@@ -2993,8 +3493,11 @@ def main() -> int:
           "of a small launch's time that no kernel design closes",
           flush=True)
     kernel_vs_plain(torch, ec)
+    stamp("phase 3")
     gather, gframe, bframe = gather_phase(torch, gp, floor_ms)
+    stamp("phases 1-4")
     ec_entry, kd, planes = slice_1080p(torch, ec, native, ti, floor_ms)
+    stamp("phase 5")
     # phase 6: the CDEF kernels on the deblocked 1080p keyframe recon
     # (sampled branch) and on it cut to 1920x1056 (full branch)
     h, w = planes[0].shape
@@ -3004,18 +3507,25 @@ def main() -> int:
     src_d = [torch.from_numpy(p).cuda() for p in planes]
     skip8 = ti._kf_skip8(kd.state)
     cdef_ms = cdef_phase(torch, cd, rec_d, src_d, skip8, floor_ms)
+    stamp("phase 6 (sampled)")
     cdef_phase(torch, cd, cd._as_pix([rec_d[0][:1056], rec_d[1][:528],
                                      rec_d[2][:528]]),
                cd._as_pix([src_d[0][:1056], src_d[1][:528], src_d[2][:528]]),
                skip8[:132], floor_ms)
     dirs_extremes(torch, cd)
+    stamp("phase 6 (full, extremes)")
     cdef_past_2_24(torch, cd)
+    stamp("phases 5-6")
     gpu_vs_cpu(torch, native, ti)
+    stamp("phase 7")
     gop_gpu_vs_cpu(torch, native, ti, tp, 512, 384, 10)
+    stamp("phase 8")
     gop_gpu_vs_cpu(torch, native, ti, tp, 256, 192, 8, CDEF_SPEED8)
+    stamp("phase 9")
     gop_gpu_vs_cpu(torch, native, ti, tp, 256, 192, 7, CDEF_SPEED8,
                    strict=True)
     r16_sizes = default_pframe_gpu_vs_cpu(native, tp, 256, 192)
+    stamp("phases 7-11")
     for P in (27, 15):
         g = gather[(P, 8160)]
         print(f"# refine16 gather P={P}: {r16_sizes.get(P, 0)} gathers in "
@@ -3027,57 +3537,95 @@ def main() -> int:
             fail(f"the default P frame launched no gather at P = {P}")
     for split8 in (False, True):
         speed6_gpu_vs_cpu(torch, native, ti, 256, 192, split8)
+    stamp("phase 14 (before 14b)")
     speed6_gop_gpu_vs_cpu(native, tp, 256, 192)
+    stamp("phase 14")
     # the speed-10 and speed-7 GOPs, their depth cut to 288 rows (544
     # before phase 20 came) to keep the run short; still 540 blocks, so
     # the P frames search at half resolution as at 1080p
     gop_1080p(torch, ec, gp, cd, native, ti, tp, 2, 10, h=288)
+    stamp("phase 12")
     gop7_launches, _, n_p7, _, _, _ = gop_1080p(torch, ec, gp, cd, native, ti,
                                           tp, 3, 7, CDEF_SPEED8, h=288)
+    stamp("phases 12-13")
     # the main path: the speed-6 GOP with CDEF, the preset the
     # reference's bench times
     record: list = []
-    launches, groups, n_p, _, pkts6, recs6 = gop_1080p(torch, ec, gp, cd, native, ti, tp,
+    launches, groups, n_p, gop6_timings, pkts6, recs6 = gop_1080p(
+        torch, ec, gp, cd, native, ti, tp,
                                          3, 6, CDEF_SPEED8,
                                          expect=GOP6_BYTES, record=record)
+    stamp("phase 15")
     # the same frames packed again by the packer and by the Python writer
     packer_vs_writer(torch, ec, native, ti, tp, record)
+    stamp("phases 15, 15b")
     # a full-width speed-6 keyframe whose quads split 16->8
     kf6s_launches, _ = speed6_keyframe(torch, ec, cd, native, ti,
                                        checker_tiled(synth(1920, 128)[0]),
                                        "1920x128 split8", True)
+    stamp("phase 16")
     # the default reordered group after phase 15's keyframe, then the
     # two-reference frames on cuda against cpu
     bg_launches, n_b, _ = bgroup_1080p(torch, ec, gp, cd, tp, recs6[0],
                                        pkts6[0])
+    stamp("phase 17")
     bgroup_gpu_vs_cpu(tp, ti, 256, 192)
+    stamp("phases 17, 17b")
     # the session API: a Context on cuda against cpu, the lookahead's pair
     # stats at 1080p, and the CLI's y4m -> IVF encode at 1080p
     session_gpu_vs_cpu()
+    stamp("phase 18a")
     la_ms = lookahead_gpu_vs_cpu(torch)
+    stamp("phase 18b")
     sess_launches, n_s = session_cli_1080p(torch, {
         "gather_patches": gp.gather_patches_many, "ec_pack": ec.pack_ir,
         "cdef_dirs": cd.cdef_dirs, "cdef_ladder_sse": cd.cdef_ladder_sse,
         "cdef_apply": cd.cdef_apply})
+    stamp("phase 18")
     print(f"# lookahead: {la_ms:.4f} ms of device time a 1080p frame pair, "
           "one pair a frame sent", flush=True)
     # phase 19, 10-bit 4:2:0: the CDEF kernels on 16-bit planes, cuda
     # against cpu at 256x192, and the 1080p 10-bit group
     cdef10_ms = cdef_10bit(torch, cd, rec_d, src_d, skip8, floor_ms)
+    stamp("phase 19a")
     hbd_gpu_vs_cpu(tp)
+    stamp("phase 19b")
     hbd_launches, n_h = hbd_1080p(torch, ec, gp, cd, tp, recs6[0])
+    stamp("phase 19")
     # phase 20, loop restoration and speeds 0-3: the LRF search on phase
     # 5's recon, a speed-2 Context on cuda against cpu, and a keyframe and
     # the speed-2 group with LR at 1080p
     lrf_1080p(torch, rec_d, src_d)
+    stamp("phase 20a")
     lr_session_gpu_vs_cpu()
+    stamp("phase 20b")
     lr_launches, n_l = lr_group_1080p(torch, ec, gp, cd, ti, tp)
+    stamp("phase 20")
     # phase 21: phase 17's group on a 2x2 tile grid, the AQ keyframe, and
     # the tiled, AQ and numpy-route sessions on cuda against cpu
     tile_launches, n_t, tiled = tiles_1080p(torch, ec, gp, cd, tp,
                                             recs6[0], pkts6[0])
+    stamp("phase 21a")
     aq_keyframes(torch, ec, cd, ti)
+    stamp("phase 21b")
     sessions_gpu_vs_cpu()
+    stamp("phase 21")
+    # phase 22: the halo CDEF kernels, the 2-shard tiled P frame, the GOP
+    # scheduler, the C API, 12-bit LR and dryrun_multichip
+    halo_ms = halo_cdef(torch, cd, rec_d, src_d, skip8, floor_ms)
+    stamp("phase 22a's kernels")
+    tiled_p_launches, tiled_dev_ms = tiled_1080p(torch, ec, gp, cd, tp, ti,
+                                                 recs6[0])
+    stamp("phase 22a")
+    sched_launches = gop_scheduler_1080p(torch, ec, gp, cd, pkts6,
+                                         gop6_timings[0]["gop_wall"])
+    stamp("phase 22b")
+    capi_phase(torch)
+    stamp("phase 22c")
+    lr12_session()
+    stamp("phase 22d")
+    multichip_dryrun(torch)
+    stamp("phase 22e")
 
     # the gather entry: phase 4's replay of the groups each P frame
     # launched
@@ -3136,11 +3684,12 @@ def main() -> int:
     by_path = {"gop6": dict(launches), "gop7": gop7_launches,
                "kf6_split8": kf6s_launches, "bgroup6": bg_launches,
                "session_cli": sess_launches, "hbd10": hbd_launches,
-               "lr": lr_launches, "tiles": tile_launches}
+               "lr": lr_launches, "tiles": tile_launches,
+               "tiled_p": tiled_p_launches, "gop_sched": sched_launches}
     for k in launches:
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
     print(f"# launches on the main paths (phases 15, 13, 16, 17, 18, 19c, "
-          f"20c, 21a): {json.dumps(by_path)}", flush=True)
+          f"20c, 21a, 22a, 22b): {json.dumps(by_path)}", flush=True)
 
     def paths(k):
         return {p: n.get(k, 0) for p, n in by_path.items()}
@@ -3155,7 +3704,10 @@ def main() -> int:
                 "cdef_apply": "rav1e_tpu/ops/tpu/cdef.py:220"}
     # the eight paths' frames (phases 17, 19c and 21a: the anchor and the
     # B frames; 20c: the keyframe too)
-    frames = (n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h + n_l + n_t
+    # 22a: one frame in 2 shards (each CDEF kernel once a shard); 22b: two
+    # GOPs of KEY + P
+    frames = ((n_p + 1) + (n_p7 + 1) + 1 + (1 + n_b) + n_s + n_h + n_l + n_t
+              + 1 + 4)
     cdef_entries = [
         {"name": k, "route": "cuda",
          "source": "rav1e_tpu_torch/csrc/cdef.cu", "replaces": replaces[k],
@@ -3166,7 +3718,17 @@ def main() -> int:
          "library_ms": None, "ms_10bit": cdef10_ms[k][0],
          "plain_ms_10bit": cdef10_ms[k][1],
          "bound_ms_10bit": cdef10_ms[k][2],
-         "bound_by_10bit": cdef10_ms[k][3]} for k, r in cdef_ms.items()]
+         "bound_by_10bit": cdef10_ms[k][3],
+         "tiled_frame_device_ms": tiled_dev_ms[k][0]}
+        for k, r in cdef_ms.items()]
+    for e in cdef_entries:
+        if e["name"] in halo_ms:
+            h_ms, h_pl, h_b, h_by = halo_ms[e["name"]]
+            e.update(ms_halo=h_ms, plain_ms_halo=h_pl, bound_ms_halo=h_b,
+                     bound_by_halo=h_by)
+    ec_entry["tiled_p_frame_device_ms"] = tiled_dev_ms["ec_pack"][0]
+    gather_entry["tiled_p_frame_device_ms"] = \
+        tiled_dev_ms["gather_patches"][0]
     entries = [ec_entry, gather_entry] + cdef_entries
     for e in entries:
         e["empty_launch_ms"] = floor_ms

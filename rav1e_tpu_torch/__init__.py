@@ -6,9 +6,10 @@ Pallas kernel of the reference on a ported path is a hand-written CUDA
 kernel under `csrc/`. Entry points run on `cuda` unless the caller
 passes `device="cpu"` (see `device.resolve_device`).
 
-Ported so far: the speed-8 to 10 KEY + P paths with CDEF
-(`pipeline.tpu_inter.encode_gop_tpu`, `encode_pframe_tpu`,
-`pipeline.tpu_intra.encode_keyframe_tpu`), with the od_ec range coder
+Everything the JAX package does is ported: the device pipelines
+(`pipeline.tpu_intra`, `pipeline.tpu_inter`), the numpy pipelines, the
+session API and CLI (`api`, `cli`), the C API (`capi`) and the
+multi-device layer (`parallel`), with the od_ec range coder
 (`csrc/ec_pack.cu`), the patch gather (`csrc/gather_patches.cu`) and
 CDEF (`csrc/cdef.cu`) as CUDA kernels.
 """

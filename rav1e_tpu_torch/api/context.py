@@ -20,8 +20,8 @@ routing onto its numpy pipelines, on the port's copies of them
 other keyframes, 12-bit, 4:2:2 and 4:4:4 frames, the inter frames of an
 `aq` session, switch frames and error-resilient frames. That routing is
 by configuration and logged once (_warn_slow); nothing catches an error
-to fall back. Loop restoration at 12 bits raises NotImplementedError in
-Context.__init__, naming the ROADMAP item that brings it.
+to fall back. Loop restoration at 12 bits searches on the host, as the
+reference's (pipeline/lr.py).
 """
 
 from __future__ import annotations
@@ -112,12 +112,6 @@ class Config:
         return Context(self, device=device)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to rav1e_tpu_torch yet: ROADMAP.md queue 1, "
-        f"{item}")
-
-
 class Context:
     """send_frame / receive_packet state machine (rav1e-shaped).
 
@@ -179,7 +173,6 @@ class Context:
                 "low_latency mode (rav1e contract)")
         self._slot_hints = [0] * 8
         self._aq = _truthy(cfg.extra.get("aq", ""))
-        self._check_ported()
         self.device = resolve_device(device)
         self._q: deque = deque()
         self._out: deque = deque()
@@ -272,15 +265,6 @@ class Context:
     @property
     def _tiled(self) -> bool:
         return bool(self._tile_cols_log2 or self._tile_rows_log2)
-
-    def _check_ported(self):
-        """Raise, before any frame is coded, for the one configuration the
-        port's pipelines do not reach: loop restoration (speeds 0-3) at 12
-        bits, which the reference searches on the host."""
-        cfg, ss = self.cfg, self.speed_settings
-        if cfg.bit_depth == 12 and ss.lr:
-            _not_ported("loop restoration (speeds 0-3) at bit_depth 12",
-                        "item 16b (loop restoration at 12 bits)")
 
     def _warn_slow(self, why: str):
         """One notice per cause when a configuration routes to the numpy

@@ -116,6 +116,17 @@
 // to 2,143,291,392, still an exact int32; the ordered path (common at 10
 // bits: a cell passes 2^24 at an RMS error of 64 in 10-bit units) forms
 // its row terms with shared atomics instead of the 8-bit err array.
+//
+// The tiled search (the reference's cdef_search_persb_tiled,
+// rav1e_tpu/ops/tpu/cdef.py:442) runs (b) and (c) on one shard's tile
+// columns: the planes they read are the shard's columns with a halo of
+// `halo` columns (8 luma, 4 chroma) of each neighbour on either side,
+// and a halo that lies outside the frame (the first or last shard) is
+// marked by the valid column range [xlo, xhi), so its taps are OUT, as
+// the reference's LARGE sentinel there. The SB grid starts at column
+// `halo`; the sources, the grids, the table and the outputs are the
+// shard's own columns. Without a halo (halo 0, [0, W)) the kernels read
+// the whole frame as before.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -240,13 +251,19 @@ __device__ __forceinline__ uint4 vec_of<uint4>(const uint32_t* w) {
 }
 
 // Rows r0 - 2 .. r0 + RH + 1 and columns c0 - 4 .. c0 + RW + 3 of a
-// plane into `tile` ([RH + 4][RW + 8] int16), OUT outside the frame, four
-// pixels an aligned load (one 4-byte word at 8 bits, 8 bytes at 10; c0
-// and W are multiples of 4).
+// plane (row stride `stride`) into `tile` ([RH + 4][RW + 8] int16), OUT
+// outside the frame: outside rows 0 .. H - 1 and columns xlo .. xhi - 1.
+// Four pixels an aligned load (one 4-byte word at 8 bits, 8 bytes at
+// 10; c0, stride, xlo and xhi are multiples of 4). Without a halo the
+// columns are 0 .. W - 1 of a plane of stride W; with one (the tiled
+// search), the plane is a shard's columns with `halo` columns of each
+// neighbour on either side, and a halo that lies outside the frame is
+// left out of [xlo, xhi), so its taps are OUT as at a frame edge.
 template <int RH, int RW, int NT, typename Pix>
 __device__ __forceinline__ void load_tile(int16_t* tile,
                                           const Pix* __restrict__ plane,
-                                          int H, int W, int r0, int c0) {
+                                          int H, int stride, int xlo,
+                                          int xhi, int r0, int c0) {
   constexpr int WPR = (RW + 8) / 4;
   for (int i = threadIdx.x; i < (RH + 4) * WPR; i += NT) {
     const int ty = i / WPR;
@@ -254,8 +271,8 @@ __device__ __forceinline__ void load_tile(int16_t* tile,
     const int yy = r0 - 2 + ty;
     const int xx = c0 - 4 + 4 * tw;
     uint2 v = make_uint2(OUT2, OUT2);
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-      const Pix* at = plane + static_cast<int64_t>(yy) * W + xx;
+    if (yy >= 0 && yy < H && xx >= xlo && xx < xhi) {
+      const Pix* at = plane + static_cast<int64_t>(yy) * stride + xx;
       if constexpr (sizeof(Pix) == 1) {
         const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(at));
         v = make_uint2(__byte_perm(w, 0, 0x4140),
@@ -563,7 +580,8 @@ cdef_ladder_sse_kernel(const Pix* __restrict__ py,
                        const int* __restrict__ var,
                        const uint8_t* __restrict__ skip8, int damping, int R,
                        int C, float* __restrict__ out,
-                       int* __restrict__ paths) {
+                       int* __restrict__ paths, int halo, int xlo,
+                       int xhi) {
   constexpr int NREG = SAMPLED ? 2 : 1;   // regions (quadrants) a cell
   constexpr int RPT = NREG;               // rows a thread's run covers
   constexpr int SH = SHIFT<Pix>;
@@ -596,14 +614,19 @@ cdef_ladder_sse_kernel(const Pix* __restrict__ py,
     fill_offsets<40>(off_y);
     fill_offsets<24>(off_c);
   }
+  // the planes' strides and the shard's first column in them (a halo);
+  // the sources, grids and table are the shard's own (W columns)
+  const int sy_w = W + 2 * halo, sc_w = sy_w >> 1;
 #pragma unroll
   for (int q = 0; q < NREG; ++q) {
-    load_tile<32, 32, LADDER_THREADS>(tile_y[q], py, H, W, org(q, 32, br),
-                                      org(q, 32, bc));
-    load_tile<16, 16, LADDER_THREADS>(tile_c[0][q], pu, Hc, Wc,
-                                      org(q, 16, br), org(q, 16, bc));
-    load_tile<16, 16, LADDER_THREADS>(tile_c[1][q], pv, Hc, Wc,
-                                      org(q, 16, br), org(q, 16, bc));
+    load_tile<32, 32, LADDER_THREADS>(tile_y[q], py, H, sy_w, xlo, xhi,
+                                      org(q, 32, br), org(q, 32, bc) + halo);
+    load_tile<16, 16, LADDER_THREADS>(tile_c[0][q], pu, Hc, sc_w, xlo >> 1,
+                                      xhi >> 1, org(q, 16, br),
+                                      org(q, 16, bc) + (halo >> 1));
+    load_tile<16, 16, LADDER_THREADS>(tile_c[1][q], pv, Hc, sc_w, xlo >> 1,
+                                      xhi >> 1, org(q, 16, br),
+                                      org(q, 16, bc) + (halo >> 1));
   }
   __syncthreads();
 
@@ -886,7 +909,8 @@ cdef_apply_kernel(const Pix* __restrict__ py,
                   const int* __restrict__ idx, int y_pri, int y_sec,
                   int uv_pri, int uv_sec, int damping,
                   Pix* __restrict__ oy, Pix* __restrict__ ou,
-                  Pix* __restrict__ ov, int* __restrict__ paths) {
+                  Pix* __restrict__ ov, int* __restrict__ paths, int halo,
+                  int xlo, int xhi) {
   constexpr int SH = SHIFT<Pix>;
   __shared__ __align__(16) int16_t tile_y[68 * 72];
   __shared__ __align__(16) int16_t tile_c[2][36 * 40];
@@ -920,11 +944,17 @@ cdef_apply_kernel(const Pix* __restrict__ py,
     fill_offsets<72>(off_y);
     fill_offsets<40>(off_c);
   }
+  // the input planes' strides (a shard with its halo columns); the
+  // outputs and grids are the shard's own W columns
+  const int sy_w = W + 2 * halo, sc_w = sy_w >> 1, hc = halo >> 1;
   if (!copy_y)
-    load_tile<64, 64, THREADS>(tile_y, py, H, W, 64 * sbr, 64 * sbc);
+    load_tile<64, 64, THREADS>(tile_y, py, H, sy_w, xlo, xhi, 64 * sbr,
+                               64 * sbc + halo);
   if (!copy_c) {
-    load_tile<32, 32, THREADS>(tile_c[0], pu, Hc, Wc, 32 * sbr, 32 * sbc);
-    load_tile<32, 32, THREADS>(tile_c[1], pv, Hc, Wc, 32 * sbr, 32 * sbc);
+    load_tile<32, 32, THREADS>(tile_c[0], pu, Hc, sc_w, xlo >> 1, xhi >> 1,
+                               32 * sbr, 32 * sbc + hc);
+    load_tile<32, 32, THREADS>(tile_c[1], pv, Hc, sc_w, xlo >> 1, xhi >> 1,
+                               32 * sbr, 32 * sbc + hc);
   }
   __syncthreads();
   const int u8 = tid & 7, rest = tid >> 3;
@@ -935,8 +965,10 @@ cdef_apply_kernel(const Pix* __restrict__ py,
     if (xx < W && yy < H) {
       const int64_t o = static_cast<int64_t>(yy) * W + xx;
       if (copy_y) {
+        const int64_t oi = static_cast<int64_t>(yy) * sy_w + xx + halo;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) copy_run<8>(py + o + r * W, oy + o + r * W);
+        for (int r = 0; r < 2; ++r)
+          copy_run<8>(py + oi + r * sy_w, oy + o + r * W);
       } else {
         const int g = (yy >> 3) * gw + (xx >> 3);
         const int pa = luma_pri_adj(lp, var[g]);
@@ -959,9 +991,10 @@ cdef_apply_kernel(const Pix* __restrict__ py,
       Pix* dst = pl ? ov : ou;
       if (copy_c) {
         const Pix* src = pl ? pv : pu;
+        const int64_t oi = static_cast<int64_t>(yy) * sc_w + xx + hc;
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          copy_run<4>(src + o + r * Wc, dst + o + r * Wc);
+          copy_run<4>(src + oi + r * sc_w, dst + o + r * Wc);
       } else {
         const int g = (yy >> 2) * gw + (xx >> 2);
         const int* off = off_c[cp > 0 ? dirs[g] : 0];
@@ -1002,6 +1035,10 @@ extern "C" int cdef_dirs_launch(const void* y, int H, int W, void* dir_out,
 
 // out f32 [3, 8, R, C]: R x C = the SBs (sampled) or the 32-blocks (full);
 // paths int32 [2]: blocks that took the exact-integer and the ordered path.
+// H x W: the frame (or a shard's columns) that the sources, grids and
+// table cover. halo: 0, or the luma columns of each neighbour on either
+// side of the planes y, u, v (stride W + 2 halo luma); [xlo, xhi): the
+// planes' luma columns that lie in the frame.
 extern "C" int cdef_ladder_sse_launch(const void* y, const void* u,
                                       const void* v, const void* sy,
                                       const void* su, const void* sv, int H,
@@ -1009,6 +1046,7 @@ extern "C" int cdef_ladder_sse_launch(const void* y, const void* u,
                                       const void* var, const void* skip8,
                                       int damping, int sampled, int R, int C,
                                       void* out, void* paths, int bd,
+                                      int halo, int xlo, int xhi,
                                       void* stream) {
   if (R * C > 0) {
     auto s = static_cast<cudaStream_t>(stream);
@@ -1021,31 +1059,34 @@ extern "C" int cdef_ladder_sse_launch(const void* y, const void* u,
     if (bd == 8 && sampled)
       cdef_ladder_sse_kernel<true><<<R * C, LADDER_THREADS, 0, s>>>(
           b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
-          damping, R, C, o, pc);
+          damping, R, C, o, pc, halo, xlo, xhi);
     else if (bd == 8)
       cdef_ladder_sse_kernel<false><<<R * C, LADDER_THREADS, 0, s>>>(
           b(y), b(u), b(v), b(sy), b(su), b(sv), H, W, d, vr, b(skip8),
-          damping, R, C, o, pc);
+          damping, R, C, o, pc, halo, xlo, xhi);
     else if (sampled)
       cdef_ladder_sse_kernel<true><<<R * C, LADDER_THREADS, 0, s>>>(
           h(y), h(u), h(v), h(sy), h(su), h(sv), H, W, d, vr, b(skip8),
-          damping, R, C, o, pc);
+          damping, R, C, o, pc, halo, xlo, xhi);
     else
       cdef_ladder_sse_kernel<false><<<R * C, LADDER_THREADS, 0, s>>>(
           h(y), h(u), h(v), h(sy), h(su), h(sv), H, W, d, vr, b(skip8),
-          damping, R, C, o, pc);
+          damping, R, C, o, pc, halo, xlo, xhi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // paths int32 [2]: (SB, plane) pairs filtered and copied (chroma counts 2).
+// H x W, halo, [xlo, xhi): as cdef_ladder_sse_launch's; the outputs are
+// H x W.
 extern "C" int cdef_apply_launch(const void* y, const void* u, const void* v,
                                  int H, int W, const void* dirs,
                                  const void* var, const void* skip8,
                                  const void* idx, int y_pri, int y_sec,
                                  int uv_pri, int uv_sec, int damping,
                                  void* oy, void* ou, void* ov, void* paths,
-                                 int bd, void* stream) {
+                                 int bd, int halo, int xlo, int xhi,
+                                 void* stream) {
   const int nsb = ((H + 63) >> 6) * ((W + 63) >> 6);
   if (nsb > 0) {
     auto s = static_cast<cudaStream_t>(stream);
@@ -1060,11 +1101,11 @@ extern "C" int cdef_apply_launch(const void* y, const void* u, const void* v,
     if (bd == 8)
       cdef_apply_kernel<<<nsb, THREADS, 0, s>>>(
           b(y), b(u), b(v), H, W, d, vr, b(skip8), ix, y_pri, y_sec, uv_pri,
-          uv_sec, damping, ob(oy), ob(ou), ob(ov), pc);
+          uv_sec, damping, ob(oy), ob(ou), ob(ov), pc, halo, xlo, xhi);
     else
       cdef_apply_kernel<<<nsb, THREADS, 0, s>>>(
           h(y), h(u), h(v), H, W, d, vr, b(skip8), ix, y_pri, y_sec, uv_pri,
-          uv_sec, damping, oh(oy), oh(ou), oh(ov), pc);
+          uv_sec, damping, oh(oy), oh(ou), oh(ov), pc, halo, xlo, xhi);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,11 @@ kernel (counted in `<wrapper>.launches`; `path_counts` counts the
 kernels' blocks by path on the card); there is no fallback. The kernels
 take bit depths 8 and 10 (the reference's CoeffShift: strengths and
 damping scaled by bd - 8, the direction search on px >> (bd - 8)); 12
-bits raise (ROADMAP.md item 16b).
+bits raise (the reference codes them on its numpy pipelines only).
+`cdef_search_persb_tiled` is the search of one tile column of a frame
+whose columns run as shards: the table and the filter read the shard's
+planes with 8 (4 chroma) columns of each neighbour (the `halo` argument
+of the kernels and of their plain versions).
 
 The reference's SSEs are f32 sums, and the order of the sum decides
 once a cell passes 2^24 (an RMS error of 64 a pixel at 8 bits: noise at
@@ -273,15 +277,44 @@ def cdef_dirs_plain(y, bd: int = 8):
     return dirs.to(torch.int8), var
 
 
+def _prep_ext(plane, dirs_pix, n: int, is_luma: bool, halo: int = 0,
+              outside=(True, True)):
+    """_prep_plane of a plane, or of a shard's columns with `halo`
+    columns of each neighbour on either side (the tiled search): a halo
+    outside the frame (outside[0] left, outside[1] right) reads as the
+    LARGE border, as the reference's sentinel there; the prepared taps
+    are cropped to the shard's own columns. dirs_pix covers the own
+    columns."""
+    if not halo:
+        return _prep_plane(plane, dirs_pix, n, is_luma)
+    x = plane.to(torch.int32)
+    big = torch.full_like(x[:, :halo], LARGE)
+    x = torch.cat([big if outside[0] else x[:, :halo], x[:, halo:-halo],
+                   big if outside[1] else x[:, -halo:]], 1)
+    z = torch.zeros((dirs_pix.shape[0], halo), dtype=dirs_pix.dtype,
+                    device=dirs_pix.device)
+    pp = _prep_plane(x, torch.cat([z, dirs_pix, z], 1), n, is_luma)
+
+    def own(a):
+        return a[:, halo:-halo]
+
+    return {**pp, "x": own(pp["x"]), "p_pri": [own(p) for p in pp["p_pri"]],
+            "p_sec": [own(p) for p in pp["p_sec"]], "dtype": plane.dtype}
+
+
 def _ladder_errors(plane, src, dirs, var, skip8, damping: int, chroma: bool,
-                   sampled: bool, bd: int):
+                   sampled: bool, bd: int, halo: int = 0,
+                   outside=(True, True)):
     """Each ladder entry's filtered plane minus `src`, int32, in the
     cells of the SSE table: [2, R, b, C, b] (sampled: the TL and BR
-    b x b quadrants of each SB) or [R, b, C, b] (each b-block). Returns
-    (the 8 error arrays, the cell's pixel dims)."""
+    b x b quadrants of each SB) or [R, b, C, b] (each b-block). With a
+    luma halo, plane holds the shard's columns and the neighbours'
+    (_prep_ext), src the shard's own. Returns (the 8 error arrays, the
+    cell's pixel dims)."""
     shift = bd - 8
     n, b = (4, 16) if chroma else (8, 32)
-    pp = _prep_plane(plane, _upsample(dirs, n), n, not chroma)
+    pp = _prep_ext(plane, _upsample(dirs, n), n, not chroma,
+                   halo // 2 if chroma else halo, outside)
     skip_pix = _upsample(skip8, n)
     var_pix = None if chroma else _upsample(var, 8)
     src = src.to(torch.int32)
@@ -294,7 +327,7 @@ def _ladder_errors(plane, src, dirs, var, skip8, damping: int, chroma: bool,
         src = _diag(src, b)
         dims = (0, 2, 4)
     else:
-        h, w = plane.shape
+        h, w = src.shape
         src = src.reshape(h // b, b, w // b, b)
         dims = (1, 3)
     errs = []
@@ -327,16 +360,21 @@ def _xla_rows_sum(x, lanes: int = 8):
 
 
 def cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping: int,
-                          chroma: bool, sampled: bool, bd: int = 8):
+                          chroma: bool, sampled: bool, bd: int = 8,
+                          halo: int = 0, outside=(True, True)):
     """f32 [8, R, C]: each ladder entry's squared error of one plane
     against `src`, summed over the TL and BR quadrants of each SB
     (sampled: R x C = the SBs) or over each 32-block (32 luma / 16
     chroma px; R x C = the block grid), in the reference's f32 order
     (_xla_rows_sum over each cell's rows: sampled, the TL quadrant's
     then the BR one's). dirs/var/skip8: the luma 8x8 grids; damping:
-    the frame's (luma) damping."""
+    the frame's (luma) damping. halo (luma columns, 0 or 8): plane is a
+    shard's columns with `halo` (chroma halo / 2) columns of each
+    neighbour on either side, those outside the frame marked by
+    `outside` (left, right); src, the grids and the table are the
+    shard's own."""
     errs, dims = _ladder_errors(plane, src, dirs, var, skip8, damping,
-                                chroma, sampled, bd)
+                                chroma, sampled, bd, halo, outside)
     d = torch.stack(errs).to(torch.float32) ** 2
     if sampled:     # [8, 2, R, b, C, b] -> [8, R, C, 2 b, b]
         d = d.permute(0, 2, 4, 1, 3, 5)
@@ -347,14 +385,17 @@ def cdef_ladder_sse_plain(plane, src, dirs, var, skip8, damping: int,
 
 
 def cdef_apply_plain(plane, dirs, var, skip8, damping: int, chroma: bool,
-                     idx=None, pri: int = 0, sec: int = 0, bd: int = 8):
+                     idx=None, pri: int = 0, sec: int = 0, bd: int = 8,
+                     halo: int = 0, outside=(True, True)):
     """One plane filtered: with each SB's ladder entry idx [nr, nc]
     (64x64 luma SBs), or with the uniform pair (pri, sec) when idx is
     None. The direction is 0 where the primary strength is 0 (spec; the
-    reference's `deff`). Returns the plane's dtype."""
+    reference's `deff`). halo / outside: as cdef_ladder_sse_plain's; the
+    output is the shard's own columns. Returns the plane's dtype."""
     shift = bd - 8
     n, sb = (4, 32) if chroma else (8, 64)
-    h, w = plane.shape
+    hp = halo // 2 if chroma else halo
+    h, w = plane.shape[0], plane.shape[1] - 2 * hp
     dev = plane.device
     if idx is not None:
         lad = torch.tensor(CDEF_LADDER, dtype=torch.int32, device=dev)
@@ -367,7 +408,7 @@ def cdef_apply_plain(plane, dirs, var, skip8, damping: int, chroma: bool,
         pri, sec = pri << shift, sec << shift
         d_pix = (_upsample(dirs, n) if pri > 0
                  else torch.zeros((h, w), dtype=torch.int8, device=dev))
-    pp = _prep_plane(plane, d_pix, n, not chroma)
+    pp = _prep_ext(plane, d_pix, n, not chroma, hp, outside)
     return _filter_from_prep(pp, _upsample(skip8, n), pri, sec,
                              damping + shift,
                              None if chroma else _upsample(var, 8),
@@ -380,9 +421,9 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cdef_dirs_launch.argtypes = [p, i, i, p, p, i, p]
     lib.cdef_ladder_sse_launch.argtypes = [p] * 6 + [i, i, p, p, p, i, i, i,
-                                                     i, p, p, i, p]
+                                                     i, p, p, i, i, i, i, p]
     lib.cdef_apply_launch.argtypes = [p, p, p, i, i, p, p, p, p, i, i, i, i,
-                                      i, p, p, p, p, i, p]
+                                      i, p, p, p, p, i, i, i, i, p]
     for f in (lib.cdef_dirs_launch, lib.cdef_ladder_sse_launch,
               lib.cdef_apply_launch):
         f.restype = ctypes.c_int
@@ -397,9 +438,9 @@ def _on_card(t: torch.Tensor, what: str, bd: int) -> bool:
         raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
     if bd not in (8, 10):
         raise NotImplementedError(
-            f"the {what} kernel takes 8- and 10-bit planes: bit depth {bd} "
-            "is not ported to rav1e_tpu_torch yet (the reference codes it "
-            "on its numpy pipelines): ROADMAP.md queue 1, item 16b")
+            f"the {what} kernel takes 8- and 10-bit planes, not bit depth "
+            f"{bd}: the reference codes 12 bits on its numpy pipelines "
+            "only (ROADMAP.md section 3)")
     return True
 
 
@@ -416,23 +457,28 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _check_frame(planes, dirs, var, skip8, damping: int):
+def _check_frame(planes, dirs, var, skip8, damping: int, halo: int = 0):
     """(h, w) of a 4:2:0 frame [y, u, v] in 8x8 luma units whose grids
     (h/8 x w/8, on the frame's device) fit it, with AV1's damping (the
-    range the kernels' out-of-frame taps need)."""
+    range the kernels' out-of-frame taps need). With a halo (0 or 8
+    luma columns), the planes are a shard's w columns with `halo` (4
+    chroma) columns of each neighbour on either side."""
     if not 3 <= damping <= 6:
         raise ValueError(f"CDEF damping is 3..6 (AV1), got {damping}")
+    if halo not in (0, 8):
+        raise ValueError(f"the CDEF halo is 0 or 8 luma columns, got {halo}")
     if len(planes) != 3:
         raise ValueError(f"a frame is [y, u, v], got {len(planes)} planes")
     y = planes[0]
-    h, w = y.shape
-    if h % 8 or w % 8:
-        raise ValueError(f"luma plane {(h, w)} is not a whole number of "
-                         "CDEF units")
+    h, we = y.shape
+    w = we - 2 * halo
+    if h % 8 or w % 8 or w <= 0:
+        raise ValueError(f"luma plane {(h, we)} (halo {halo}) is not a whole "
+                         "number of CDEF units")
     for c in planes[1:]:
-        if tuple(c.shape) != (h // 2, w // 2) or c.device != y.device:
+        if tuple(c.shape) != (h // 2, we // 2) or c.device != y.device:
             raise ValueError(f"chroma plane {tuple(c.shape)} is not the 4:2:0 "
-                             f"half of luma {(h, w)} on its device")
+                             f"half of luma {(h, we)} on its device")
     g = (h // 8, w // 8)
     # the kernels read dirs as int8, var as int32 and skip8's bytes; both
     # routes check
@@ -498,24 +544,37 @@ def cdef_dirs(y, bd: int = 8):
 cdef_dirs.launches = 0
 
 
+def _columns(w: int, halo: int, outside):
+    """The kernels' valid luma column range [xlo, xhi) of planes that hold
+    a shard's w columns and `halo` columns of each neighbour."""
+    return ((halo if outside[0] else 0),
+            (w + halo if outside[1] else w + 2 * halo))
+
+
 def cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping: int,
-                    sampled: bool, bd: int = 8):
+                    sampled: bool, bd: int = 8, halo: int = 0,
+                    outside=(True, True)):
     """f32 [3, 8, R, C]: the SSE tables of a 4:2:0 frame's planes
     [y, u, v] against srcs, each cdef_ladder_sse_plain of its plane (R x C
-    = the SBs sampled, the 32-blocks full). CUDA: one cdef_ladder_sse
-    launch for the three planes; CPU: the plain version per plane."""
-    h, w = _check_frame(planes, dirs, var, skip8, damping)
-    if [tuple(s.shape) for s in srcs] != [tuple(p.shape) for p in planes] \
-            or h % 32 or w % 32:
+    = the SBs sampled, the 32-blocks full). With halo 8, planes are a
+    shard's columns with 8 (4 chroma) columns of each neighbour on
+    either side, those outside the frame marked by outside (left,
+    right); srcs, the grids and the table are the shard's own. CUDA: one
+    cdef_ladder_sse launch for the three planes; CPU: the plain version
+    per plane."""
+    h, w = _check_frame(planes, dirs, var, skip8, damping, halo)
+    own = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
+    if [tuple(s.shape) for s in srcs] != own or h % 32 or w % 32:
         raise ValueError(f"planes {[tuple(p.shape) for p in planes]} and "
                          f"sources {[tuple(s.shape) for s in srcs]} must "
-                         "match in 32-blocks")
-    if sampled and (h % 64 or w % 64):
-        raise ValueError("the sampled branch needs whole superblocks")
+                         f"match in 32-blocks (halo {halo})")
+    if sampled and (h % 64 or w % 64 or halo):
+        raise ValueError("the sampled branch needs whole superblocks and "
+                         "no halo")
     if not _on_card(planes[0], "cdef_ladder_sse", bd):
         return torch.stack([
             cdef_ladder_sse_plain(p, s, dirs, var, skip8, damping, i > 0,
-                                  sampled, bd)
+                                  sampled, bd, halo, outside)
             for i, (p, s) in enumerate(zip(planes, srcs))])
     lib = nvcc.load(SRC, _bind)
     R, C = (h // 64, w // 64) if sampled else (h // 32, w // 32)
@@ -526,8 +585,8 @@ def cdef_ladder_sse(planes, srcs, dirs, var, skip8, damping: int,
         _raise_on(lib.cdef_ladder_sse_launch(
             *map(_ptr, ps), *map(_ptr, ss), h, w, _ptr(dirs.contiguous()),
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), int(damping),
-            int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)), bd,
-            _stream()), "cdef_ladder_sse")
+            int(sampled), R, C, _ptr(out), _ptr(path_counts(dev)), bd, halo,
+            *_columns(w, halo, outside), _stream()), "cdef_ladder_sse")
     nvcc.count_launch(cdef_ladder_sse)
     return out
 
@@ -536,14 +595,16 @@ cdef_ladder_sse.launches = 0
 
 
 def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
-               strengths=(0, 0, 0, 0), bd: int = 8):
+               strengths=(0, 0, 0, 0), bd: int = 8, halo: int = 0,
+               outside=(True, True)):
     """A 4:2:0 frame's planes [y, u, v] filtered, each cdef_apply_plain of
     its plane: with each SB's ladder entry idx [ceil(h/64), ceil(w/64)],
     or with the uniform strengths (y_pri, y_sec, uv_pri, uv_sec) when idx
-    is None. CUDA: one cdef_apply launch for the three planes, _as_pix's
-    dtype out (uint8 at 8 bits, int16 at 10); CPU: the plain version per
-    plane, the planes' dtype."""
-    h, w = _check_frame(planes, dirs, var, skip8, damping)
+    is None. halo / outside: as cdef_ladder_sse's (the output is the
+    shard's own columns). CUDA: one cdef_apply launch for the three
+    planes, _as_pix's dtype out (uint8 at 8 bits, int16 at 10); CPU: the
+    plain version per plane, the planes' dtype."""
+    h, w = _check_frame(planes, dirs, var, skip8, damping, halo)
     if idx is not None and tuple(idx.shape) != (-(-h // 64), -(-w // 64)):
         raise ValueError(f"idx must be the 64-px SB grid of the frame, got "
                          f"{tuple(idx.shape)}")
@@ -551,19 +612,22 @@ def cdef_apply(planes, dirs, var, skip8, damping: int, idx=None,
     if not _on_card(planes[0], "cdef_apply", bd):
         return [cdef_apply_plain(p, dirs, var, skip8, damping, i > 0, idx,
                                  *((uv_pri, uv_sec) if i else (y_pri, y_sec)),
-                                 bd)
+                                 bd, halo, outside)
                 for i, p in enumerate(planes)]
     lib = nvcc.load(SRC, _bind)
     ps = _aligned(_as_pix(planes, bd))
     ix = None if idx is None else idx.to(torch.int32).contiguous()
     dev = planes[0].device
     with torch.cuda.device(dev):
-        outs = [torch.empty_like(p) for p in ps]
+        outs = [torch.empty((h, w) if i == 0 else (h // 2, w // 2),
+                            dtype=p.dtype, device=dev)
+                for i, p in enumerate(ps)]
         _raise_on(lib.cdef_apply_launch(
             *map(_ptr, ps), h, w, _ptr(dirs.contiguous()),
             _ptr(var.contiguous()), _ptr(skip8.contiguous()), _ptr(ix),
             y_pri, y_sec, uv_pri, uv_sec, int(damping), *map(_ptr, outs),
-            _ptr(path_counts(dev)[2:]), bd, _stream()), "cdef_apply")
+            _ptr(path_counts(dev)[2:]), bd, halo,
+            *_columns(w, halo, outside), _stream()), "cdef_apply")
     nvcc.count_launch(cdef_apply)
     return outs
 
@@ -652,20 +716,26 @@ def _sse_sb(f, sampled: bool, nr: int, nc: int):
             + r[:, :, 1, :, 1])
 
 
-def _choose(sse_sb, lam):
+def _choose(sse_sb, lam, group=None):
     """Each SB's ladder index [nr, nc] int32: the SSE argmin, within the
     subset that minimises total SSE + lam (12 bits per entry + log2 n
-    bits per SB) when lam is given (rav1e's nb_strengths search)."""
+    bits per SB) when lam is given (rav1e's nb_strengths search). With a
+    shard group (the tiled search), sse_sb is this shard's SBs and the
+    subsets' SSE totals are summed over the shards (group.psum, in shard
+    order) before the choice, so every shard signals the frame's set."""
     K, nr, nc = sse_sb.shape
     if lam is not None:
         dev = sse_sb.device
-        m_np, b_np = _subsets(nr * nc)
+        m_np, b_np = _subsets(nr * nc * (1 if group is None else group.T))
         masks = torch.as_tensor(m_np, device=dev)
         bits = torch.as_tensor(b_np, device=dev)
         lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
         flat = sse_sb.reshape(K, nr * nc)
         msse = torch.where(masks[:, :, None], flat[None], torch.inf)
-        tot = _subset_sum(torch.amin(msse, 1)) + lam * bits
+        tot = _subset_sum(torch.amin(msse, 1))
+        if group is not None:
+            tot = group.psum(tot)
+        tot = tot + lam * bits
         allowed = masks[torch.argmin(tot)]
         sse_sb = torch.where(allowed[:, None, None], sse_sb, torch.inf)
     return torch.argmin(sse_sb, dim=0).to(torch.int32)
@@ -701,6 +771,38 @@ def cdef_search_persb(planes, srcs, skip8, damping: int, lam=None,
     idx = _choose(_sse_sb(sses, sampled, (nby + 1) // 2, (nbx + 1) // 2),
                   lam)
     return idx, cdef_apply(planes, dirs, var, skip8, damping, idx=idx, bd=bd)
+
+
+def cdef_search_persb_tiled(planes, srcs, skip8, damping: int, group,
+                            lam=None, bd: int = 8):
+    """cdef_search_persb on one tile column of a frame whose columns run
+    as shards (the reference's cdef_search_persb_tiled): planes / srcs
+    are this shard's [y, u, v] columns, skip8 its 8x8 grid, `group` the
+    frame's shard group (parallel/tiles.py). CDEF crosses tile
+    boundaries, so the shard's planes gain 8 (4 chroma) columns of each
+    neighbour (group.shift_right / shift_left, the ppermute), outside
+    the frame the LARGE border. The directions are the shard's own (an
+    8x8 direction reads only its pixels); every 32-block is evaluated
+    (the reference's tiled form has no sampled branch); the
+    nb_strengths subset totals are summed over the shards (group.psum)
+    so every shard signals one set; each SB keeps its own index.
+    Returns (idx [ceil(h/64), ceil(w/64)] of the shard, its filtered
+    planes in _as_pix's dtype)."""
+    planes, srcs = _as_pix(planes, bd), _as_pix(srcs, bd)
+    h, w = planes[0].shape
+    damping = int(damping)
+    dirs, var = cdef_dirs(planes[0], bd)
+    ext = [torch.cat([group.shift_right(p[:, -e:]), p,
+                      group.shift_left(p[:, :e])], 1)
+           for p, e in zip(planes, (8, 4, 4))]
+    outside = (group.index == 0, group.index == group.T - 1)
+    sses = cdef_ladder_sse(ext, srcs, dirs, var, skip8, damping, False, bd,
+                           halo=8, outside=outside)
+    nby, nbx = h // 32, w // 32
+    idx = _choose(_sse_sb(sses, False, (nby + 1) // 2, (nbx + 1) // 2),
+                  lam, group)
+    return idx, cdef_apply(ext, dirs, var, skip8, damping, idx=idx, bd=bd,
+                           halo=8, outside=outside)
 
 
 def cdef_filter_frame(planes, skip8, y_pri: int, y_sec: int, uv_pri: int,

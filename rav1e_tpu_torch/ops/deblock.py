@@ -7,7 +7,10 @@ horizontal edges — the spec's serial edge order is irrelevant here.
 
 Filter levels are 0-d int32 tensors, so the level search stays on the
 device with no host round trip until the caller fetches its result.
-`deblock_search_tiled` (the shard_map form) is not ported yet.
+`deblock_search_tiled` is the search of one tile column of a frame whose
+columns run as shards (parallel/tile_encode.py): the reference's
+shard_map form, its ppermute halos and psum taken by the shard group it
+is given.
 """
 
 from __future__ import annotations
@@ -175,7 +178,7 @@ def _levels_to_thresholds(level):
 
 def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
                   bd: int = 8, split_map=None, outer_block: int = 32,
-                  merge_map=None, sub_map=None):
+                  merge_map=None, sub_map=None, edge_on_v=None):
     """Filter one plane (the reference's deblock_plane_jax). plane
     [H, W] int32; level_v/level_h 0-d int32 tensors, 0 disables.
     split_map: bool [bh, bw] per outer block — inner edges filter only
@@ -190,8 +193,12 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
     (luma) / 6->4 (chroma) per row, and half-spacing interior edges
     appear inside sub quads (8-tap luma / 4-tap chroma). At 4:2:0 the
     luma 8-cell grid and the chroma 4-cell grid coincide, so one
-    [H/8, W/8] map serves all three planes. The reference's edge_on
-    options (tiles) are not ported yet."""
+    [H/8, W/8] map serves all three planes.
+
+    edge_on_v: bool [E] over the vertical block-grid edges (columns
+    block, 2 block, ...): an edge filters only where set (the tiled
+    search's shard boundaries at a frame edge). The reference's
+    edge_on_h has no caller and is not carried over."""
     H, W = plane.shape
     size = 14 if is_luma else 6
     n = size // 2
@@ -254,6 +261,9 @@ def deblock_plane(plane, block: int, level_v, level_h, is_luma: bool,
         p = g[:, :-1, block - n:].flip(-1)            # [H, E, n]
         q = g[:, 1:, :n]
         m = edge_mask(xs, H, 0)
+        if edge_on_v is not None:
+            eo = torch.broadcast_to(edge_on_v[None, :], (H, E))
+            m = eo if m is None else (m & eo)
         small = None
         if sub_map is not None:
             ix = torch.as_tensor(xs // cs, device=dev)
@@ -399,3 +409,64 @@ def deblock_search(planes, srcs, base_level, block_y: int = 32,
     best = cand[torch.argmin(sses)]
     return best, deblock_frame(planes, best, best, block_y, block_c, bd,
                                split_map, sub_map, merge_map)
+
+
+def deblock_search_tiled(planes, srcs, base_level, split_grid, group,
+                         bd: int = 8):
+    """The deblock level search of one tile column (the reference's
+    deblock_search_tiled, its shard_map body): planes / srcs are this
+    shard's [y, u, v] column slices (int32, on its device), split_grid
+    its [nby, nbx_t] split map, `group` the frame's shard group
+    (parallel/tiles.py: T, index, shift_right / shift_left for the
+    ppermute, psum). The 32 / 16 px halo columns come once from the
+    neighbours (they do not depend on the level), then each candidate
+    level filters the extended planes on the 16 / 8 px edge grid.
+    Boundary edges between shards are computed by both neighbours (each
+    keeps its own side); the frame's outer edges are off. The
+    candidates' f32 SSEs are summed over the shards (in shard order)
+    before the argmin, so every shard takes the frame's level. Returns
+    (level, 0-d int32; this shard's filtered planes)."""
+    tw = planes[0].shape[1]
+    dev = planes[0].device
+
+    def halo_ext(x, hw):
+        left = group.shift_right(x[:, -hw:])
+        right = group.shift_left(x[:, :hw])
+        return torch.cat([left, x, right], dim=1)
+
+    ye = halo_ext(planes[0], 32)
+    ue = halo_ext(planes[1], 16)
+    ve = halo_ext(planes[2], 16)
+    sg = halo_ext(split_grid, 1)
+    first, last = group.index == 0, group.index == group.T - 1
+
+    def edge_on(w_ext, block, lo, hi):
+        eo = torch.ones(len(range(block, w_ext, block)), dtype=torch.bool,
+                        device=dev)
+        eo[lo // block - 1] = not first
+        eo[hi // block - 1] = not last
+        return eo
+
+    eo_y = edge_on(64 + tw, 16, 32, 32 + tw)
+    eo_c = edge_on(32 + tw // 2, 8, 16, 16 + tw // 2)
+    scales = torch.tensor([0.0, 0.5, 1.0, 1.5, 2.0], dtype=torch.float32,
+                          device=dev)
+    base = torch.as_tensor(base_level, dtype=torch.int32, device=dev)
+    cand = torch.clamp((scales * base).to(torch.int32), 0, 63)
+    outs, sses = [], []
+    for i in range(cand.shape[0]):
+        lvl = cand[i]
+        o = [deblock_plane(ye, 16, lvl, lvl, True, bd, sg, 32,
+                           edge_on_v=eo_y)[:, 32:32 + tw],
+             deblock_plane(ue, 8, lvl, lvl, False, bd, sg, 32,
+                           edge_on_v=eo_c)[:, 16:16 + tw // 2],
+             deblock_plane(ve, 8, lvl, lvl, False, bd, sg, 32,
+                           edge_on_v=eo_c)[:, 16:16 + tw // 2]]
+        sse = None
+        for a, s in zip(o, srcs):
+            e = torch.sum((a - s).to(torch.float32) ** 2)
+            sse = e if sse is None else sse + e
+        outs.append(o)
+        sses.append(sse)
+    k = torch.argmin(group.psum(torch.stack(sses)))
+    return cand[k], [torch.stack([o[j] for o in outs])[k] for j in range(3)]

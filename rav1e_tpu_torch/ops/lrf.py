@@ -42,11 +42,11 @@ import numpy as np
 import torch
 
 from rav1e_tpu_torch.device import to_host
-from rav1e_tpu_torch.ops.ref.lrf import (SGR_PARAMS_S, SGRPROJ_XQD_MAX,
-                                         SGRPROJ_XQD_MIN, WIENER_TAPS_MAX,
-                                         WIENER_TAPS_MIN, count_units)
+from rav1e_tpu_torch.ops.ref.lrf import (SGR_PARAMS_S, SGR_SETS,
+                                         SGRPROJ_XQD_MAX, SGRPROJ_XQD_MIN,
+                                         WIENER_TAPS_MAX, WIENER_TAPS_MIN,
+                                         count_units)
 
-SGR_SETS = (0, 3, 6, 9, 11, 12, 14, 15)
 WIENER_PRESETS = ((3, -7, 15), (0, -4, 8), (1, -2, 4))
 RW = 32           # XLA:CPU's tree-reduction window
 
@@ -619,8 +619,10 @@ def search_lr_plane(rec, src, bd: int = 8, ss: int = 0, pre=None, *,
     [n_ur][n_uc] of None | ("W", vtaps, htaps) | ("S", set, xqd0,
     xqd1), the filtered plane (int32, on rec's device), used)."""
     if bd not in (8, 10):
-        raise NotImplementedError("loop restoration at 12 bits: ROADMAP.md "
-                                  "item 16b")
+        raise NotImplementedError(
+            "the device LR search takes 8- and 10-bit planes: 12-bit planes "
+            "search on the host (ops/ref/lrf.py::search_lr_plane, routed "
+            "by pipeline/lr.py), as the reference's do")
     rec = rec.to(torch.int32)
     src = src.to(device=rec.device, dtype=torch.int32)
     if pre is not None:

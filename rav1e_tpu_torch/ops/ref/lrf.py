@@ -1,11 +1,12 @@
 """Loop restoration filters (AV1 spec 7.17) - numpy reference.
 
-Reference parity: rav1e src/lrf.rs (Wiener 7-tap apply, SGRPROJ box
-sums, stripe processing). This implements the normative filters that
+Reference parity: rav1e src/lrf.rs (Wiener 7-tap solve/apply, SGRPROJ
+box sums, stripe processing). This implements the normative filters that
 ops/lrf.py's device search is held to; the decode oracles arbitrate
-rounding and stripe clamping. The JAX package's numpy search
-(search_lr_plane, its host route at 10 bits) is not carried over: the
-port searches every depth on the device.
+rounding and stripe clamping. The numpy search (search_lr_plane, with
+solve_wiener and sgr_pass_outputs) is the JAX package's host search,
+which the port runs for 12-bit planes as the reference does
+(pipeline/lr.py); 8- and 10-bit planes search on the device.
 
 Wiener: separable 7-tap, taps (w0,w1,w2) per direction with the center
 implied (128 - 2*(w0+w1+w2)); vertical pass with InterRound0 rounding
@@ -92,6 +93,65 @@ def wiener_filter_unit(src: np.ndarray, y0: int, x0: int, h: int, w: int,
         s = (s + off_v) >> rb_v
         out[yy - y0] = np.clip(s, 0, (1 << bd) - 1)
     return out.astype(np.int32)
+
+
+def solve_wiener(rec: np.ndarray, src: np.ndarray, y0: int, x0: int,
+                 h: int, w: int, n_iter: int = 3,
+                 chroma: bool = False):
+    """Least-squares separable Wiener taps for one unit (alternating
+    h/v solves; rav1e src/lrf.rs equivalent). Returns (vtaps, htaps)
+    integer taps within the spec ranges. chroma=True pins tap 0 to 0
+    (spec 5-tap chroma Wiener)."""
+    r = rec[max(0, y0 - 3): y0 + h + 3, max(0, x0 - 3): x0 + w + 3]
+    oy = y0 - max(0, y0 - 3)
+    ox = x0 - max(0, x0 - 3)
+    pad = np.pad(r.astype(np.float64), 3, mode="edge")
+    t = src[y0: y0 + h, x0: x0 + w].astype(np.float64)
+
+    def taps_vec(taps3):
+        a, b, c = taps3
+        return np.array([a, b, c, 128 - 2 * (a + b + c), c, b, a],
+                        np.float64) / 128.0
+
+    def apply_axis(img, taps3, axis):
+        f = taps_vec(taps3)
+        out = np.zeros_like(img)
+        for k in range(7):
+            out += f[k] * np.roll(img, 3 - k, axis=axis)
+        return out
+
+    j0 = 1 if chroma else 0      # chroma: tap 0 pinned to 0 (5-tap)
+
+    def solve_axis(img, axis):
+        """LS for the free taps on `img` vs target; basis_j =
+        (x[-j-1] + x[+j+1] - 2 x0) / 128."""
+        x0c = img[3 + oy: 3 + oy + h, 3 + ox: 3 + ox + w]
+        B = []
+        for j in range(j0, 3):
+            d = 3 - j  # tap distance 3,2,1 for coeff index 0,1,2
+            m = (np.roll(img, d, axis=axis) + np.roll(img, -d, axis=axis)
+                 - 2 * img)[3 + oy: 3 + oy + h, 3 + ox: 3 + ox + w]
+            B.append((m / 128.0).ravel())
+        Bm = np.stack(B, 1)
+        resid = (t - x0c).ravel()
+        try:
+            sol, *_ = np.linalg.lstsq(Bm, resid, rcond=None)
+        except np.linalg.LinAlgError:
+            return list(WIENER_TAPS_MID[j0:] if chroma
+                        else WIENER_TAPS_MID)
+        taps = [0] * j0 + [
+            int(np.clip(round(sol[j - j0]), WIENER_TAPS_MIN[j],
+                        WIENER_TAPS_MAX[j])) for j in range(j0, 3)]
+        return taps
+
+    v = [0] * j0 + list(WIENER_TAPS_MID[j0:])
+    hh = list(v)
+    for _ in range(n_iter):
+        vert = apply_axis(pad, v, 0)
+        hh = solve_axis(vert, 1)
+        horz = apply_axis(pad, hh, 1)
+        v = solve_axis(horz, 0)
+    return tuple(v), tuple(hh)
 
 
 # per-set (s0, s1) strengths for the two SGR passes (r=2 then r=1),
@@ -200,6 +260,42 @@ def sgr_weights(sgr_set: int, xqd0: int, xqd1: int):
     return w0, w1, w2
 
 
+def _stripe(yy: int, stripe_h0: int, stripe_h: int):
+    """The stripe [s_lo, s_hi] that frame row yy lies in."""
+    if yy < stripe_h0:
+        return 0, stripe_h0 - 1
+    k = (yy - stripe_h0) // stripe_h
+    s_lo = stripe_h0 + k * stripe_h
+    return s_lo, s_lo + stripe_h - 1
+
+
+def sgr_pass_outputs(src: np.ndarray, y0: int, x0: int, h: int, w: int,
+                     sgr_set: int, bd: int = 8, stripe_h0: int = 56,
+                     stripe_h: int = 64, pre: np.ndarray | None = None):
+    """(flt0, flt1, u) for one unit at 2^4 scale (flt == u for a
+    disabled pass) — the encoder's LS weight solve needs the raw pass
+    outputs. The passes read as sgr_filter_unit's do (pre beyond each
+    stripe, the unscaled box sum in B)."""
+    s0, s1 = SGR_PARAMS_S[sgr_set]
+    f0 = np.zeros((h, w), np.int64)
+    f1 = np.zeros((h, w), np.int64)
+    uu = np.zeros((h, w), np.int64)
+    yy = y0
+    while yy < y0 + h:
+        s_lo, s_hi = _stripe(yy, stripe_h0, stripe_h)
+        y_hi = min(s_hi + 1, y0 + h)
+        hs = y_hi - yy
+        u = src[yy: y_hi, x0: x0 + w].astype(np.int64) << 4
+        sl = slice(yy - y0, y_hi - y0)
+        uu[sl] = u
+        f0[sl] = (_sgr_flt_piece(src, pre, yy, hs, x0, w, 2, s0, bd,
+                                 s_lo, s_hi) if s0 else u)
+        f1[sl] = (_sgr_flt_piece(src, pre, yy, hs, x0, w, 1, s1, bd,
+                                 s_lo, s_hi) if s1 else u)
+        yy = y_hi
+    return f0, f1, uu
+
+
 def sgr_filter_unit(src: np.ndarray, y0: int, x0: int, h: int, w: int,
                     sgr_set: int, xqd0: int, xqd1: int,
                     bd: int = 8, stripe_h0: int = 56,
@@ -215,12 +311,7 @@ def sgr_filter_unit(src: np.ndarray, y0: int, x0: int, h: int, w: int,
     out = np.zeros((h, w), np.int64)
     yy = y0
     while yy < y0 + h:
-        if yy < stripe_h0:
-            s_lo, s_hi = 0, stripe_h0 - 1
-        else:
-            k = (yy - stripe_h0) // stripe_h
-            s_lo = stripe_h0 + k * stripe_h
-            s_hi = s_lo + stripe_h - 1
+        s_lo, s_hi = _stripe(yy, stripe_h0, stripe_h)
         y_hi = min(s_hi + 1, y0 + h)
         hs = y_hi - yy
         x = src[yy: y_hi, x0: x0 + w].astype(np.int64)
@@ -241,3 +332,106 @@ def count_units(frame_size: int, unit_size: int) -> int:
     """Spec count_units_in_frame: last partial unit merges when under
     half a unit."""
     return max((frame_size + (unit_size >> 1)) // unit_size, 1)
+
+
+SGR_SETS = (0, 3, 6, 9, 11, 12, 14, 15)    # the SGR sets the search tries
+
+
+def search_lr_plane(rec: np.ndarray, src: np.ndarray, bd: int = 8,
+                    ss: int = 0, pre: np.ndarray | None = None, *,
+                    chroma: bool):
+    """Per-LRU restoration search for one plane on the host (the
+    reference's numpy search, rav1e src/lrf.rs + rdo_loop_decision's
+    LRF leg as a whole-plane pass): for every unit try the LS-solved
+    Wiener taps, three Wiener presets, and the LS-weight SGRPROJ sets;
+    keep the SSE winner or None. The port routes 12-bit planes here, as
+    the reference does (pipeline/lr.py).
+
+    rec: CDEF-output plane (the LR input); src: source plane; pre: the
+    deblocked plane before CDEF (None without CDEF), which the filters
+    and the SGR pass outputs read beyond each stripe (the reference
+    reads rec there, which decoders do not). ss: the plane's vertical
+    subsampling shift (0 luma), which scales the stripe geometry (64>>ss
+    rows, first stripe short by 8>>ss); chroma marks a chroma plane at
+    any subsampling and pins Wiener tap 0 (the reference takes ss > 0
+    for it). Returns (grid [n_ur][n_uc] of None | ("W", vt, ht) |
+    ("S", set, xqd0, xqd1), filtered plane, used flag)."""
+    off = 8 >> ss
+    stripe_h = 64 >> ss
+    stripe_h0 = stripe_h - off
+    ph, pw = rec.shape
+    unit_size = 64
+    n_ur = count_units(ph, unit_size)
+    n_uc = count_units(pw, unit_size)
+    grid = [[None] * n_uc for _ in range(n_ur)]
+    presets = ([(3, -7, 15), (0, -4, 8), (1, -2, 4)] if not chroma
+               else [(0, -7, 15), (0, -4, 8), (0, -2, 4)])
+    filtered = rec.copy()
+    used = False
+    geo = dict(bd=bd, stripe_h0=stripe_h0, stripe_h=stripe_h, pre=pre)
+    for ur in range(n_ur):
+        y0 = 0 if ur == 0 else ur * unit_size - off
+        y1 = ph if ur == n_ur - 1 else (ur + 1) * unit_size - off
+        for uc in range(n_uc):
+            x0 = uc * unit_size
+            x1 = pw if uc == n_uc - 1 else (uc + 1) * unit_size
+            h, w = y1 - y0, x1 - x0
+            base_sse = int(((rec[y0:y1, x0:x1]
+                             - src[y0:y1, x0:x1]) ** 2).sum())
+            vs, hs = solve_wiener(rec, src, y0, x0, h, w,
+                                  chroma=chroma)
+            best = None
+            for vt, ht in [(vs, hs)] + [(tp, tp) for tp in presets]:
+                f = wiener_filter_unit(rec, y0, x0, h, w, vt, ht, **geo)
+                sse = int(((f - src[y0:y1, x0:x1]) ** 2).sum())
+                if sse < base_sse and (best is None or sse < best[0]):
+                    best = (sse, tuple(vt), tuple(ht), f)
+            if best is not None:
+                best_sse, best_f = best[0], best[3]
+                best_kind = ("W", best[1], best[2])
+            else:
+                best_sse, best_f, best_kind = base_sse, None, None
+            tgt = src[y0:y1, x0:x1].astype(np.int64) << 4
+            for sset in SGR_SETS:
+                s0c, s1c = SGR_PARAMS_S[sset]
+                f0s, f1s, us = sgr_pass_outputs(rec, y0, x0, h, w, sset,
+                                                **geo)
+                a = (f0s - us).ravel().astype(np.float64)
+                b = (f1s - us).ravel().astype(np.float64)
+                t = ((tgt - us) << 7).ravel().astype(np.float64)
+                if s0c and s1c:
+                    g = np.array([[a @ a, a @ b], [a @ b, b @ b]])
+                    rhs = np.array([a @ t, b @ t])
+                    try:
+                        w0f, w2f = np.linalg.solve(
+                            g + 1e-6 * np.eye(2), rhs)
+                    except np.linalg.LinAlgError:
+                        continue
+                elif s0c:
+                    w0f = (a @ t) / max(a @ a, 1e-9)
+                    w2f = 0.0
+                else:
+                    w0f = 0.0
+                    w2f = (b @ t) / max(b @ b, 1e-9)
+                x0q = max(SGRPROJ_XQD_MIN[0],
+                          min(SGRPROJ_XQD_MAX[0], round(w0f)))
+                if not s0c:
+                    x0q = 0
+                x1q = max(SGRPROJ_XQD_MIN[1],
+                          min(SGRPROJ_XQD_MAX[1],
+                              (1 << 7) - x0q - round(w2f)))
+                if not s1c:
+                    x1q = max(SGRPROJ_XQD_MIN[1],
+                              min(SGRPROJ_XQD_MAX[1], (1 << 7) - x0q))
+                fs = sgr_filter_unit(rec, y0, x0, h, w, sset, x0q, x1q,
+                                     **geo)
+                sse = int(((fs - src[y0:y1, x0:x1]) ** 2).sum())
+                if sse < best_sse:
+                    best_sse = sse
+                    best_kind = ("S", sset, x0q, x1q)
+                    best_f = fs
+            if best_kind is not None:
+                grid[ur][uc] = best_kind
+                filtered[y0:y1, x0:x1] = best_f
+                used = True
+    return grid, filtered, used

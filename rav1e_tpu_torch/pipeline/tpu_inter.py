@@ -51,8 +51,8 @@ coordinates with its own entropy state (a P frame's on the C++ packer, on
 worker threads; a B frame's on the Python TileWriter), every tile of the
 frame range-coded in one od_ec launch (ec_cuda.pack_tile_irs);
 encode_pframe2_tpu and encode_gop_tpu are 8-bit, as the reference's.
-Other options raise NotImplementedError naming the ROADMAP.md item that
-brings them.
+Options the reference's device steps do not reach raise
+NotImplementedError (ROADMAP.md section 3).
 
 Sums that rank decisions follow XLA:CPU's order where values pass 2^24
 (the sliding window sums and per-block sums of squares of the search:
@@ -105,17 +105,18 @@ HDR_BYTES = 35    # per-block control record (mv/flags/choice/sub8)
 SL_LEN = 1536     # scan-line length per block (y 1024 + u/v 256)
 
 
-def _not_ported(what: str, item: str):
+def _unreachable(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to rav1e_tpu_torch yet: ROADMAP.md queue 1, "
-        f"{item}")
+        f"{what}: the reference's device steps do not code it either "
+        "(ROADMAP.md section 3, not reachable in the reference)")
 
 
 def _check_bit_depth(bd: int):
     """8 and 10 bits run; the reference codes 12 bits only on its numpy
-    pipelines."""
+    pipelines (pipeline/intra.py, pipeline/inter.py), as the port's
+    Context does."""
     if bd not in (8, 10):
-        _not_ported(f"bit depth {bd}", "item 16b (the numpy pipelines)")
+        _unreachable(f"bit depth {bd} on the device steps")
 
 
 class _Stages:
@@ -502,7 +503,7 @@ def _search_refs(refs, blks, by, bx, rd, B, use_satd=False,
     """_search_one_ref against each padded reference plane of `refs`, the
     descent patches of all of them gathered in one launch. Returns
     [_search_one_ref's 5-tuple, ...]."""
-    full = [_search_fullpel(r, blks, rd, B, search, subpel, ds2, bd)
+    full = [_search_fullpel(r, blks, by, bx, rd, B, search, subpel, ds2, bd)
             for r in refs]
     if not full[0][2]:
         return [(mv_fp * 8, None, None, None, grid_fn)
@@ -516,7 +517,7 @@ def _search_refs(refs, blks, by, bx, rd, B, use_satd=False,
             in zip(patches, items, full)]
 
 
-def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
+def _search_fullpel(ryp, blks, by, bx, rd, B, search: int = SEARCH,
                     subpel: bool = True, ds2: bool = True, bd: int = 8):
     """The full-pel stage of _search_one_ref. Returns (mv_fp [B, 2]
     full-pel, grid_fn, the descent's steps in eighth-pel, the descent
@@ -525,9 +526,12 @@ def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
     dev = ryp.device
     nby_l = ryp.shape[0] // 32 - 2                # h // 32
     nbx_l = ryp.shape[1] // 32 - 2
-    if B != nby_l * nbx_l:
-        _not_ported("the tile-sharded search", "item 17 (parallel)")
-    use_ds2 = ds2 and B >= 510 and search % 2 == 0 and search >= 4
+    # a tile shard's blocks (parallel/tile_encode.py) are a column slice
+    # of the full-frame reference's grid, at by/bx; the reference takes
+    # the exact full-resolution surface there
+    tiled = B != nby_l * nbx_l
+    use_ds2 = (ds2 and not tiled and B >= 510 and search % 2 == 0
+               and search >= 4)
 
     def assemble_windows(plane, want, tile, offp, kk):
         """[B, want, want] windows at origin tile*(i,j)+offp of `plane`
@@ -610,8 +614,20 @@ def _search_fullpel(ryp, blks, rd, B, search: int = SEARCH,
         sq_sums = _window_sum((ryp * ryp).to(torch.float32), 32, 32)
         off = PAD - search                        # window origin shift
         K = (win_sz + 31) // 32                   # tiles per window side
-        wins = assemble_windows(ryp.to(torch.float32), win_sz, 32, off, K)
-        wsq = assemble_windows(sq_sums, 2 * search + 1, 32, off, K)
+        if not tiled:
+            wins = assemble_windows(ryp.to(torch.float32), win_sz, 32, off,
+                                    K)
+            wsq = assemble_windows(sq_sums, 2 * search + 1, 32, off, K)
+        else:
+            # each block's own windows (the reference's per-block
+            # dynamic_slice), both gathered in one launch; the f32 sums
+            # travel as their int32 bits
+            r0, c0 = by + off, bx + off
+            wins, wsq = gather_patches_many(
+                [(ryp, r0, c0, win_sz),
+                 (sq_sums.view(torch.int32), r0, c0, 2 * search + 1)])
+            wins = wins.to(torch.float32)
+            wsq = wsq.view(torch.float32)
         ssd = ssd_surface(wins, wsq, blks, 32, search)
         cost = ssd + rd["lam"] * rate_grid(search, 1)
         flat = torch.argmin(cost.reshape(B, -1), dim=1).to(torch.int32)
@@ -2070,8 +2086,7 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
         lr_ctx)
     if tile_grid is not None and lr_ctx is not None:
-        _not_ported("loop restoration in a multi-tile frame",
-                    "item 17 (parallel)")
+        _unreachable("loop restoration in a multi-tile frame")
     ti = (TileInfo(seq) if tile_grid is None
           else TileInfo(seq, tile_grid[0], tile_grid[1]))
     intra_map = None if choice is None else np.asarray(choice) == 3
@@ -2362,7 +2377,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     TileWriter (the same IR and bytes). tile_grid (cols_log2, rows_log2)
     codes a multi-tile frame from the same frame-global decisions (the
     C++ packer a tile, every tile coded in one ec_pack launch; with lr it
-    raises NotImplementedError naming its ROADMAP item).
+    raises NotImplementedError: ROADMAP.md section 3).
     cdef: None (off) or (y_pri, y_sec, uv_pri, uv_sec, damping): each
     64x64 SB picks its ladder entry (damping cdef[4]) and the frame
     signals the entries used.
@@ -2379,8 +2394,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     if lr and return_device:
         raise ValueError("return_device is incompatible with lr")
     if lr and tile_grid is not None:
-        _not_ported("loop restoration in a multi-tile frame",
-                    "item 17 (parallel)")
+        _unreachable("loop restoration in a multi-tile frame")
     _check_bit_depth(bit_depth)
     y, u, v = planes
     h, w = y.shape[0], y.shape[1]
@@ -2583,8 +2597,7 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
     tile-local coordinates, the tiles' IRs coded in one ec_pack launch.
     Merged 64x64 blocks raise NotImplementedError."""
     if tile_grid is not None and lr_ctx is not None:
-        _not_ported("loop restoration in a multi-tile frame",
-                    "item 17 (parallel)")
+        _unreachable("loop restoration in a multi-tile frame")
     if b64_map is not None and np.asarray(b64_map).any():
         raise NotImplementedError(
             "merged 64x64 blocks in a B frame: the two-reference 64x64 "
@@ -2686,11 +2699,10 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     encode_pframe_tpu's. tile_grid (cols_log2, rows_log2) codes a
     multi-tile frame from the same decisions (one Python TileWriter a
     tile, every tile coded in one ec_pack launch; with lr it raises
-    NotImplementedError naming its ROADMAP item). Returns (packet, [y, u,
+    NotImplementedError: ROADMAP.md section 3). Returns (packet, [y, u,
     v] recon int32)."""
     if lr and tile_grid is not None:
-        _not_ported("loop restoration in a multi-tile frame",
-                    "item 17 (parallel)")
+        _unreachable("loop restoration in a multi-tile frame")
     _check_bit_depth(bit_depth)
     h, w = planes[0].shape[0], planes[0].shape[1]
     assert h % 32 == 0 and w % 32 == 0

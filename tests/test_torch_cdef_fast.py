@@ -50,17 +50,18 @@ def test_rows_sum_is_the_exact_total_up_to_2_24(rows, cols, top):
     assert torch.equal(got, exact.to(torch.float32))
 
 
-@pytest.mark.parametrize("rows,cols", [(64, 32), (32, 32), (32, 16)])
-def test_rows_sum_at_exactly_2_24(rows, cols):
+def test_rows_sum_at_exactly_2_24():
     """A cell whose integer total is exactly 2^24 (258 x 255^2 + 27^2 +
-    6^2 + 1^2, the rest 0, in a shuffled order): the ordered f32 sum is
+    6^2 + 1^2, the rest 0, in a shuffled order), at each cell shape the
+    table uses (64x32 sampled luma, 32x32, 32x16): the ordered f32 sum is
     2^24."""
-    rng = np.random.default_rng(rows + cols)
-    flat = np.zeros(rows * cols, np.float32)
-    flat[:261] = [255.0 ** 2] * 258 + [27.0 ** 2, 6.0 ** 2, 1.0]
-    d = torch.from_numpy(rng.permutation(flat).reshape(1, rows, cols))
-    assert int(d.to(torch.int64).sum()) == EXACT
-    assert float(tc._xla_rows_sum(d)[0]) == float(EXACT)
+    for rows, cols in ((64, 32), (32, 32), (32, 16)):
+        rng = np.random.default_rng(rows + cols)
+        flat = np.zeros(rows * cols, np.float32)
+        flat[:261] = [255.0 ** 2] * 258 + [27.0 ** 2, 6.0 ** 2, 1.0]
+        d = torch.from_numpy(rng.permutation(flat).reshape(1, rows, cols))
+        assert int(d.to(torch.int64).sum()) == EXACT
+        assert float(tc._xla_rows_sum(d)[0]) == float(EXACT), (rows, cols)
 
 
 def test_rows_sum_just_past_2_24_depends_on_the_order():

@@ -11,7 +11,7 @@ workers through a locked file. The rest mirrors
 tests/test_api_pipeline.py's session contracts on the port alone, and
 checks that the configurations the JAX package codes on its numpy
 pipelines or in tiles build a Context, loop restoration at 12 bits
-raising NotImplementedError naming its ROADMAP item."""
+included."""
 
 import ctypes
 import gc
@@ -424,43 +424,36 @@ def test_send_frame_validates_planes():
 
 
 # by ROADMAP item: the configurations it brought to the Context (the JAX
-# package codes them on its numpy pipelines or in tiles), and those still
-# left, which raise naming it
+# package codes them on its numpy pipelines or in tiles); none is left
 NOT_PORTED = {
-    "item 16b": ([dict(bit_depth=12), dict(bit_depth=12, speed=4),
-                  dict(chroma_sampling="422"), dict(chroma_sampling="444"),
-                  dict(extra={"photon_noise": 800}),
-                  dict(low_latency=True, extra={"switch_frame_interval": 4}),
-                  dict(low_latency=True, extra={"error_resilient": "1"})],
-                 [dict(bit_depth=12, speed=s) for s in range(4)]),
-    "item 17": ([dict(width=512, height=128, tiles=2),
-                 dict(width=256, height=128, tiles=4)], []),
-    "item 14": ([dict(extra={"aq": "1"}), dict(speed=10, extra={"aq": "1"})],
-                []),
+    "item 16b": [dict(bit_depth=12), dict(bit_depth=12, speed=4),
+                 dict(chroma_sampling="422"), dict(chroma_sampling="444"),
+                 dict(extra={"photon_noise": 800}),
+                 dict(low_latency=True, extra={"switch_frame_interval": 4}),
+                 dict(low_latency=True, extra={"error_resilient": "1"})]
+    + [dict(bit_depth=12, speed=s) for s in range(4)],
+    "item 17": [dict(width=512, height=128, tiles=2),
+                dict(width=256, height=128, tiles=4)],
+    "item 14": [dict(extra={"aq": "1"}), dict(speed=10, extra={"aq": "1"})],
 }
 
 
-@pytest.mark.parametrize("item", NOT_PORTED)
-def test_numpy_pipeline_configurations_raise(item):
+def test_numpy_pipeline_configurations_raise():
     """Each configuration the JAX package codes on its numpy pipelines or
     in tiles builds a Context now that its ROADMAP item is ported (their
     sessions are held to the JAX package's in test_torch_numpy_inter.py,
     test_torch_aq.py and test_torch_tiles.py; a tiled session gets the
-    reference's tile grid), and the one left, loop restoration (speeds
-    0-3) at 12 bits, raises NotImplementedError in Context.__init__,
-    naming item 16b; none falls through to another path."""
-    ported, left = NOT_PORTED[item]
-    for cfg in ported + left:
-        kw = dict(width=64, height=64)
-        kw.update(cfg)
-        if cfg in left:
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.md.*{item}"):
-                Config(**kw).new_context(device="cpu")
-            continue
-        ctx = Config(**kw).new_context(device="cpu")
-        tiles = cfg.get("tiles", 1)
-        assert 1 << (ctx._tile_cols_log2 + ctx._tile_rows_log2) == tiles
+    reference's tile grid). Loop restoration (speeds 0-3) at 12 bits,
+    the last to raise, builds one too (its session is held to its
+    decodes in test_torch_lrf.py); none raises."""
+    for item, cfgs in NOT_PORTED.items():
+        for cfg in cfgs:
+            kw = dict(width=64, height=64)
+            kw.update(cfg)
+            ctx = Config(**kw).new_context(device="cpu")
+            tiles = cfg.get("tiles", 1)
+            assert 1 << (ctx._tile_cols_log2
+                         + ctx._tile_rows_log2) == tiles, (item, cfg)
 
 
 def test_speeds_4_to_10_and_resilience_outside_low_latency():

@@ -481,21 +481,21 @@ def test_noise_pframe_takes_the_overflow_gather():
     _decode_exactly([kf_pkt, pkt_t], [kf_rec, rec_t])
 
 
-@pytest.mark.parametrize("kw", [{"bit_depth": 12},
-                                {"tile_grid": (1, 2), "lr": True}])
-def test_pframe_options_beyond_the_slice_raise(kw):
-    """On top of the speed-7 toolset, each option the port does not reach
-    yet (bit depth 12, which the reference codes on its numpy pipeline;
-    loop restoration in a multi-tile frame, which the reference's
-    Context never asks for) raises NotImplementedError naming its
-    ROADMAP item; so does each on top of the reference's defaults."""
+def test_pframe_options_beyond_the_slice_raise():
+    """On top of the speed-7 toolset, each option the reference's device
+    step does not code (bit depth 12, which the reference codes on its
+    numpy pipeline; loop restoration in a multi-tile frame, which its
+    Context never asks for and its tiled pack drops) raises
+    NotImplementedError naming ROADMAP.md section 3; so does each on top
+    of the reference's defaults."""
     planes = [np.zeros((64, 64), np.uint8), np.zeros((32, 32), np.uint8),
               np.zeros((32, 32), np.uint8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_pframe_tpu(planes, planes, device="cpu",
-                                 **{**SPEED7, **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinter.encode_pframe_tpu(planes, planes, device="cpu", **kw)
+    for kw in ({"bit_depth": 12}, {"tile_grid": (1, 2), "lr": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
+            tinter.encode_pframe_tpu(planes, planes, device="cpu",
+                                     **{**SPEED7, **kw})
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
+            tinter.encode_pframe_tpu(planes, planes, device="cpu", **kw)
 
 
 def test_pframe_packer_and_python_writer_agree():

@@ -519,3 +519,96 @@ def test_search24_half_resolution_equals_reference():
         True, 24, True)[0].numpy()
     assert np.array_equal(got, want)
     assert (np.abs(want) > 16 * 8).any()          # past the 16-px range
+
+
+def test_12bit_host_search_and_session_decode():
+    """12-bit loop restoration, which the port searches on the host as the
+    reference does (ops/ref/lrf.py, routed by pipeline/lr.py):
+    solve_wiener equals the reference's on 12-bit planes (luma and
+    chroma units); sgr_pass_outputs equals the reference's at 8 bits,
+    and at 12 bits once the reference's pass composition is given the
+    port's box-sum step (_sgr_ab: A equal, B the unscaled sum's, the
+    port's repair, which changes B at 12 bits); then a 12-bit speed-2
+    session at 128x96 (the numpy pipelines, LR on every frame) restores
+    some unit and decodes on libdav1d and libaom to the port's recons."""
+    import chip_smoke
+    from rav1e_tpu.ops.ref import lrf as jref
+    from rav1e_tpu_torch.api import Config
+    from rav1e_tpu_torch.api.context import Context
+    from rav1e_tpu_torch.conform import aom, dav1d
+    from rav1e_tpu_torch.ops.ref import lrf as tref
+
+    rng = np.random.default_rng(12)
+    src = (16 * (128 + gaussian_filter(rng.normal(0, 55, (PH, PW)), 1.0))
+           ).clip(0, 4095).astype(np.int64)
+    rec = np.clip(src + rng.normal(0, 40, src.shape), 0, 4095).astype(
+        np.int32)
+    for y0, x0, h, w, chroma in ((0, 0, 56, 64, False), (56, 64, 80, 104,
+                                                          False),
+                                 (0, 64, 56, 64, True)):
+        assert tref.solve_wiener(rec, src, y0, x0, h, w, chroma=chroma) == \
+            jref.solve_wiener(rec, src, y0, x0, h, w, chroma=chroma)
+    rec8 = rec >> 4
+    for sset in range(16):
+        for a, b in zip(tref.sgr_pass_outputs(rec8, 40, 64, 96, 104, sset),
+                        jref.sgr_pass_outputs(rec8, 40, 64, 96, 104, sset)):
+            np.testing.assert_array_equal(a, b)
+    At, Bt = tref._sgr_ab(rec, None, 56, 64, 0, 64, 1, 925, 12, 56, 119)
+    Aj, Bj = jref._sgr_ab(rec, 56, 64, 0, 64, 1, 925, 12, 54, 121)
+    np.testing.assert_array_equal(At, Aj)
+    assert not np.array_equal(Bt, Bj)
+
+    def port_ab(src, y_lo, hs, x0, w, r, s, bd, row_lo, row_hi):
+        # the reference's clamp rows [row_lo, row_hi] are the stripe +-2
+        return tref._sgr_ab(src, None, y_lo, hs, x0, w, r, s, bd,
+                            row_lo + 2, row_hi - 2)
+
+    orig = jref._sgr_ab
+    jref._sgr_ab = port_ab
+    try:
+        for sset in (0, 3, 10, 14):
+            for a, b in zip(
+                    tref.sgr_pass_outputs(rec, 40, 64, 96, 104, sset, bd=12),
+                    jref.sgr_pass_outputs(rec, 40, 64, 96, 104, sset,
+                                          bd=12)):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        jref._sgr_ab = orig
+
+    frames = [chip_smoke._to_sampling(_lr_frames(t), "420", 12)
+              for t in range(3)]
+    recs, mk = [], Context._mk_stats
+
+    def keeping(self, src, rec, data, q):
+        recs.append([np.asarray(p) for p in rec])
+        return mk(self, src, rec, data, q)
+
+    Context._mk_stats = keeping
+    try:
+        with _lr_frames_coded() as calls:
+            ctx = Config(width=128, height=96, bit_depth=12, speed=2,
+                         quantizer=Q, extra={"enc_stats": "1"}
+                         ).new_context(device="cpu")
+            for f in frames:
+                ctx.send_frame(f)
+            ctx.flush()
+            pkts = []
+            while True:
+                _, p = ctx.receive_packet()
+                if p is None:
+                    break
+                pkts.append(p)
+    finally:
+        Context._mk_stats = mk
+    assert sum(_filtered_units(c)[1] for c in calls) > 0
+    coded = [p for p in pkts if p.enc_stats is not None]
+    assert len(coded) == len(recs) == 3
+    by_frame = {p.input_frameno: r for p, r in zip(coded, recs)}
+    data = [p.data for p in pkts]
+    for dec in ([f.planes for f in dav1d.decode_all(data)],
+                aom.decode_all(data)):
+        assert len(dec) == 3
+        for i, planes in enumerate(dec):
+            for got, want in zip(planes, by_frame[i]):
+                np.testing.assert_array_equal(
+                    np.asarray(got), want[:got.shape[0], :got.shape[1]])

@@ -39,6 +39,12 @@ import rav1e_tpu_torch.cli.main
 import rav1e_tpu_torch.conform.aom
 import rav1e_tpu_torch.conform.dav1d
 import rav1e_tpu_torch.pipeline.inter
+import rav1e_tpu_torch.analysis.quality
+import rav1e_tpu_torch.capi.bridge
+import rav1e_tpu_torch.conform.parse
+import rav1e_tpu_torch.conform.rav1e_ref
+from rav1e_tpu_torch.parallel.dryrun import dryrun_multichip
+assert dryrun_multichip(2, ["cpu", "cpu"])["gop_packets"] == 6
 from rav1e_tpu_torch.api import Config
 ctx = Config(width=64, height=64).new_context(device="cpu")   # speed 6
 assert ctx._la_depth == 8 and ctx._bgroup == 4
@@ -70,9 +76,10 @@ def test_port_runs_with_jax_and_reference_blocked():
     (and chip_smoke.py) imports and encodes a 64x64 keyframe and a
     KEY + P GOP on the CPU, at speed 7 with CDEF, the default (speed-6)
     keyframe and a speed-6 KEY + P GOP with CDEF; the session API, the
-    CLI, the numpy inter pipeline and the dav1d and libaom shims import,
-    and a default Context (speed 6, reordered, lookahead 8) codes 5
-    frames."""
+    CLI, the numpy inter pipeline, the dav1d and libaom shims, the host
+    modules and the C API's bridge import, dryrun_multichip runs over two
+    CPU devices, and a default Context (speed 6, reordered, lookahead 8)
+    codes 5 frames."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -85,7 +92,9 @@ def test_source_scan_no_jax_no_reference_imports():
     path (`rav1e_tpu/...`) names the reference's files in docs and in
     the kernels line; it is not a module. Neither they nor the port's
     C++/CUDA sources name the JAX package's packer library
-    (`rav1e_tpu/native`, `libpacker`): the port builds its own."""
+    (`rav1e_tpu/native`, `libpacker`): the port builds its own. The C
+    API shim (capi/capi.c), which embeds CPython, imports no module of
+    rav1e_tpu either: its only module is rav1e_tpu_torch's bridge."""
     files = sorted((ROOT / "rav1e_tpu_torch").rglob("*.py"))
     for copied in ("pipeline/inter.py", "pipeline/intra.py",
                    "conform/aom.py", "conform/dav1d.py"):
@@ -99,6 +108,11 @@ def test_source_scan_no_jax_no_reference_imports():
         assert not jax_imp.search(src), f
         m = ref_mod.search(src)
         assert m is None, (f, src[max(0, m.start() - 40): m.end() + 40])
+    shim = (ROOT / "rav1e_tpu_torch" / "capi" / "capi.c").read_text()
+    assert re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', shim) == \
+        ["rav1e_tpu_torch.capi.bridge"]
+    m = re.search(r"\brav1e_tpu\.", shim)
+    assert m is None, shim[max(0, m.start() - 40): m.end() + 40]
     srcs = sorted((ROOT / "rav1e_tpu_torch" / "csrc").iterdir())
     assert any(f.suffix == ".cpp" for f in srcs)
     for f in files + srcs:
