@@ -105,7 +105,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      frame launched exactly phase 4's replayed gather groups, fewer than
      13 launches (the count when each gather was its own launch);
   15b. each frame of phase 15 packed again from the same decisions by
-     the C++ packer and by the Python TileWriter + RecordingEncoder
+     the C++ packer and by the Python TileWriter into an IRRecorder
      (use_native=False): the IRs equal row for row, the kernel's bytes
      on both equal pack_ir_plain + finish's; both walks' times;
   16. a speed-6 keyframe on a 1920x128 frame with phase 14's
@@ -1485,10 +1485,11 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
     split_share = {}            # each frame's share of split 32-blocks
     tools = {}                  # each P frame's speed-6 block kinds
     orig_pack, orig_kpack = tp._pack_pframe, ti.pack_keyframe
-    orig_mark = tp._Stages.mark
+    from rav1e_tpu_torch.trace import Stages
+    orig_mark = Stages.mark
 
-    def mark(stages, name):
-        orig_mark(stages, name)
+    def mark(stages, name, n=None):
+        orig_mark(stages, name, n)
         if name in ("meta", "pack") and \
                 threading.current_thread() is threading.main_thread():
             snaps.append({k: kern[k].launches for k in on_main})
@@ -1523,7 +1524,7 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
     saved = tp.gather_patches_many
     tp.gather_patches_many = counting_gather
     tp._pack_pframe, ti.pack_keyframe = pack_p, pack_key
-    tp._Stages.mark = mark
+    Stages.mark = mark
     timings: list = []
     try:
         with PackerCalls(native) as calls:
@@ -1538,7 +1539,7 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
     finally:
         tp.gather_patches_many = saved
         tp._pack_pframe, ti.pack_keyframe = orig_pack, orig_kpack
-        tp._Stages.mark = orig_mark
+        Stages.mark = orig_mark
     n_p = len(frames) - 1
     methods = calls.methods(pkts)
     print(f"# {w}x{h} GOP (KEY + {n_p} P, speed {speed}, cdef {cdef}, q 100, "
@@ -1624,57 +1625,41 @@ def gop_1080p(torch, ec, gp, cd, native, ti, tp, n: int, speed: int,
 
 
 class CapturedIR:
-    """While entered, keeps the IR and bytes of every tile the Python
-    TileWriter records, in order, in .got: through RecordingEncoder.done
-    in the modules `mods` that code a tile as they walk it (the
-    keyframe's), through pack_tile_irs in those that code a frame's tiles
-    together (the inter frames', which also code their tiled C++ walks
-    there)."""
+    """While entered, keeps the IR and bytes of every tile that
+    tpu_inter's pack_tile_irs codes, in order, in .got: the Python
+    TileWriter's walks (the keyframe's and the inter frames', each coded
+    after its walk) and the tiled C++ walks."""
 
-    def __init__(self, ec, *mods):
-        self.ec, self.mods, self.got = ec, mods, []
+    def __init__(self, tp):
+        self.tp, self.got = tp, []
 
     def __enter__(self):
-        got = self.got
+        got, pack = self.got, self.tp.pack_tile_irs
+        self.saved = pack
 
-        class Capture(self.ec.RecordingEncoder):
-            def done(self):
-                ir = self.ir_tensor()
-                got.append((ir, super().done()))
-                return got[-1][1]
+        def pack_tiles(irs, *a, **k):
+            tiles = pack(irs, *a, **k)
+            got.extend(zip([ir.clone() for ir in irs], tiles))
+            return tiles
 
-        def capturing(pack):
-            def pack_tiles(irs, *a, **k):
-                tiles = pack(irs, *a, **k)
-                got.extend(zip([ir.clone() for ir in irs], tiles))
-                return tiles
-            return pack_tiles
-
-        self.saved = []
-        for m in self.mods:
-            name = ("RecordingEncoder" if hasattr(m, "RecordingEncoder")
-                    else "pack_tile_irs")
-            self.saved.append((m, name, getattr(m, name)))
-            setattr(m, name, Capture if name == "RecordingEncoder"
-                    else capturing(getattr(m, name)))
+        self.tp.pack_tile_irs = pack_tiles
         return self
 
     def __exit__(self, *exc):
-        for m, name, f in self.saved:
-            setattr(m, name, f)
+        self.tp.pack_tile_irs = self.saved
         return False
 
 
 def packer_vs_writer(torch, ec, native, ti, tp, record):
     """Phase 15b: each frame of phase 15's GOP packed again from the
-    same decisions, by the C++ packer and by the Python TileWriter with a
-    RecordingEncoder (use_native=False), one after the other on this
+    same decisions, by the C++ packer and by the Python TileWriter into
+    an IRRecorder (use_native=False), one after the other on this
     thread: the two IRs must be equal row for row, and the kernel's
     bytes on each must be pack_ir_plain + finish's."""
     def order(c):
         return 0 if c[0] == "key" else c[1][3]
 
-    with CapturedIR(ec, ti, tp) as py:
+    with CapturedIR(tp) as py:
         for c in sorted(record, key=order):
             def run(use_native, t):
                 if c[0] == "key":
@@ -1984,7 +1969,7 @@ def bgroup_1080p(torch, ec, gp, cd, tp, krec, kpkt):
 
     tp.gather_patches_many = counting_gather
     try:
-        with CapturedIR(ec, tp) as cap:
+        with CapturedIR(tp) as cap:
             for f in kern.values():
                 f.launches = 0
             t0 = time.perf_counter()

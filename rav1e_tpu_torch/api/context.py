@@ -22,6 +22,13 @@ other keyframes, 12-bit, 4:2:2 and 4:4:4 frames, the inter frames of an
 by configuration and logged once (_warn_slow); nothing catches an error
 to fall back. Loop restoration at 12 bits searches on the host, as the
 reference's (pipeline/lr.py).
+
+With tracing on (rav1e_tpu_torch.trace) the session records its spans:
+send_frame and receive_packet, and inside them pad, lookahead,
+scenechange, rc, host32 and one `frame` span around each pipeline call,
+whose frame number and kind (keyframe, pframe, pframe2, bframe, or the
+numpy routes np_keyframe, np_pframe, np_bframe) the pipeline's own spans
+carry.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import trace
 from rav1e_tpu_torch.device import resolve_device
 
 log = logging.getLogger("rav1e_tpu_torch")
@@ -298,6 +306,10 @@ class Context:
         None to signal flush. The frame is packed and uploaded at the
         session's bit depth (the reference's send_frame packs at 8 bits,
         which keeps 10-bit values mod 256)."""
+        with trace.span("send_frame"):
+            return self._send_frame(frame)
+
+    def _send_frame(self, frame) -> EncoderStatus:
         if frame is None:
             self._flushed = True
             return EncoderStatus.SUCCESS
@@ -322,15 +334,17 @@ class Context:
                 raise ValueError(
                     f"{name} plane dtype {p.dtype} does not match "
                     f"bit_depth {cfg.bit_depth} (want {np.dtype(want)})")
-        padded = self._pad_planes([y, u, v])
+        with trace.span("pad"):
+            padded = self._pad_planes([y, u, v])
         src_dev = None
         if self._lookahead is not None:
             # single upload per frame: the packed source feeds the
             # lookahead ME stats now and the encode step later
             from rav1e_tpu_torch.pipeline.tpu_inter import pack_src
-            src_dev = torch.from_numpy(
-                pack_src(padded, bd=cfg.bit_depth)).to(self.device)
-            self._lookahead.push_packed(src_dev, self._ch, self._cw)
+            with trace.span("lookahead"):
+                src_dev = torch.from_numpy(
+                    pack_src(padded, bd=cfg.bit_depth)).to(self.device)
+                self._lookahead.push_packed(src_dev, self._ch, self._cw)
         self._q.append((self._input_frameno, padded, src_dev))
         self._input_frameno += 1
         return EncoderStatus.SUCCESS
@@ -338,6 +352,10 @@ class Context:
     # -- output side ---------------------------------------------------------
 
     def receive_packet(self) -> tuple[EncoderStatus, Packet | None]:
+        with trace.span("receive_packet"):
+            return self._receive_packet()
+
+    def _receive_packet(self) -> tuple[EncoderStatus, Packet | None]:
         if self._out:
             return EncoderStatus.SUCCESS, self._out.popleft()
         # with lookahead, hold frames until the analysis window fills
@@ -362,7 +380,7 @@ class Context:
     # -- reordered (B-frame) scheduling --------------------------------------
 
     def _pump_reordered(self, frameno: int, planes, src_dev=None):
-        is_key = (self._detector.analyze_next_frame(planes[0])
+        is_key = (self._scene_cut(planes[0])
                   or self._ref_rec is None
                   or frameno in self._force_key_framenos)
         self._force_key_framenos.discard(frameno)
@@ -396,6 +414,18 @@ class Context:
                     chroma_sampling=self.cfg.chroma_sampling,
                     render_size=self._render, device=self.device)
 
+    def _scene_cut(self, y) -> bool:
+        with trace.span("scenechange"):
+            return self._detector.analyze_next_frame(y)
+
+    def _select_qi(self, ftype: str) -> int:
+        with trace.span("rc"):
+            return self._rc.select_qi(ftype)
+
+    def _rc_update(self, ftype: str, q: int, data: bytes):
+        with trace.span("rc"):
+            self._rc.update(ftype, q, len(data) * 8)
+
     def _encode_group(self):
         """Code the buffered frames as anchor-P (non-shown) + B pyramid +
         show_existing; reference slots ping-pong between 1 and 2 so the
@@ -427,26 +457,29 @@ class Context:
         # any pops; coding order below consumes by group index
         ds = [None] * len(frames)
         if self._lookahead is not None:
-            for k, (_fn, _pl, _sd) in enumerate(frames):
-                ds[k] = self._lookahead.scales_at(k, _pl[0])
-            for _ in frames:
-                self._lookahead.pop()
+            with trace.span("lookahead"):
+                for k, (_fn, _pl, _sd) in enumerate(frames):
+                    ds[k] = self._lookahead.scales_at(k, _pl[0])
+                for _ in frames:
+                    self._lookahead.pop()
 
-        def code_p(pl, sd, dsk, **kw):
+        def code_p(fn, pl, sd, dsk, **kw):
             if fast_ok:
-                return encode_pframe_tpu(
-                    pl, self._ref_rec, film_grain=grain,
-                    render_size=self._render, dscale=dsk, src_dev=sd,
-                    **kw, **self._pframe_kw(tgrid))
-            return encode_pframe(pl, self._ref_rec, film_grain=grain, **kw,
-                                 **self._numpy_kw())
+                with trace.frame(fn, "pframe"):
+                    return encode_pframe_tpu(
+                        pl, self._ref_rec, film_grain=grain,
+                        render_size=self._render, dscale=dsk, src_dev=sd,
+                        **kw, **self._pframe_kw(tgrid))
+            with trace.frame(fn, "np_pframe"):
+                return encode_pframe(pl, self._ref_rec, film_grain=grain,
+                                     **kw, **self._numpy_kw())
 
         if len(frames) == 1:
             fn, pl, sd = frames[0]
-            q = self._rc.select_qi("INTER")
+            q = self._select_qi("INTER")
             cdef, grain = self._loop_params(False, q)
             slot_new = 2 if self._cur_slot == 1 else 1
-            data, rec = code_p(pl, sd, ds[0], qindex=q,
+            data, rec = code_p(fn, pl, sd, ds[0], qindex=q,
                                order_hint=(base + 1) & 127, cdef=cdef,
                                refresh_flags=1 << slot_new,
                                ref_slot=self._cur_slot)
@@ -454,27 +487,28 @@ class Context:
                          base + 1, src=pl)
             return
         afn, apl, asd = frames[-1]
-        q = self._rc.select_qi("INTER")
+        q = self._select_qi("INTER")
         cdef, grain = self._loop_params(False, q)
         slot_new = 2 if self._cur_slot == 1 else 1
         ahint = (base + len(frames)) & 127
-        adata, arec = code_p(apl, asd, ds[-1], qindex=q, order_hint=ahint,
+        adata, arec = code_p(afn, apl, asd, ds[-1], qindex=q,
+                             order_hint=ahint,
                              cdef=cdef, refresh_flags=1 << slot_new,
                              ref_slot=self._cur_slot, show_frame=False)
         self._out.append(Packet(data=adata, input_frameno=afn,
                                 frame_type="INTER", qp=q,
                                 enc_stats=self._mk_stats(apl, arec,
                                                          adata, q)))
-        self._rc.update("INTER", q, len(adata) * 8)
+        self._rc_update("INTER", q, adata)
         arec32 = _host32(arec)
         if fast_ok:
-            enc_b = encode_bframe_tpu
+            enc_b, b_kind = encode_bframe_tpu, "bframe"
             bkw = dict(b64_rdo=ss.b64_merge, use_split=ss.partition_split_rdo,
                        lr=self._lr_seq, bit_depth=cfg.bit_depth,
                        tile_grid=tgrid, render_size=self._render,
                        device=self.device)
         else:
-            enc_b = encode_bframe
+            enc_b, b_kind = encode_bframe, "np_bframe"
             bkw = self._numpy_kw()
 
         def dkw(k):
@@ -501,20 +535,21 @@ class Context:
             hint_m = (base + m + 1) & 127
             leaf = (i1 - i0) == 1
             subtype = "B0" if depth == 0 else "B1"
-            qm = self._rc.select_qi(subtype)
+            qm = self._select_qi(subtype)
             bslot = min(3 + depth, 6)
-            bdata, brec = enc_b(
-                pl_m, lo_ctx[0], hi_ctx[0], qindex=qm,
-                order_hint=hint_m, cdef=cdef, film_grain=grain,
-                slot_fwd=lo_ctx[1], slot_bwd=hi_ctx[1],
-                ref_hints=(lo_ctx[2], hi_ctx[2]),
-                refresh_flags=0 if leaf else 1 << bslot,
-                show_frame=leaf, **dkw(m), **bkw)
+            with trace.frame(fn_m, b_kind):
+                bdata, brec = enc_b(
+                    pl_m, lo_ctx[0], hi_ctx[0], qindex=qm,
+                    order_hint=hint_m, cdef=cdef, film_grain=grain,
+                    slot_fwd=lo_ctx[1], slot_bwd=hi_ctx[1],
+                    ref_hints=(lo_ctx[2], hi_ctx[2]),
+                    refresh_flags=0 if leaf else 1 << bslot,
+                    show_frame=leaf, **dkw(m), **bkw)
             self._out.append(Packet(data=bdata, input_frameno=fn_m,
                                     frame_type="INTER", qp=qm,
                                     enc_stats=self._mk_stats(
                                         pl_m, brec, bdata, qm)))
-            self._rc.update(subtype, qm, len(bdata) * 8)
+            self._rc_update(subtype, qm, bdata)
             if leaf:
                 return
             mid_ctx = (_host32(brec), bslot, hint_m)
@@ -540,7 +575,7 @@ class Context:
                                 frame_type=ftype, qp=q,
                                 enc_stats=self._mk_stats(src, rec,
                                                          data, q)))
-        self._rc.update(ftype, q, len(data) * 8)
+        self._rc_update(ftype, q, data)
         self._ref_rec = _host32(rec)
         self._cur_slot = slot
         self._order_hint = order
@@ -596,7 +631,7 @@ class Context:
         cfg = self.cfg
         ss = self.speed_settings
         if force_key is None:
-            is_key = (self._detector.analyze_next_frame(planes[0])
+            is_key = (self._scene_cut(planes[0])
                       or self._ref_rec is None
                       or frameno in self._force_key_framenos)
             self._force_key_framenos.discard(frameno)
@@ -604,11 +639,12 @@ class Context:
             is_key = force_key
         dscale = None
         if self._lookahead is not None:
-            if not is_key:
-                dscale = self._lookahead.scales(planes[0])
-            self._lookahead.pop()
+            with trace.span("lookahead"):
+                if not is_key:
+                    dscale = self._lookahead.scales(planes[0])
+                self._lookahead.pop()
         ftype = "KEY" if is_key else "INTER"
-        q = self._rc.select_qi(ftype)
+        q = self._select_qi(ftype)
         cdef, grain = self._loop_params(is_key, q)
         aq = self._aq
         # the device steps: 8- and 10-bit 4:2:0 (a tiled frame packs per
@@ -632,27 +668,29 @@ class Context:
             if fast_kf and grain is None and not ss.rect_parts:
                 from rav1e_tpu_torch.pipeline.tpu_intra import (
                     encode_keyframe_tpu)
-                data, rec = encode_keyframe_tpu(
-                    planes, qindex=q, cdef=cdef, speed=cfg.speed,
-                    render_size=self._render,
-                    seq_extra=self._seq_extra or None, lr=lr, aq=aq,
-                    device=self.device)
+                with trace.frame(frameno, "keyframe"):
+                    data, rec = encode_keyframe_tpu(
+                        planes, qindex=q, cdef=cdef, speed=cfg.speed,
+                        render_size=self._render,
+                        seq_extra=self._seq_extra or None, lr=lr, aq=aq,
+                        device=self.device)
             else:
                 # the reference's device keyframe is 8-bit 4:2:0 without
                 # film grain or HORZ/VERT partitions: it codes the others
                 # on its numpy pipeline, on the host, as here (LR on the
                 # device)
                 from rav1e_tpu_torch.pipeline.intra import encode_keyframe
-                data, rec = encode_keyframe(
-                    planes, qindex=q, cdef=cdef, film_grain=grain, aq=aq,
-                    bit_depth=cfg.bit_depth,
-                    chroma_sampling=cfg.chroma_sampling,
-                    tile_cols_log2=self._tile_cols_log2,
-                    tile_rows_log2=self._tile_rows_log2, lr=lr,
-                    render_size=self._render,
-                    seq_extra=self._seq_extra or None,
-                    part_rdo=ss.rect_parts, angle_deltas=ss.angle_deltas,
-                    device=self.device)
+                with trace.frame(frameno, "np_keyframe"):
+                    data, rec = encode_keyframe(
+                        planes, qindex=q, cdef=cdef, film_grain=grain, aq=aq,
+                        bit_depth=cfg.bit_depth,
+                        chroma_sampling=cfg.chroma_sampling,
+                        tile_cols_log2=self._tile_cols_log2,
+                        tile_rows_log2=self._tile_rows_log2, lr=lr,
+                        render_size=self._render,
+                        seq_extra=self._seq_extra or None,
+                        part_rdo=ss.rect_parts,
+                        angle_deltas=ss.angle_deltas, device=self.device)
             self._lr_seq = lr
             if self._metadata:
                 # metadata OBUs ride the keyframe temporal unit, after
@@ -672,22 +710,23 @@ class Context:
                 # with the slots' order hints; S-frames code whole-pel MVs
                 # and refresh every reference slot (spec SWITCH_FRAME)
                 from rav1e_tpu_torch.pipeline.inter import encode_pframe
-                data, rec = encode_pframe(
-                    planes, self._ref_rec, qindex=q, order_hint=oh,
-                    cdef=cdef, film_grain=grain, aq=aq,
-                    tile_cols_log2=self._tile_cols_log2,
-                    tile_rows_log2=self._tile_rows_log2,
-                    switch_frame=is_sframe,
-                    error_resilient=self._error_resilient,
-                    slot_order_hints=list(self._slot_hints),
-                    **self._numpy_kw())
+                with trace.frame(frameno, "np_pframe"):
+                    data, rec = encode_pframe(
+                        planes, self._ref_rec, qindex=q, order_hint=oh,
+                        cdef=cdef, film_grain=grain, aq=aq,
+                        tile_cols_log2=self._tile_cols_log2,
+                        tile_rows_log2=self._tile_rows_log2,
+                        switch_frame=is_sframe,
+                        error_resilient=self._error_resilient,
+                        slot_order_hints=list(self._slot_hints),
+                        **self._numpy_kw())
                 self._ref_rec = _host32(rec)
                 if is_sframe:
                     self._slot_hints = [oh] * 8
                     self._golden_rec = self._ref_rec
                 else:
                     self._slot_hints[0] = oh
-                self._rc.update(ftype, q, len(data) * 8)
+                self._rc_update(ftype, q, data)
                 return Packet(data=data, input_frameno=frameno,
                               frame_type=ftype, qp=q,
                               enc_stats=self._mk_stats(planes, rec, data, q))
@@ -704,40 +743,46 @@ class Context:
             if use_mref:
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
                     encode_pframe2_tpu)
-                data, rec = encode_pframe2_tpu(
-                    planes, self._ref_rec, self._golden_rec,
-                    qindex=q, order_hint=oh, cdef=cdef, slot_last=0,
-                    slot_golden=1, golden_hint=0, dscale=dscale,
-                    use_satd=ss.satd_subpel,
-                    render_size=self._render, device=self.device)
+                with trace.frame(frameno, "pframe2"):
+                    data, rec = encode_pframe2_tpu(
+                        planes, self._ref_rec, self._golden_rec,
+                        qindex=q, order_hint=oh, cdef=cdef, slot_last=0,
+                        slot_golden=1, golden_hint=0, dscale=dscale,
+                        use_satd=ss.satd_subpel,
+                        render_size=self._render, device=self.device)
             elif fast_ok and not aq:
                 # the reference's low-latency call: the speed's tools
                 # but encode_pframe_tpu's default search and subpel
                 from rav1e_tpu_torch.pipeline.tpu_inter import (
                     encode_pframe_tpu)
-                data, rec = encode_pframe_tpu(
-                    planes, self._ref_rec, qindex=q, order_hint=oh,
-                    cdef=cdef, film_grain=grain, render_size=self._render,
-                    use_split=ss.partition_split_rdo,
-                    use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
-                    intra_rdo=ss.intra_in_inter and tgrid is None,
-                    b64_rdo=ss.b64_merge, use_split8=ss.partition_split8,
-                    lr=self._lr_seq, bit_depth=cfg.bit_depth, dscale=dscale,
-                    src_dev=src_dev, tile_grid=tgrid, device=self.device)
+                with trace.frame(frameno, "pframe"):
+                    data, rec = encode_pframe_tpu(
+                        planes, self._ref_rec, qindex=q, order_hint=oh,
+                        cdef=cdef, film_grain=grain,
+                        render_size=self._render,
+                        use_split=ss.partition_split_rdo,
+                        use_satd=ss.satd_subpel, refine16=ss.mv_refine_16,
+                        intra_rdo=ss.intra_in_inter and tgrid is None,
+                        b64_rdo=ss.b64_merge,
+                        use_split8=ss.partition_split8, lr=self._lr_seq,
+                        bit_depth=cfg.bit_depth, dscale=dscale,
+                        src_dev=src_dev, tile_grid=tgrid,
+                        device=self.device)
             else:
                 from rav1e_tpu_torch.pipeline.inter import encode_pframe
-                data, rec = encode_pframe(
-                    planes, self._ref_rec, qindex=q, order_hint=oh,
-                    cdef=cdef, film_grain=grain, aq=aq,
-                    tile_cols_log2=self._tile_cols_log2,
-                    tile_rows_log2=self._tile_rows_log2,
-                    **self._numpy_kw())
+                with trace.frame(frameno, "np_pframe"):
+                    data, rec = encode_pframe(
+                        planes, self._ref_rec, qindex=q, order_hint=oh,
+                        cdef=cdef, film_grain=grain, aq=aq,
+                        tile_cols_log2=self._tile_cols_log2,
+                        tile_rows_log2=self._tile_rows_log2,
+                        **self._numpy_kw())
         self._ref_rec = _host32(rec)
         if is_key:
             self._golden_rec = self._ref_rec
         else:
             self._slot_hints[0] = self._order_hint & 127
-        self._rc.update(ftype, q, len(data) * 8)
+        self._rc_update(ftype, q, data)
         return Packet(data=data, input_frameno=frameno, frame_type=ftype,
                       qp=q, enc_stats=self._mk_stats(planes, rec,
                                                      data, q))
@@ -797,5 +842,6 @@ class Context:
 def _host32(rec) -> list[np.ndarray]:
     """A recon's planes as host int32 arrays (a device tensor is fetched
     first)."""
-    return [np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p
-                       ).astype(np.int32) for p in rec]
+    with trace.span("host32"):
+        return [np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p
+                           ).astype(np.int32) for p in rec]

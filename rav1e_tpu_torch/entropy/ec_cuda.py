@@ -33,12 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 
 import numpy as np
 import torch
 
-from rav1e_tpu_torch import nvcc
+from rav1e_tpu_torch import nvcc, trace
 from rav1e_tpu_torch.device import resolve_device
 from rav1e_tpu_torch.entropy.ec import (
     EC_MIN_PROB,
@@ -268,32 +267,27 @@ def pack_tile_irs(irs: list[torch.Tensor],
     buffer, with the tiles' row offsets; coded on `device` (the kernels
     on cuda, on the current stream); then the lengths and the finished
     bytes fetched. `timings` receives ec_kernel (upload, coding and the
-    lengths' fetch), ir_upload (the upload alone, a part of ec_kernel)
-    and finish."""
+    lengths' fetch; work count: the tiles), ir_upload (the upload alone,
+    a stage inside ec_kernel) and finish (trace.stages)."""
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    offs = [0]
-    for x in irs:
-        offs.append(offs[-1] + x.shape[0])
-    offsets = None
-    if len(irs) == 1:
-        ir_d = irs[0].to(dev, non_blocking=True)
-    else:
-        ir_d = torch.empty((offs[-1], 4), dtype=torch.int32, device=dev)
-        for t, x in enumerate(irs):
-            ir_d[offs[t]:offs[t + 1]].copy_(x, non_blocking=True)
-        offsets = torch.tensor(offs, dtype=torch.int64).to(dev)
-    if timings is not None and dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
-    t_up = time.perf_counter()
-    out, lens = pack_ir(ir_d, offsets)
-    lens = lens.cpu()
-    t1 = time.perf_counter()
+    st = trace.stages(dev, timings)
+    with st.span("ec_kernel", len(irs)):
+        offs = [0]
+        for x in irs:
+            offs.append(offs[-1] + x.shape[0])
+        offsets = None
+        if len(irs) == 1:
+            ir_d = irs[0].to(dev, non_blocking=True)
+        else:
+            ir_d = torch.empty((offs[-1], 4), dtype=torch.int32, device=dev)
+            for t, x in enumerate(irs):
+                ir_d[offs[t]:offs[t + 1]].copy_(x, non_blocking=True)
+            offsets = torch.tensor(offs, dtype=torch.int64).to(dev)
+        st.mark("ir_upload")
+        out, lens = pack_ir(ir_d, offsets)
+        lens = lens.cpu()
     tiles = fetch_tiles(out, lens, offs)
-    if timings is not None:
-        timings["ir_upload"] = t_up - t0
-        timings["ec_kernel"] = t1 - t0
-        timings["finish"] = time.perf_counter() - t1
+    st.mark("finish")
     return tiles
 
 

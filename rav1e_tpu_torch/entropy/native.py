@@ -27,12 +27,11 @@ from __future__ import annotations
 
 import ctypes as C
 import os
-import time
 
 import numpy as np
 import torch
 
-from rav1e_tpu_torch import nvcc
+from rav1e_tpu_torch import nvcc, trace
 from rav1e_tpu_torch.core.constants import BlockSize, PartitionType, TxSize
 from rav1e_tpu_torch.device import resolve_device
 from rav1e_tpu_torch.entropy import coeffs as coeffmod
@@ -155,12 +154,14 @@ class _NativeEC:
 class NativeTileWriter(TileWriter):
     """TileWriter with the C++ packer. `device` codes the IR (None:
     cuda, resolved when the tile is coded); `timings`, when given,
-    receives tile_walk (the C++ walk and the IR's hand-back), ir_upload,
-    ec_kernel (the upload included) and finish. With ir_only the write_*
-    methods return the tile's IR (int32 [n, 4] on the host, pinned for
-    cuda) uncoded, for ec_cuda.pack_tile_irs to code a frame's tiles in
-    one launch. `ir_cap` sets the IR buffer's rows (None: the tile's own
-    count); a buffer too small for the tile raises ValueError."""
+    receives tile_walk (the C++ walk and the IR's hand-back; its work
+    count the IR rows), ir_upload, ec_kernel (the upload included) and
+    finish (trace.stages). With ir_only the write_* methods return the
+    tile's IR (int32 [n, 4] on the host, pinned for cuda) uncoded, for
+    ec_cuda.pack_tile_irs to code a frame's tiles in one launch; the
+    caller, which codes them, times the frame's walk. `ir_cap` sets the
+    IR buffer's rows (None: the tile's own count); a buffer too small for
+    the tile raises ValueError."""
 
     ir_cap: int | None = None
 
@@ -331,9 +332,15 @@ class NativeTileWriter(TileWriter):
         finally:
             self._lib.packer_free(self._h)
             self._h = None
-        if self.timings is not None:
-            self.timings["tile_walk"] = time.perf_counter() - self._t0
+        self._stages.mark("tile_walk", int(ir.shape[0]))
         return ir if self.ir_only else self.code(ir)
+
+    def _walk_stages(self):
+        """The recorder of a walk that starts now: an IR-only walk is
+        its caller's to time."""
+        if self.ir_only:
+            return trace.OFF
+        return trace.stages(resolve_device(self.device), self.timings)
 
     def _take_ir(self) -> torch.Tensor:
         n = int(self._lib.packer_rows(self._h))
@@ -366,7 +373,7 @@ class NativeTileWriter(TileWriter):
         sub-splits, kf modes, CfL alphas, quadrant-packed levels).
         Byte-identical to write_tile over the equivalent
         partitions/blocks dicts."""
-        self._t0 = time.perf_counter()
+        self._stages = self._walk_stages()
         fam = self._fam
         order = ["partition_mid", "skip", "kf_y_mode", "angle_delta",
                  "uv_mode_cfl", "cfl_sign", "cfl_alpha",
@@ -430,7 +437,7 @@ class NativeTileWriter(TileWriter):
         flags 32-blocks coded as DC intra; b64 marks 64x64
         PARTITION_NONE SBs). Byte-identical to write_tile over the
         equivalent partitions/blocks dicts."""
-        self._t0 = time.perf_counter()
+        self._stages = self._walk_stages()
         fam = self._fam
         order = ["partition_mid", "skip", "intra_inter", "single_ref",
                  "newmv", "zeromv", "refmv", "drl", "mv_joint",
@@ -488,7 +495,7 @@ class NativeTileWriter(TileWriter):
     def write_tile(self, partitions, blocks) -> bytes:
         """The per-symbol route: the Python walk, each symbol recorded
         in C++."""
-        self._t0 = time.perf_counter()
+        self._stages = self._walk_stages()
         for r in range(0, self.mi_rows, 16):
             self.left_part[:] = 0
             for c in range(0, self.mi_cols, 16):

@@ -33,12 +33,12 @@ to the returned recon. Two shards may share one card (["cuda:0",
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import trace
 from rav1e_tpu_torch.device import resolve_device, to_host
 from rav1e_tpu_torch.entropy.ec_cuda import pack_tile_irs
 from rav1e_tpu_torch.entropy.native import NativeTileWriter
@@ -125,11 +125,12 @@ def encode_pframe_tiled(planes, ref_planes, qindex: int, devices,
                          "columns of whole 64-px superblocks")
     nby, nbx_t = h // 32, tw // 32
     damping = 3 + (qindex >= 64) + (qindex >= 160)
-    t0 = time.perf_counter()
+    dev0 = resolve_device(devices[0])
+    st = trace.stages(dev0, timings)
     outs = ShardGroup(devices).run(
         lambda shard: _shard_step(shard, y, u, v, ref_planes, qindex, nby,
                                   nbx_t, use_cdef, damping))
-    t1 = time.perf_counter()
+    st.mark("shards")
     fetched = [f for f, _ in outs]
     lf = fetched[0][8]
     cdef = None
@@ -144,7 +145,6 @@ def encode_pframe_tiled(planes, ref_planes, qindex: int, devices,
         raise ValueError(f"AV1's uniform tile spacing does not cut a {w}-px "
                          f"frame into {T} columns of {tw} px")
     nc_t = (nbx_t + 1) // 2
-    dev0 = resolve_device(devices[0])
 
     def walk(t):
         (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16) = fetched[t][:8]
@@ -158,9 +158,7 @@ def encode_pframe_tiled(planes, ref_planes, qindex: int, devices,
 
     with ThreadPoolExecutor(min(T, 8)) as ex:
         irs = list(ex.map(walk, range(T)))
-    if timings is not None:
-        timings["shards"] = t1 - t0
-        timings["tile_walk"] = time.perf_counter() - t1
+    st.mark("tile_walk", sum(int(ir.shape[0]) for ir in irs))
     tiles = pack_tile_irs(irs, dev0, timings)
     pkt = interframe_packet(seq, fp, ti, tiles, order_hint)
     rec = [np.concatenate([r[j] for _, r in outs], axis=1) for j in range(3)]

@@ -67,13 +67,13 @@ real content and are summed by torch.
 from __future__ import annotations
 
 import functools
-import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import trace
 from rav1e_tpu_torch.core.constants import (
     BlockSize,
     FrameType,
@@ -117,29 +117,6 @@ def _check_bit_depth(bd: int):
     Context does."""
     if bd not in (8, 10):
         _unreachable(f"bit depth {bd} on the device steps")
-
-
-class _Stages:
-    """Wall time per stage into `out` (None: off), each taken after the
-    device has finished the stage's work on the current stream (the
-    stream of the thread that runs the stage)."""
-
-    def __init__(self, dev: torch.device, out: dict | None):
-        self.dev, self.out = dev, out
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.current_stream(self.dev).synchronize()
-        now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
-
-
-def _nomark(name: str):
-    pass
 
 
 # ---- tables ------------------------------------------------------------------
@@ -781,7 +758,7 @@ def p_frame_body(y, u, v, ryp, rup, rvp, dcq, acq, cdef_prm, rd,
                  fwd2: bool = False, intra_rdo: bool = False,
                  b64_rdo: bool = False,
                  search: int = SEARCH, subpel: bool = True,
-                 use_split8: bool = False, bd: int = 8, mark=_nomark):
+                 use_split8: bool = False, bd: int = 8, mark=trace.nomark):
     """The batched P-frame encode of one frame: full-pel search (use_satd:
     the descent ranks by SATD), MV-field candidate passes, skip RD, and
     with use_split the PARTITION_SPLIT candidate (per-16 MVs, TX_16X16
@@ -1920,7 +1897,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
                 _edge_pad(ru.to(torch.int32), PAD // 2),
                 _edge_pad(rv.to(torch.int32), PAD // 2))
 
-    def core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=_nomark):
+    def core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=trace.nomark):
         y, u, v = _unpack_src(src, h, w)
         ryp, rup, rvp = pad3(ry, ru, rv)
         by, bx = _block_origins(nby, nbx, src.device)
@@ -1933,7 +1910,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
                             mark=mark)
 
     def core2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
-              mark=_nomark):
+              mark=trace.nomark):
         y, u, v = _unpack_src(src, h, w)
         by, bx = _block_origins(nby, nbx, src.device)
         return p_frame_body(y, u, v, *pad3(ry, ru, rv), dcq, acq, cdef_prm,
@@ -1943,7 +1920,7 @@ def _core(h: int, w: int, use_cdef: bool = False,
                             subpel=subpel, bd=bd, mark=mark)
 
     def filt(src, fry, fru, frv, base_lf, cdef_prm, split, skip16, b64m,
-             lam, split16, skip8q, mark=_nomark):
+             lam, split16, skip8q, mark=trace.nomark):
         """The in-loop filter searches as their own stages: the deblock
         level search on the 16-px edge grid (interior edges gated by the
         split map, the merged SBs' inner 32-edges off, 8-px edges and
@@ -1999,12 +1976,12 @@ def _core(h: int, w: int, use_cdef: bool = False,
         mark("pack")
         return out
 
-    def step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=_nomark):
+    def step(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark=trace.nomark):
         o = core(src, ry, ru, rv, dcq, acq, cdef_prm, rd, ds, mark)
         return tail(src, o, cdef_prm, rd, mark)
 
     def step2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
-              mark=_nomark):
+              mark=trace.nomark):
         o = core2(src, ry, ru, rv, ry2, ru2, rv2, dcq, acq, cdef_prm, rd, ds,
                   mark)
         return tail(src, o, cdef_prm, rd, mark)
@@ -2081,7 +2058,7 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
     if lr_ctx is not None:
         use_native = False
     dev = resolve_device(device)
-    t_walk = time.perf_counter()
+    st = trace.stages(dev, timings)     # the Python walk's tile_walk
     seq, fp, cdef_map, cdef_bits = _inter_headers(
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
         lr_ctx)
@@ -2101,7 +2078,7 @@ def _pack_pframe(h, w, qindex, order_hint, mv8, skip, lv_y, lv_u, lv_v,
             w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, intra_map,
             b64_map, split16, skip8)
         tiles = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
-                             cdef_bits, dev, timings, t_walk,
+                             cdef_bits, dev, timings, st,
                              lr_data=lr_ctx and lr_ctx[1])
     else:
         tiles = _pack_pframe_tiles(
@@ -2157,13 +2134,14 @@ def _tile_spans(ti, h: int, w: int):
 
 
 def _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map, cdef_bits,
-                 device, timings, t_walk, **writer):
+                 device, timings, st, **writer):
     """The tiles of TileInfo ti walked by the Python TileWriter (keyword
     arguments `writer`), each in tile-local coordinates with its own
     entropy state and its slice of the CDEF index map, into od_ec IR;
     the tiles' IRs are coded in one launch on `device` (pack_tile_irs:
-    the od_ec kernels on cuda). `timings` receives tile_walk (the walks
-    since t_walk) and the coding stages. Returns the tiles' bytes."""
+    the od_ec kernels on cuda). `st`, the pack's stages, closes tile_walk
+    after the walks (_code_tiles); `timings` receives the coding stages.
+    Returns the tiles' bytes."""
     irs = []
     for r0, r1, c0, c1 in _tile_spans(ti, h, w):
         m0, m1 = r0 * 16, min(r1 * 16, h >> 2)
@@ -2179,14 +2157,14 @@ def _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map, cdef_bits,
         tblocks = {(r - m0, c - n0): d for (r, c), d in blocks.items()
                    if m0 <= r < m1 and n0 <= c < n1}
         irs.append(tw.write_tile(tparts, tblocks))
-    return _code_tiles(irs, device, timings, t_walk)
+    return _code_tiles(irs, device, timings, st)
 
 
-def _code_tiles(irs, device, timings, t_walk):
-    """A frame's tile IRs coded in one launch; `timings` gets tile_walk,
-    the time since t_walk before it, and the coding stages."""
-    if timings is not None:
-        timings["tile_walk"] = time.perf_counter() - t_walk
+def _code_tiles(irs, device, timings, st):
+    """A frame's tile IRs coded in one launch: `st` (the pack's stages)
+    first closes tile_walk, its work count the IR rows the walks wrote;
+    `timings` gets the coding stages."""
+    st.mark("tile_walk", sum(int(ir.shape[0]) for ir in irs))
     return pack_tile_irs(irs, device, timings)
 
 
@@ -2197,10 +2175,10 @@ def _pack_pframe_tiles(ti, h, w, qindex, mv8, skip, lv_y, lv_u, lv_v, split,
     reference's _pack_pframe(tile_grid=...) packs it): each tile's
     32-blocks (index set bidx) and its slices of the CDEF and 64x64 maps
     through the C++ packer's write_inter_tile_fast2 in tile-local
-    coordinates, the walks of several tiles on up to 8 worker threads;
-    then their IRs in one ec_pack launch. `timings` gets tile_walk (from
-    the first walk's start to the last IR's hand-back) and the coding
-    stages."""
+    coordinates, the walks of several tiles on up to 8 worker threads
+    (each under the caller's frame: trace.carry); then their IRs in one
+    ec_pack launch. `timings` gets tile_walk (from the walks' start, the
+    writers made, to the last IR's hand-back) and the coding stages."""
     B = mv8.shape[0]
     nbx = w // 32
     if split is None:
@@ -2212,8 +2190,14 @@ def _pack_pframe_tiles(ti, h, w, qindex, mv8, skip, lv_y, lv_u, lv_v, split,
             np.repeat(np.asarray(mv16)[:, :, None, :], 4, axis=2))
 
     spans = _tile_spans(ti, h, w)
+    writers = [NativeTileWriter(min(r1 * 16, h >> 2) - r0 * 16,
+                                min(c1 * 16, w >> 2) - c0 * 16, qindex,
+                                inter_frame=True, device=device,
+                                ir_only=True)
+               for r0, r1, c0, c1 in spans]
+    st = trace.stages(device, timings)
 
-    def walk(span):
+    def walk(tw, span):
         r0, r1, c0, c1 = span
         brow = np.arange(r0 * 2, min(r1 * 2, h // 32))
         bcol = np.arange(c0 * 2, min(c1 * 2, w // 32))
@@ -2231,20 +2215,14 @@ def _pack_pframe_tiles(ti, h, w, qindex, mv8, skip, lv_y, lv_u, lv_v, split,
         kw = dict(cdef_idx=sb(cdef_map), cdef_bits=cdef_bits,
                   intra32=sel(intra_map), b64=sb(b64_map),
                   split16=sel(split16), mvq8=sel(mvq8), skip8=sel(skip8))
-        tw = NativeTileWriter(min(r1 * 16, h >> 2) - r0 * 16,
-                              min(c1 * 16, w >> 2) - c0 * 16, qindex,
-                              inter_frame=True, device=device, ir_only=True)
-        t0 = time.perf_counter()
-        return t0, tw.write_inter_tile_fast2(*args, **kw)
+        return tw.write_inter_tile_fast2(*args, **kw)
 
     if len(spans) == 1:
-        walked = [walk(spans[0])]
+        irs = [walk(writers[0], spans[0])]
     else:
         with ThreadPoolExecutor(min(len(spans), 8)) as ex:
-            walked = list(ex.map(walk, spans))
-    t_walk = min(t for t, _ in walked)
-    irs = [ir for _, ir in walked]
-    return _code_tiles(irs, device, timings, t_walk)
+            irs = list(ex.map(trace.carry(walk), writers, spans))
+    return _code_tiles(irs, device, timings, st)
 
 
 def _pframe_tile_dicts(w, mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16,
@@ -2400,7 +2378,7 @@ def encode_pframe_tpu(planes, ref_planes, qindex: int = 100,
     h, w = y.shape[0], y.shape[1]
     assert h % 32 == 0 and w % 32 == 0
     dev = resolve_device(device)
-    stages = _Stages(dev, timings)
+    stages = trace.stages(dev, timings)
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=use_split, use_satd=use_satd,
                                      refine16=refine16, intra_rdo=intra_rdo,
@@ -2481,11 +2459,12 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
     P frame's as uint8 tensors on the device. `timings`, when given a
     list, receives one dict of stage times per frame, each stage timed
     on the thread that ran it; the first dict also gets gop_wall, the
-    whole call's wall time."""
+    whole call's wall time. Frame i's work runs under trace.frame(i,
+    "keyframe" or "pframe"), its host half on a worker under the same
+    frame (trace.carry)."""
     from rav1e_tpu_torch.api.speed import SpeedSettings
     from rav1e_tpu_torch.pipeline.tpu_intra import (_check_options,
                                                     encode_keyframe_tpu)
-    t_gop = time.perf_counter()
     _check_options(cdef, frames[0], None)
     ss = SpeedSettings.from_preset(speed)
     dev = resolve_device(device)
@@ -2496,19 +2475,20 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         timings.append({})
         return timings[-1]
 
-    def wall():
-        if timings is not None:
-            timings[0]["gop_wall"] = time.perf_counter() - t_gop
-
+    kf_times = frame_times()
+    gop = trace.stages(dev, kf_times)      # closes gop_wall at the end
     if len(frames) == 1:
-        pkt, rec = encode_keyframe_tpu(frames[0], qindex=qindex,
-                                       speed=speed, cdef=cdef, device=dev,
-                                       timings=frame_times())
-        wall()
+        with trace.frame(0, "keyframe"):
+            pkt, rec = encode_keyframe_tpu(frames[0], qindex=qindex,
+                                           speed=speed, cdef=cdef,
+                                           device=dev, timings=kf_times)
+        gop.mark("gop_wall")
         return [pkt], [rec]
-    kf_finish, ref_dev = encode_keyframe_tpu(
-        frames[0], qindex=qindex, speed=speed, cdef=cdef, deferred=True,
-        device=dev, timings=frame_times())
+    with trace.frame(0, "keyframe"):
+        kf_finish, ref_dev = encode_keyframe_tpu(
+            frames[0], qindex=qindex, speed=speed, cdef=cdef, deferred=True,
+            device=dev, timings=kf_times)
+        kf_finish = trace.carry(kf_finish)
     h, w = frames[0][0].shape
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=ss.partition_split_rdo,
@@ -2529,7 +2509,7 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         """Fetch frame i's packed decisions and entropy-pack them (on a
         worker, after frame i's step)."""
         with after:
-            stages = _Stages(dev, t_p)
+            stages = trace.stages(dev, t_p)
             (mv8, skip, lv_y, lv_u, lv_v, split, mv16, skip16, lf_lvl,
              cdef_map, choice, _, b64m, split16, skip8) = _fetch_packed(
                 o, gdense, nby, nbx)
@@ -2549,20 +2529,22 @@ def encode_gop_tpu(frames, qindex: int = 100, speed: int = 8,
         src_futs = [ex.submit(pack_src, f) for f in frames[1:]]
         outs, pkt_futs = [], []
         for i, sf in enumerate(src_futs, start=1):
-            t_p = frame_times()
-            stages = _Stages(dev, t_p)
-            src = torch.from_numpy(sf.result()).to(dev)
-            stages.mark("upload")
-            o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones,
-                     stages.mark)
-            ref_dev = o[4:7]
-            # the outputs stay referenced in outs until every tail ends
-            outs.append(o)
-            pkt_futs.append(ex.submit(tail, i, o, SideStream(dev), t_p))
+            with trace.frame(i, "pframe"):
+                t_p = frame_times()
+                stages = trace.stages(dev, t_p)
+                src = torch.from_numpy(sf.result()).to(dev)
+                stages.mark("upload")
+                o = step(src, *ref_dev, dcq, acq, cdef_prm, rd, ones,
+                         stages.mark)
+                ref_dev = o[4:7]
+                # the outputs stay referenced in outs until every tail ends
+                outs.append(o)
+                pkt_futs.append(ex.submit(trace.carry(tail), i, o,
+                                          SideStream(dev), t_p))
         kf_pkt, kf_rec = kf_fut.result()
         pkts = [kf_pkt] + [f.result() for f in pkt_futs]
     recs = [kf_rec] + [[o[4], o[5], o[6]] for o in outs]
-    wall()
+    gop.mark("gop_wall")
     return pkts, recs
 
 
@@ -2603,7 +2585,7 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
             "merged 64x64 blocks in a B frame: the two-reference 64x64 "
             "merge is not ported (ROADMAP.md section 3)")
     dev = resolve_device(device)
-    t_walk = time.perf_counter()
+    st = trace.stages(dev, timings)
     seq, fp, cdef_map, cdef_bits = _inter_headers(
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth,
         lr_ctx)
@@ -2655,7 +2637,7 @@ def _pack_bframe(h, w, qindex, order_hint, mv8, mvb8, choice, skip,
         blocks[(r, c)] = block(mv8[b], mvb8[b], ch, skip[b], lv_y[b],
                                lv_u[b], lv_v[b])
     tiles = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
-                         cdef_bits, dev, timings, t_walk,
+                         cdef_bits, dev, timings, st,
                          ref_sign_bias={1: False, 7: True},
                          reference_select=True,
                          lr_data=lr_ctx and lr_ctx[1])
@@ -2707,7 +2689,7 @@ def encode_bframe_tpu(planes, ref_fwd, ref_bwd, qindex: int = 100,
     h, w = planes[0].shape[0], planes[0].shape[1]
     assert h % 32 == 0 and w % 32 == 0
     dev = resolve_device(device)
-    stages = _Stages(dev, timings)
+    stages = trace.stages(dev, timings)
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=use_split, two_ref=True,
                                      b64_rdo=b64_rdo, search=search,
@@ -2781,7 +2763,7 @@ def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,
             "LAST + GOLDEN P frames are 8-bit: the reference's "
             "encode_pframe2_tpu has no bit depth")
     dev = resolve_device(device)
-    t_walk = time.perf_counter()
+    st = trace.stages(dev, timings)
     seq, fp, cdef_map, cdef_bits = _inter_headers(
         h, w, qindex, cdef, film_grain, render_size, lf_level, bit_depth)
     ti = TileInfo(seq)
@@ -2802,7 +2784,7 @@ def _pack_pframe_mref(h, w, qindex, order_hint, mv8, choice, skip,
             d.coeffs = {0: lv_y[b], 1: lv_u[b], 2: lv_v[b]}
         blocks[(r, c)] = d
     tile, = _python_walk(ti, h, w, qindex, partitions, blocks, cdef_map,
-                         cdef_bits, dev, timings, t_walk,
+                         cdef_bits, dev, timings, st,
                          ref_sign_bias={1: False, 4: False})
     ref_idx = [slot_last] * 7
     ref_idx[3] = slot_golden
@@ -2829,7 +2811,7 @@ def encode_pframe2_tpu(planes, ref_last, ref_golden, qindex: int = 100,
     h, w = planes[0].shape[0], planes[0].shape[1]
     assert h % 32 == 0 and w % 32 == 0
     dev = resolve_device(device)
-    stages = _Stages(dev, timings)
+    stages = trace.stages(dev, timings)
     step, (nby, nbx), gdense = _core(h, w, cdef is not None,
                                      use_split=False, two_ref=True,
                                      use_satd=use_satd, fwd2=True)

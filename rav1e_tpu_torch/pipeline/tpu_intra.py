@@ -50,12 +50,12 @@ item (the reference codes it on its numpy keyframe, pipeline/intra.py).
 from __future__ import annotations
 
 import functools
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from rav1e_tpu_torch import trace
 from rav1e_tpu_torch.core.constants import (
     BlockSize,
     FrameType,
@@ -66,7 +66,7 @@ from rav1e_tpu_torch.core.constants import (
 )
 from rav1e_tpu_torch.api.speed import SpeedSettings
 from rav1e_tpu_torch.device import SideStream, resolve_device, to_host
-from rav1e_tpu_torch.entropy.ec_cuda import RecordingEncoder
+from rav1e_tpu_torch.entropy.ec_cuda import IRRecorder
 from rav1e_tpu_torch.entropy.native import NativeTileWriter
 from rav1e_tpu_torch.entropy.obu import (
     FrameParams,
@@ -91,8 +91,7 @@ from rav1e_tpu_torch.ops.intra import predict_modes
 from rav1e_tpu_torch.ops.ref.deblock import level_from_qindex
 from rav1e_tpu_torch.ops.ref.quant import ac_q, chroma_dq, dc_q, tx_scale
 from rav1e_tpu_torch.pipeline.tpu_inter import (
-    _nomark,
-    _Stages,
+    _code_tiles,
     gather_dense,
     nnz_stream,
     scanline,
@@ -1221,8 +1220,8 @@ def _kf_skip8(state, split8: bool = False):
 
 def _kf_filters(state, srcs, base_lf: int, cdef_prm, lam,
                 use_cdef: bool, use_deblock: bool, cdef_rdo: bool = False,
-                mark=_nomark, split_rdo: bool = False, split8: bool = False,
-                keep_pre: bool = False):
+                mark=trace.nomark, split_rdo: bool = False,
+                split8: bool = False, keep_pre: bool = False):
     """Keyframe in-loop filters: the deblock level search, then CDEF —
     the per-64x64-SB ladder search against the source (cdef_rdo) or the
     fixed strengths cdef_prm (y_pri, y_sec, uv_pri, uv_sec, damping).
@@ -1376,7 +1375,7 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
     before CDEF (pre_cdef) for loop restoration. aq: variance AQ, each
     32-block quantized at its segment's qindex (_aq_segments)."""
     dev = resolve_device(device)
-    stages = _Stages(dev, timings)
+    stages = trace.stages(dev, timings)
     y, u, v = (np.asarray(p) for p in planes)
     h, w = y.shape
     if h % LB or w % LB:
@@ -1444,7 +1443,7 @@ def analyze_keyframe(planes, qindex: int = 100, speed: int = 6,
         cf_sk=skew(dec[9], ss.cfl), tr_tab=tr_sk,
         ytx_sk=skew(dec[10], tx_search), s16_sk=skew(dec[11], split8),
         ym8_sk=skew(dec[12], split8), uvm8_sk=skew(dec[13], split8))
-    stages.mark("recon_wavefront")
+    stages.mark("recon_wavefront", int(has_l_t.shape[0]))   # diagonals
     state = tuple(unskew(x) for x in rw) + tuple(dec[6:])
     cdef_prm = tuple(cdef) if cdef is not None else (0, 0, 0, 0, 3)
     lf_lvl, cdef_idx, rec_packed, pre = _kf_filters(
@@ -1578,7 +1577,7 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     blocks carry their segment ids. Returns (packet, [y, u, v] recon
     int32)."""
     dev = resolve_device(device)
-    stages = _Stages(dev, timings)
+    stages = trace.stages(dev, timings)
     h, w = np.asarray(planes[0]).shape
     bh, bw = h // LB, w // LB
     B = bh * bw
@@ -1646,7 +1645,6 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
         stages.mark("fetch_unpack")
 
     # ---- tile walk (host) into IR; the kernel codes the IR ----
-    t_walk = time.perf_counter()
     seq = Sequence(width=w, height=h, enable_cdef=kd.cdef is not None)
     for k, v_ in (seq_extra or {}).items():
         setattr(seq, k, v_)
@@ -1670,6 +1668,7 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
     ti = TileInfo(seq)
     mi_rows, mi_cols = h >> 2, w >> 2
     if use_native:
+        # the writer times its walk (tile_walk) and codes its tile
         tw = NativeTileWriter(mi_rows, mi_cols, qindex, device=dev,
                               timings=timings)
         tile = tw.write_intra_tile_fast(
@@ -1680,25 +1679,18 @@ def pack_keyframe(kd: KeyframeDevice, planes, qindex: int = 100,
             ytx=ytx.reshape(-1, 4), split16=s16 if any8 else None,
             ym8=ym8 if any8 else None, uvm8=uvm8 if any8 else None)
         return keyframe_packet(seq, fp, ti, [tile]), rec
-    ec_times: dict = {}
-    tw = TileWriter(mi_rows, mi_cols, qindex,
-                    encoder=functools.partial(RecordingEncoder, dev,
-                                              ec_times), lr_data=lr_data,
-                    seg_alt_q=kd.seg_alt_q)
+    tw = TileWriter(mi_rows, mi_cols, qindex, encoder=IRRecorder,
+                    lr_data=lr_data, seg_alt_q=kd.seg_alt_q)
     if cdef_bits:
         tw.cdef_bits = cdef_bits
         tw.cdef_idx_map = cdef_map
     partitions, blocks = _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8,
                                         uvm8, ly, lu, lvv, mi_rows, mi_cols,
                                         kd.seg_map)
-    tile = tw.write_tile(partitions, blocks)
-    pkt = keyframe_packet(seq, fp, ti, [tile])
-    if timings is not None:
-        # the walk's own time: the coding stages are timed in done()
-        timings["tile_walk"] = (time.perf_counter() - t_walk
-                                - ec_times["ec_kernel"] - ec_times["finish"])
-        timings.update(ec_times)
-    return pkt, rec
+    # tile_walk from the fetch's end to the IR, then the coding stages
+    tile, = _code_tiles([tw.write_tile(partitions, blocks)], dev, timings,
+                        stages)
+    return keyframe_packet(seq, fp, ti, [tile]), rec
 
 
 def _kf_tile_dicts(sp, my, mu, cfm, ytx, s16, ym8, uvm8, ly, lu, lvv,
